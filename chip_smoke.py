@@ -1,0 +1,248 @@
+"""Smoke run of the PyTorch/CUDA port (kueue_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+  1. device: the card's name and power limit (nvidia-smi);
+  2. build: nvcc builds every kernel of the port from csrc/;
+  3. heads kernel vs its plain PyTorch version on the card, exact, over
+     a grid of (W, C) shapes including the drain's (50000, 1000), plus
+     timings at that shape;
+  4. a 512-workload drain on the card: 18 cycles, 207 admitted,
+     decision checksum 0x6a18f8b7;
+  5. the full-width drain (1,000 ClusterQueues, 50,000 workloads): 73
+     cycles, 49,937 admitted, checksum 0x4eaa40c2, with the heads kernel
+     launched once per cycle.
+The expected decisions are the JAX package's own on the same scenarios
+(tests/test_torch_drain.py recomputes the small one). The last two lines
+are a JSON summary of the kernels and the result line.
+
+Exits non-zero without a result when CUDA is absent. Imports neither
+JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import zlib
+
+import numpy as np
+
+BIG_RANK = 1 << 40
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+
+SMALL = dict(n_cohorts=4, cqs_per_cohort=4, n_workloads=512,
+             nominal_per_cq=40000, sized_to_fit=False)
+SMALL_EXPECT = (18, 207, 0x6a18f8b7)
+FULL = dict(n_cohorts=200, cqs_per_cohort=5, n_workloads=50000)
+FULL_EXPECT = (73, 49937, 0x4eaa40c2)
+HEADS_SHAPES = [(1, 1), (37, 3), (256, 7), (1000, 130), (5000, 1000),
+                (50000, 1000), (50000, 8192)]  # 8192 bins: global atomics
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def checksum(stats) -> int:
+    return zlib.crc32(stats["admit_cycle"].tobytes()
+                      + stats["admit_pos"].tobytes()
+                      + stats["wl_flavor"].tobytes())
+
+
+def time_ms(fn, reps: int = 21, inner: int = 50) -> float:
+    """Median over ``reps`` CUDA-event timings of ``inner`` calls each,
+    per call, after a warm-up."""
+    import torch
+
+    for _ in range(inner):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return statistics.median(samples)
+
+
+def heads_cases():
+    """(name, eff_rank int64[W], wl_cq, C) on the host, seeded."""
+    for w, c in HEADS_SHAPES:
+        rng = np.random.default_rng(w * 1000 + c)
+        rank = rng.permutation(w).astype(np.int64)
+        cq = rng.integers(0, c, w).astype(np.int32)
+        active = rng.random(w) > 0.3
+        yield f"grid w={w} c={c}", np.where(active, rank, BIG_RANK), cq, c
+    rng = np.random.default_rng(7)
+    yield ("all inactive", np.full(4096, BIG_RANK, np.int64),
+           rng.integers(0, 64, 4096).astype(np.int32), 64)
+    cq = rng.integers(0, 100, 20000).astype(np.int32)
+    cq[rng.random(20000) < 0.3] = -1
+    yield ("cq=-1 rows", rng.permutation(20000).astype(np.int64), cq, 100)
+    yield ("ranks up to BIG_RANK-1",
+           BIG_RANK - 1 - rng.integers(0, 5000, 50000).astype(np.int64),
+           rng.integers(0, 1000, 50000).astype(np.int32), 1000)
+    yield ("int64 cq", rng.permutation(50000).astype(np.int64),
+           rng.integers(0, 1000, 50000).astype(np.int64), 1000)
+
+
+def phase_heads(dev, heads):
+    import torch
+
+    worst = 0
+    for name, eff, cq, c in heads_cases():
+        eff_t = torch.as_tensor(eff, device=dev)
+        cq_t = torch.as_tensor(cq, device=dev)
+        got = heads.select_heads(eff_t, cq_t, c, BIG_RANK)
+        want = heads.select_heads_plain(eff_t, cq_t, c, BIG_RANK)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max().item()) if c else 0
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"heads kernel != plain on {name}: "
+                                 f"max abs err {err}")
+        print(f"  heads {name}: exact")
+
+    # Timing at the drain's shape: W = 50,000 rows, C = 1,000 bins.
+    rng = np.random.default_rng(50000 * 1000 + 1000)
+    W, C = 50000, 1000
+    eff_t = torch.as_tensor(np.where(rng.random(W) > 0.3,
+                                     rng.permutation(W), BIG_RANK)
+                            .astype(np.int64), device=dev)
+    cq_t = torch.as_tensor(rng.integers(0, C, W).astype(np.int32),
+                           device=dev)
+    base = torch.full((C + 1,), BIG_RANK, dtype=torch.int64, device=dev)
+    idx = torch.where((cq_t >= 0) & (cq_t < C), cq_t, C).long()
+    kernel_ms = time_ms(lambda: heads.select_heads(eff_t, cq_t, C, BIG_RANK))
+    plain_ms = time_ms(
+        lambda: heads.select_heads_plain(eff_t, cq_t, C, BIG_RANK))
+    library_ms = time_ms(
+        lambda: base.scatter_reduce(0, idx, eff_t, "amin",
+                                    include_self=True))
+    kernel_ms_2 = time_ms(
+        lambda: heads.select_heads(eff_t, cq_t, C, BIG_RANK))
+    n_bytes = W * 8 + W * cq_t.element_size() + C * 8
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = W / SCALAR_OPS_PER_S * 1e3
+    print(f"  heads timing W={W} C={C}: kernel_ms={kernel_ms:.6f} "
+          f"(again {kernel_ms_2:.6f}) plain_ms={plain_ms:.6f} "
+          f"library_ms={library_ms:.6f} bound_ms={max(bytes_ms, ops_ms):.6f} "
+          f"({n_bytes} bytes)")
+    return dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def drain(scenario_kw, device=None):
+    from kueue_tpu_torch.bench.scenario import baseline_like
+    from kueue_tpu_torch.cache.snapshot import build_snapshot
+    from kueue_tpu_torch.oracle.batched import BatchedDrainSolver
+
+    t0 = time.perf_counter()
+    scen = baseline_like(**scenario_kw)
+    snap = build_snapshot(scen.cluster_queues, scen.cohorts, scen.flavors,
+                          [])
+    solver = BatchedDrainSolver(snap, scen.pending_infos(), device=device)
+    return solver, time.perf_counter() - t0
+
+
+def check(stats, expect, label):
+    got = (stats["cycles"], stats["admitted"], checksum(stats))
+    print(f"  {label}: cycles={got[0]} admitted={got[1]} "
+          f"checksum=0x{got[2]:08x}")
+    if got != expect:
+        raise AssertionError(
+            f"{label}: got cycles/admitted/checksum {got[0]}/{got[1]}/"
+            f"0x{got[2]:08x}, want {expect[0]}/{expect[1]}/"
+            f"0x{expect[2]:08x}")
+    ac = stats["admit_cycle"]
+    if ac.dtype != np.int32 or stats["wl_flavor"].dtype != np.int32:
+        raise AssertionError(f"{label}: decision arrays must be int32")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from kueue_tpu_torch.device import resolve_device
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import heads
+
+    dev = resolve_device()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[1] device: {card} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | {kind}")
+
+    seconds = _build.build()
+    for name, s in seconds.items():
+        print(f"[2] build {name}: {s:.2f} s "
+              f"({_build.library_path(name).name})")
+        log = _build.library_path(name).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text(errors="replace").splitlines():
+                if "registers" in line or "smem" in line:
+                    print(f"    {line.strip()}")
+
+    print("[3] heads kernel vs plain on the card")
+    heads_row = phase_heads(dev, heads)
+
+    print("[4] small drain on the card")
+    solver, _ = drain(SMALL)
+    _, stats = solver.solve()
+    check(stats, SMALL_EXPECT, "512 workloads")
+
+    print("[5] full-width drain on the card")
+    solver, encode_s = drain(FULL)
+    heads.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stats = solver.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = heads.launches
+    check(stats, FULL_EXPECT, "50000 workloads")
+    if launches != FULL_EXPECT[0]:
+        raise AssertionError(f"heads kernel launched {launches} times in "
+                             f"the drain, want {FULL_EXPECT[0]}")
+    t0 = time.perf_counter()
+    _, again = solver.solve()
+    torch.cuda.synchronize()
+    solve2_s = time.perf_counter() - t0
+    check(again, FULL_EXPECT, "50000 workloads, second solve")
+    print(f"  encode_s={encode_s:.3f} solve_s={solve_s:.3f} "
+          f"admissions_per_s={stats['admitted'] / solve_s:.1f} "
+          f"second solve_s={solve2_s:.3f} "
+          f"admissions_per_s={stats['admitted'] / solve2_s:.1f} "
+          f"heads_launches={launches} | {card}")
+
+    print(card)
+    print(json.dumps({"kernels": [dict(
+        name="heads_segment_min", route="cuda",
+        source="kueue_tpu_torch/csrc/heads.cu",
+        replaces="kueue_tpu/ops/pallas_kernels.py:83",
+        launches=launches, **heads_row)]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

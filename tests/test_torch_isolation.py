@@ -1,0 +1,50 @@
+"""The PyTorch port stands alone: importing every module of
+kueue_tpu_torch and chip_smoke.py loads neither JAX nor the JAX package
+(kueue_tpu, kueue_tpu.*), and its entry points default to CUDA, raising
+when CUDA is absent and the CPU was not asked for."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from kueue_tpu_torch.device import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import pkgutil, sys
+import kueue_tpu_torch
+for m in pkgutil.walk_packages(kueue_tpu_torch.__path__, "kueue_tpu_torch."):
+    __import__(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "kueue_tpu") or m.startswith(("jax.", "kueue_tpu.")))
+assert not bad, bad
+assert "kueue_tpu_torch.oracle.batched" in sys.modules
+print("isolated")
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "isolated"
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            resolve_device()
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
