@@ -12,10 +12,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      decision checksum 0x6a18f8b7;
   5. the full-width drain (1,000 ClusterQueues, 50,000 workloads): 73
      cycles, 49,937 admitted, checksum 0x4eaa40c2, with the heads kernel
-     launched once per cycle.
+     launched once per cycle;
+  6. TAS leaf kernel vs its plain PyTorch version on the card, exact,
+     over the reference's grid, 300 GiB quantities, counts of 2**31 and
+     more, no requested column, every leaf masked, the 5,120-leaf forest
+     and 65,536 x 8 leaves with wrapping int64 quantities, plus timings
+     at the forest's shape;
+  7. device TAS on the 5,120-node forest (kueue_tpu_torch/bench/
+     tas_world.py): the feasibility batch over the 21 request signatures
+     at the empty forest, 440 placements one by one against live usage,
+     the feasibility batch at the final usage, and phase 1 (leaf kernel,
+     then the bubble up the tree) per per-pod vector, each against the
+     JAX package's checksums, with the leaf kernel launched once per
+     per-pod vector.
 The expected decisions are the JAX package's own on the same scenarios
-(tests/test_torch_drain.py recomputes the small one). The last two lines
-are a JSON summary of the kernels and the result line.
+(tests/test_torch_drain.py and tests/test_torch_tas_feasibility.py
+recompute them). The last two lines are a JSON summary of the kernels
+and the result line.
 
 Exits non-zero without a result when CUDA is absent. Imports neither
 JAX nor the JAX package.
@@ -43,6 +56,13 @@ FULL = dict(n_cohorts=200, cqs_per_cohort=5, n_workloads=50000)
 FULL_EXPECT = (73, 49937, 0x4eaa40c2)
 HEADS_SHAPES = [(1, 1), (37, 3), (256, 7), (1000, 130), (5000, 1000),
                 (50000, 1000), (50000, 8192)]  # 8192 bins: global atomics
+LEAF_GRID = [(1, 1), (100, 3), (640, 2), (1000, 5)]
+# The JAX package's outcomes on the 5,120-node TAS world: placed count
+# and the crc32 of the placements, both feasibility batches and phase 1.
+TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
+                  per_pod_vectors=2, placements=0xe61bb495,
+                  feasibility_empty=0x76cebe8a,
+                  feasibility_final=0x99e5afa2, phase1=0xe7c953cf)
 
 
 def card_line() -> str:
@@ -147,6 +167,165 @@ def phase_heads(dev, heads):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def leaf_cases(dev):
+    """(name, free, tas, assumed, per_pod, mask) as int64/bool tensors on
+    ``dev``, seeded."""
+    import torch
+
+    from kueue_tpu_torch.bench import tas_world
+    from kueue_tpu_torch.ops import tas as tops
+
+    def on(*arrays):
+        return tuple(torch.as_tensor(a, device=dev) for a in arrays)
+
+    for leaves, res in LEAF_GRID:
+        rng = np.random.default_rng(leaves * 10 + res)
+        yield (f"grid {leaves}x{res}",
+               *on(rng.integers(0, 1000, (leaves, res)).astype(np.int64),
+                   rng.integers(0, 500, (leaves, res)).astype(np.int64),
+                   rng.integers(0, 100, (leaves, res)).astype(np.int64),
+                   rng.integers(0, 8, res).astype(np.int64),
+                   rng.random(leaves) > 0.2))
+    gib = 2**30
+    yield ("300 GiB", *on(np.array([[300 * gib]], np.int64),
+                          np.array([[200 * gib]], np.int64),
+                          np.zeros((1, 1), np.int64),
+                          np.array([10 * gib], np.int64),
+                          np.array([True])))
+    rng = np.random.default_rng(31)
+    big = rng.integers(2**31, 2**40, (4096, 2)).astype(np.int64)
+    yield ("counts >= 2**31", *on(big, np.zeros_like(big), np.zeros_like(big),
+                                  np.array([1, 0], np.int64),
+                                  rng.random(4096) > 0.1))
+    free = rng.integers(0, 10**6, (512, 3)).astype(np.int64)
+    yield ("no requested column", *on(free, np.zeros_like(free),
+                                      np.zeros_like(free),
+                                      np.array([0, -5, 0], np.int64),
+                                      np.ones(512, bool)))
+    yield ("all leaves masked", *on(free, np.zeros_like(free),
+                                    np.zeros_like(free),
+                                    np.array([3, 1, 7], np.int64),
+                                    np.zeros(512, bool)))
+    snap = forest_snapshot(dev)
+    enc = tops.encode_tas_snapshot(snap, tas_world.PHASE1_RESOURCES)
+    for cpu in (100, 1000):
+        yield (f"forest 5120x2 cpu={cpu}",
+               *on(enc["free_capacity"], enc["tas_usage"],
+                   np.zeros_like(enc["tas_usage"]),
+                   np.array([cpu, 1], np.int64),
+                   np.ones(len(enc["free_capacity"]), bool)))
+    rng = np.random.default_rng(65536)
+    shape = (65536, 8)
+    free = rng.integers(-2**62, 2**62, shape).astype(np.int64)
+    free[::7] = np.iinfo(np.int64).min + rng.integers(0, 100, (1, 8))
+    tas = rng.integers(-2**62, 2**62, shape).astype(np.int64)
+    assumed = rng.integers(0, 2**40, shape).astype(np.int64)
+    yield ("65536x8 wrapping int64",
+           *on(free, tas, assumed,
+               np.array([1, 0, 3, 2**33, -1, 7, 2**20, 5], np.int64),
+               rng.random(65536) > 0.05))
+
+
+def forest_snapshot(dev, seed=5120):
+    """The 5,120-node forest with seeded TAS usage on half its leaves."""
+    import random
+
+    from kueue_tpu_torch.bench import tas_world
+
+    snap = tas_world.build_snapshot(tas_world.PortBackend(dev),
+                                    tas_world.node_specs(*tas_world.FULL))
+    rng = random.Random(seed)
+    for values in list(snap.leaves):
+        if rng.random() < 0.5:
+            snap.add_usage(values, {"cpu": rng.randrange(0, 6000)},
+                           rng.randrange(0, 8))
+    return snap
+
+
+def phase_leaf(dev, leaf):
+    import torch
+
+    worst = 0
+    forest = None
+    for name, free, tas, assumed, per_pod, mask in leaf_cases(dev):
+        got = leaf.leaf_fit_counts(free, tas, assumed, per_pod, mask)
+        want = leaf.leaf_fit_counts_plain(free, tas, assumed, per_pod, mask)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"leaf kernel != plain on {name}: "
+                                 f"max abs err {err}")
+        if name == "300 GiB" and got.tolist() != [10]:
+            raise AssertionError(f"300 GiB case gave {got.tolist()}, "
+                                 f"want [10]")
+        if name == "counts >= 2**31" and not bool((got < 0).any()):
+            raise AssertionError("no count >= 2**31 reached the int32 "
+                                 "conversion")
+        if name.startswith("forest") and forest is None:
+            forest = (free, tas, assumed, per_pod, mask)
+        print(f"  leaf {name}: exact")
+
+    free, tas, assumed, per_pod, mask = forest
+    L, S = free.shape
+    kernel_ms = time_ms(
+        lambda: leaf.leaf_fit_counts(free, tas, assumed, per_pod, mask))
+    plain_ms = time_ms(
+        lambda: leaf.leaf_fit_counts_plain(free, tas, assumed, per_pod, mask))
+    kernel_ms_2 = time_ms(
+        lambda: leaf.leaf_fit_counts(free, tas, assumed, per_pod, mask))
+    n_bytes = 3 * L * S * 8 + S * 8 + L * 1 + L * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    # two subtractions, a division and a minimum per (leaf, column)
+    ops_ms = 4 * L * S / SCALAR_OPS_PER_S * 1e3
+    print(f"  leaf timing L={L} S={S}: kernel_ms={kernel_ms:.6f} "
+          f"(again {kernel_ms_2:.6f}) plain_ms={plain_ms:.6f} "
+          f"library_ms=none bound_ms={max(bytes_ms, ops_ms):.6f} "
+          f"({n_bytes} bytes)")
+    return dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def phase_tas(dev, leaf, card):
+    """The 5,120-node TAS world on the card against the JAX package's
+    checksums; returns the leaf kernel's launches in it."""
+    import torch
+
+    from kueue_tpu_torch.bench import tas_world
+
+    backend = tas_world.PortBackend(dev)
+    leaf.launches = 0
+    torch.cuda.synchronize()
+    got = tas_world.run(backend, tas_world.FULL)
+    torch.cuda.synchronize()
+    launches = leaf.launches
+    for key, want in TAS_EXPECT.items():
+        print(f"  {key}: {got[key]:#010x}" if key in (
+            "placements", "feasibility_empty", "feasibility_final",
+            "phase1") else f"  {key}: {got[key]}")
+        if got[key] != want:
+            raise AssertionError(f"TAS world {key}: got {got[key]}, want "
+                                 f"{want}")
+    if launches != TAS_EXPECT["per_pod_vectors"]:
+        raise AssertionError(f"leaf kernel launched {launches} times in "
+                             f"the TAS run, want "
+                             f"{TAS_EXPECT['per_pod_vectors']}")
+    sec = got["seconds"]
+    n_dev = got["device_placements"]
+    print(f"  place: {sec['place']:.3f} s for {got['requests']} requests, "
+          f"{n_dev} reached try_find: "
+          f"{backend.device_seconds / n_dev * 1e3:.3f} ms per try_find | "
+          f"{card}")
+    print(f"  feasibility: {sec['feasibility_empty'] * 1e3:.3f} ms "
+          f"(empty, first launch) {sec['feasibility_final'] * 1e3:.3f} ms "
+          f"(final) per launch of {got['signatures']} signatures | {card}")
+    print(f"  phase 1: {sec['phase1'] / got['per_pod_vectors'] * 1e3:.3f} "
+          f"ms per call (encode, leaf kernel, bubble) | {card}")
+    print(f"  leaf_launches={launches}")
+    return launches
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -182,7 +361,7 @@ def main() -> int:
         return 1
     from kueue_tpu_torch.device import resolve_device
     from kueue_tpu_torch.ops import _build
-    from kueue_tpu_torch.ops import heads
+    from kueue_tpu_torch.ops import heads, leaf
 
     dev = resolve_device()
     card = card_line()
@@ -232,12 +411,22 @@ def main() -> int:
           f"admissions_per_s={stats['admitted'] / solve2_s:.1f} "
           f"heads_launches={launches} | {card}")
 
+    print("[6] leaf kernel vs plain on the card")
+    leaf_row = phase_leaf(dev, leaf)
+
+    print("[7] device TAS on the 5,120-node forest")
+    leaf_launches = phase_tas(dev, leaf, card)
+
     print(card)
-    print(json.dumps({"kernels": [dict(
-        name="heads_segment_min", route="cuda",
-        source="kueue_tpu_torch/csrc/heads.cu",
-        replaces="kueue_tpu/ops/pallas_kernels.py:83",
-        launches=launches, **heads_row)]}))
+    print(json.dumps({"kernels": [
+        dict(name="heads_segment_min", route="cuda",
+             source="kueue_tpu_torch/csrc/heads.cu",
+             replaces="kueue_tpu/ops/pallas_kernels.py:83",
+             launches=launches, **heads_row),
+        dict(name="leaf_fit_counts", route="cuda",
+             source="kueue_tpu_torch/csrc/leaf.cu",
+             replaces="kueue_tpu/ops/pallas_kernels.py:152",
+             launches=leaf_launches, **leaf_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,7 @@
 
 A copy of the shapes in ``kueue_tpu/api/types.py`` (field names,
 defaults and enum values unchanged) without the parts no port module
-reads yet: admission status, TAS requests, taints and tolerations
-types, MultiKueue fields. All quantities are integers in milli-units;
+reads yet: admission status, MultiKueue fields. All quantities are integers in milli-units;
 ``INF`` stands in for "Unlimited" and the helpers saturate.
 """
 
@@ -174,19 +173,84 @@ class ResourceFlavor:
     name: str
 
 
+@dataclass(frozen=True)
+class Taint:
+    key: str
+    value: str = ""
+    effect: str = "NoSchedule"  # NoSchedule | NoExecute | PreferNoSchedule
+
+
+@dataclass(frozen=True)
+class Toleration:
+    key: str = ""  # empty key + Exists matches all
+    operator: str = "Equal"  # Equal | Exists
+    value: str = ""
+    effect: str = ""  # empty matches all effects
+
+    def tolerates(self, taint: Taint) -> bool:
+        if self.effect and self.effect != taint.effect:
+            return False
+        if not self.key:
+            return self.operator == "Exists"
+        if self.key != taint.key:
+            return False
+        if self.operator == "Exists":
+            return True
+        return self.value == taint.value
+
+
+@dataclass(frozen=True)
+class TopologyLevel:
+    node_label: str
+
+
+@dataclass
+class Topology:
+    """Ordered list of node-label levels, top (widest) first, e.g. block
+    -> rack -> host."""
+
+    name: str
+    levels: tuple[TopologyLevel, ...] = ()
+
+
+class TopologyMode(str, Enum):
+    REQUIRED = "Required"
+    PREFERRED = "Preferred"
+    UNCONSTRAINED = "Unconstrained"
+
+
+@dataclass(frozen=True)
+class PodSetTopologyRequest:
+    """``mode=None`` encodes an empty request; the default is the
+    implied-unconstrained form. ``slice_constraints`` is the multi-layer
+    list ((level_label, size), ...), outermost first;
+    ``slice_level``/``slice_size`` are the single-layer fields."""
+
+    mode: Optional[TopologyMode] = TopologyMode.UNCONSTRAINED
+    level: Optional[str] = None  # node label of required/preferred level
+    slice_level: Optional[str] = None
+    slice_size: Optional[int] = None
+    slice_constraints: tuple = ()
+    pod_set_group_name: Optional[str] = None
+    pod_index_label: Optional[str] = None  # rank label for the ungater
+
+
 @dataclass
 class PodSet:
     """``requests`` are per-pod milli-quantities; total = requests *
     count. Node selectors, affinity and tolerations only make a pod set
-    ineligible for the dense path here (the port has no flavor masks)."""
+    ineligible for the dense drain path (the port has no flavor masks);
+    TAS placement matches them against node labels and taints."""
 
     name: str
     count: int
     requests: dict[str, int] = field(default_factory=dict)
     min_count: Optional[int] = None  # partial admission lower bound
+    topology_request: Optional[PodSetTopologyRequest] = None
     node_selector: dict[str, str] = field(default_factory=dict)
+    # ORed terms, each a tuple of (key, operator, values) requirements.
     node_affinity: tuple = ()
-    tolerations: tuple = ()
+    tolerations: tuple[Toleration, ...] = ()
 
 
 class WorkloadConditionType(str, Enum):

@@ -19,6 +19,13 @@ def scheduling_hash(wl: Workload, cluster_queue: str) -> tuple:
              tuple(sorted(ps.node_selector.items())),
              ps.node_affinity,
              ps.min_count,
+             (ps.topology_request.mode.value
+              if ps.topology_request.mode is not None else None,
+              ps.topology_request.level,
+              ps.topology_request.slice_level,
+              ps.topology_request.slice_size,
+              ps.topology_request.pod_set_group_name)
+             if ps.topology_request is not None else None,
              ps.tolerations)
             for ps in wl.pod_sets)),
     )

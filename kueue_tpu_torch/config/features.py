@@ -10,6 +10,14 @@ _DEFAULTS: dict[str, bool] = {
     "PrioritySortingWithinCohort": True,
     # Reclaimable pods free their share of quota.
     "ReclaimablePods": True,
+    # TAS placement solved by the device program (ops/tas.tas_place).
+    "DeviceTAS": True,
+    # Balanced placement for preferred TAS requests (host-only).
+    "TASBalancedPlacement": False,
+    # Multi-layer slice constraints beyond the outermost layer.
+    "TASMultiLayerTopology": True,
+    # Unconstrained TAS placements use the LeastFreeCapacity ordering.
+    "TASProfileMixed": True,
 }
 
 

@@ -29,6 +29,10 @@ _ENTRY = {
               [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                ctypes.c_void_p, ctypes.c_void_p]),
+    "leaf": ("kueue_leaf_fit_counts",
+             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
 }
 
 

@@ -381,15 +381,15 @@ def encode_podset_requests(info, ci: int, world, s_idx: dict,
 def dense_path_eligible(info) -> bool:
     """Whether a pending workload can be decided on the dense device
     path. Ineligible: more pod sets than MAX_FAST_PODSETS, partial
-    admission (min_count), node selectors, affinity or tolerations,
-    explicit zero-quantity requests (the dense encoding cannot tell
-    them from absent ones) and elastic slice replacements."""
+    admission (min_count), topology requests, node selectors, affinity
+    or tolerations, explicit zero-quantity requests (the dense encoding
+    cannot tell them from absent ones) and elastic slice replacements."""
     if len(info.total_requests) > MAX_FAST_PODSETS:
         return False
     if info.obj.replaced_workload_slice is not None:
         return False
     for psr, ps in zip(info.total_requests, info.obj.pod_sets):
-        if ps.min_count is not None:
+        if ps.min_count is not None or ps.topology_request is not None:
             return False
         if any(q == 0 for q in psr.requests.values()):
             return False
