@@ -6,18 +6,23 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel of the port from csrc/;
   3. heads kernel vs its plain PyTorch version on the card, exact, over
-     a grid of (W, C) shapes including the drain's (50000, 1000), plus
-     timings at that shape;
+     a grid of (W, C) shapes including the drain's (50000, 1000) and one
+     case of each branch of the kernel (one thread-block cluster, several
+     clusters, bins beyond shared memory), plus timings at the drain's
+     shape: per call and on the device, with exactly one launch a call;
   4. a 512-workload drain on the card: 18 cycles, 207 admitted,
      decision checksum 0x6a18f8b7;
   5. the full-width drain (1,000 ClusterQueues, 50,000 workloads): 73
      cycles, 49,937 admitted, checksum 0x4eaa40c2, with the heads kernel
-     launched once per cycle;
+     launched once per cycle; then the heads kernel vs its plain version
+     on the drain's own first-cycle inputs, exact;
   6. TAS leaf kernel vs its plain PyTorch version on the card, exact,
      over the reference's grid, 300 GiB quantities, counts of 2**31 and
-     more, no requested column, every leaf masked, the 5,120-leaf forest
-     and 65,536 x 8 leaves with wrapping int64 quantities, plus timings
-     at the forest's shape;
+     more, no requested column, every leaf masked, the 5,120-leaf forest,
+     65,536 x 8 leaves with wrapping int64 quantities, and each load path
+     of the kernel (odd S, S = 1, wide rows of 33 and 70 columns, rows off
+     16-byte alignment), plus timings at the forest's shape and at
+     65,536 x 8;
   7. device TAS on the 5,120-node forest (kueue_tpu_torch/bench/
      tas_world.py): the feasibility batch over the 21 request signatures
      at the empty forest, 440 placements one by one against live usage,
@@ -28,7 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py and tests/test_torch_tas_feasibility.py
 recompute them). The last two lines are a JSON summary of the kernels
-and the result line.
+and the result line. Timing helpers and the shared inputs come from
+kueue_tpu_torch/bench/profile_kernels.py, which reports the same
+split of each kernel's time in more detail.
 
 Exits non-zero without a result when CUDA is absent. Imports neither
 JAX nor the JAX package.
@@ -37,7 +44,6 @@ JAX nor the JAX package.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -54,9 +60,16 @@ SMALL = dict(n_cohorts=4, cqs_per_cohort=4, n_workloads=512,
 SMALL_EXPECT = (18, 207, 0x6a18f8b7)
 FULL = dict(n_cohorts=200, cqs_per_cohort=5, n_workloads=50000)
 FULL_EXPECT = (73, 49937, 0x4eaa40c2)
+# The drain's (50000, 1000) and (W, C) shapes of every branch of the
+# kernel: one cluster, 64 KB of bins (8192) and all 227 KB of them
+# (29056) in shared memory; several clusters just past one cluster's
+# rows (65537) and at 1,000,000 rows; bins beyond shared memory (32768),
+# global atomics.
 HEADS_SHAPES = [(1, 1), (37, 3), (256, 7), (1000, 130), (5000, 1000),
-                (50000, 1000), (50000, 8192)]  # 8192 bins: global atomics
+                (50000, 1000), (50000, 8192), (50000, 29056), (65537, 1000),
+                (1000000, 1000), (50000, 32768)]
 LEAF_GRID = [(1, 1), (100, 3), (640, 2), (1000, 5)]
+LEAF_PATHS = [(5120, 3), (5120, 1), (4096, 33), (4096, 70)]
 # The JAX package's outcomes on the 5,120-node TAS world: placed count
 # and the crc32 of the placements, both feasibility batches and phase 1.
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
@@ -76,27 +89,6 @@ def checksum(stats) -> int:
     return zlib.crc32(stats["admit_cycle"].tobytes()
                       + stats["admit_pos"].tobytes()
                       + stats["wl_flavor"].tobytes())
-
-
-def time_ms(fn, reps: int = 21, inner: int = 50) -> float:
-    """Median over ``reps`` CUDA-event timings of ``inner`` calls each,
-    per call, after a warm-up."""
-    import torch
-
-    for _ in range(inner):
-        fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / inner)
-    return statistics.median(samples)
 
 
 def heads_cases():
@@ -120,54 +112,74 @@ def heads_cases():
            rng.integers(0, 1000, 50000).astype(np.int64), 1000)
 
 
-def phase_heads(dev, heads):
+def phase_heads(dev, heads, pk):
     import torch
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0
     for name, eff, cq, c in heads_cases():
         eff_t = torch.as_tensor(eff, device=dev)
         cq_t = torch.as_tensor(cq, device=dev)
-        got = heads.select_heads(eff_t, cq_t, c, BIG_RANK)
-        want = heads.select_heads_plain(eff_t, cq_t, c, BIG_RANK)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max().item()) if c else 0
-        worst = max(worst, err)
-        if not torch.equal(got, want):
-            raise AssertionError(f"heads kernel != plain on {name}: "
-                                 f"max abs err {err}")
-        print(f"  heads {name}: exact")
+        worst = max(worst, check_heads(heads, name, eff_t, cq_t, c, sms))
 
     # Timing at the drain's shape: W = 50,000 rows, C = 1,000 bins.
-    rng = np.random.default_rng(50000 * 1000 + 1000)
-    W, C = 50000, 1000
-    eff_t = torch.as_tensor(np.where(rng.random(W) > 0.3,
-                                     rng.permutation(W), BIG_RANK)
-                            .astype(np.int64), device=dev)
-    cq_t = torch.as_tensor(rng.integers(0, C, W).astype(np.int32),
-                           device=dev)
+    eff_t, cq_t, C = pk.heads_drain_shape(dev)
+    W = eff_t.numel()
     base = torch.full((C + 1,), BIG_RANK, dtype=torch.int64, device=dev)
     idx = torch.where((cq_t >= 0) & (cq_t < C), cq_t, C).long()
-    kernel_ms = time_ms(lambda: heads.select_heads(eff_t, cq_t, C, BIG_RANK))
-    plain_ms = time_ms(
+
+    def kernel():
+        return heads.select_heads(eff_t, cq_t, C, BIG_RANK)
+
+    kernel_ms = pk.time_ms(kernel)
+    plain_ms = pk.time_ms(
         lambda: heads.select_heads_plain(eff_t, cq_t, C, BIG_RANK))
-    library_ms = time_ms(
+    library_ms = pk.time_ms(
         lambda: base.scatter_reduce(0, idx, eff_t, "amin",
                                     include_self=True))
-    kernel_ms_2 = time_ms(
-        lambda: heads.select_heads(eff_t, cq_t, C, BIG_RANK))
-    n_bytes = W * 8 + W * cq_t.element_size() + C * 8
+    kernel_ms_2 = pk.time_ms(kernel)
+    prof = pk.device_profile(kernel)
+    names = [k["name"] for k in prof["kernels"]]
+    if (prof["launches_per_call"] != 1
+            or "heads_cluster_kernel" not in names[0]):
+        raise AssertionError(f"select_heads made {prof['launches_per_call']}"
+                             f" device launches a call at W={W} C={C}, "
+                             f"want one heads_cluster_kernel: {names}")
+    n_bytes = pk.heads_bytes(eff_t, cq_t, C)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = W / SCALAR_OPS_PER_S * 1e3
     print(f"  heads timing W={W} C={C}: kernel_ms={kernel_ms:.6f} "
-          f"(again {kernel_ms_2:.6f}) plain_ms={plain_ms:.6f} "
-          f"library_ms={library_ms:.6f} bound_ms={max(bytes_ms, ops_ms):.6f} "
-          f"({n_bytes} bytes)")
+          f"(again {kernel_ms_2:.6f}) device_ms={prof['device_ms']:.6f} "
+          f"launches_per_call={prof['launches_per_call']:g} "
+          f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+          f"bound_ms={max(bytes_ms, ops_ms):.6f} ({n_bytes} bytes)")
     return dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                device_ms=prof["device_ms"],
+                launches_per_call=prof["launches_per_call"])
 
 
-def leaf_cases(dev):
+def check_heads(heads, name, eff_t, cq_t, c, sms) -> int:
+    """The kernel against the plain version on one input, exact; returns
+    the max abs error (0)."""
+    import torch
+
+    got = heads.select_heads(eff_t, cq_t, c, BIG_RANK)
+    want = heads.select_heads_plain(eff_t, cq_t, c, BIG_RANK)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max().item()) if c else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"heads kernel != plain on {name}: "
+                             f"max abs err {err}")
+    branch = heads.plan(eff_t.numel(), c, sms)
+    print(f"  heads {name}: exact ("
+          + ("global atomics" if branch == 0 else
+             f"{branch} cluster{'s' if branch > 1 else ''}") + ")")
+    return err
+
+
+def leaf_cases(dev, pk):
     """(name, free, tas, assumed, per_pod, mask) as int64/bool tensors on
     ``dev``, seeded."""
     import torch
@@ -206,7 +218,7 @@ def leaf_cases(dev):
                                     np.zeros_like(free),
                                     np.array([3, 1, 7], np.int64),
                                     np.zeros(512, bool)))
-    snap = forest_snapshot(dev)
+    snap = pk.forest_snapshot(dev)
     enc = tops.encode_tas_snapshot(snap, tas_world.PHASE1_RESOURCES)
     for cpu in (100, 1000):
         yield (f"forest 5120x2 cpu={cpu}",
@@ -214,40 +226,61 @@ def leaf_cases(dev):
                    np.zeros_like(enc["tas_usage"]),
                    np.array([cpu, 1], np.int64),
                    np.ones(len(enc["free_capacity"]), bool)))
-    rng = np.random.default_rng(65536)
-    shape = (65536, 8)
-    free = rng.integers(-2**62, 2**62, shape).astype(np.int64)
-    free[::7] = np.iinfo(np.int64).min + rng.integers(0, 100, (1, 8))
-    tas = rng.integers(-2**62, 2**62, shape).astype(np.int64)
-    assumed = rng.integers(0, 2**40, shape).astype(np.int64)
-    yield ("65536x8 wrapping int64",
-           *on(free, tas, assumed,
-               np.array([1, 0, 3, 2**33, -1, 7, 2**20, 5], np.int64),
-               rng.random(65536) > 0.05))
+    yield ("65536x8 wrapping int64", *pk.leaf_wide(dev))
+    # Each load path of the kernel: odd S and S = 1 (scalar loads), wide
+    # rows, odd (33, scalar) and even (70, column pairs), and S = 2 with
+    # every row 8 bytes off 16-byte alignment (scalar).
+    for leaves, res in LEAF_PATHS:
+        yield (f"{leaves}x{res} mixed widths",
+               *on(*leaf_mixed(np.random.default_rng(leaves + res), leaves,
+                               res)))
+    free, tas, assumed, per_pod, mask = on(
+        *leaf_mixed(np.random.default_rng(5122), 5120, 2))
+    yield ("5120x2 rows off 16-byte alignment",
+           *(off_by_one_element(t) for t in (free, tas, assumed)), per_pod,
+           mask)
 
 
-def forest_snapshot(dev, seed=5120):
-    """The 5,120-node forest with seeded TAS usage on half its leaves."""
-    import random
+def leaf_mixed(rng, leaves, res):
+    """Quantities of the forest's size with a tenth of them past 2**32, a
+    few leaves over-used, and per-pod requests of 0, -1 and small values,
+    and of 2**33 on column 2 (whose quantities are past 2**34): both the
+    32-bit and the 64-bit division."""
+    shape = (leaves, res)
+    free = rng.integers(10**5, 10**6, shape).astype(np.int64)
+    big = rng.random(shape) < 0.1
+    free[big] = rng.integers(2**32, 2**40, int(big.sum()))
+    tas = rng.integers(0, 10**5, shape).astype(np.int64)
+    over = rng.random(shape) < 0.02
+    tas[over] = rng.integers(10**6, 2**41, int(over.sum()))
+    per_pod = rng.integers(-1, 9, res).astype(np.int64)
+    per_pod[0] = max(int(per_pod[0]), 1)
+    if res > 2:
+        free[:, 2] = rng.integers(2**34, 2**44, leaves)
+        per_pod[2] = 2**33
+    return (free, tas, rng.integers(0, 100, shape).astype(np.int64),
+            per_pod, rng.random(leaves) > 0.2)
 
-    from kueue_tpu_torch.bench import tas_world
 
-    snap = tas_world.build_snapshot(tas_world.PortBackend(dev),
-                                    tas_world.node_specs(*tas_world.FULL))
-    rng = random.Random(seed)
-    for values in list(snap.leaves):
-        if rng.random() < 0.5:
-            snap.add_usage(values, {"cpu": rng.randrange(0, 6000)},
-                           rng.randrange(0, 8))
-    return snap
+def off_by_one_element(t):
+    """A contiguous copy of ``t`` whose data starts 8 bytes past a
+    16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if not view.is_contiguous() or view.data_ptr() % 16 != 8:
+        raise AssertionError("the offset view is not 8 bytes off 16")
+    return view
 
 
-def phase_leaf(dev, leaf):
+def phase_leaf(dev, leaf, pk):
     import torch
 
     worst = 0
     forest = None
-    for name, free, tas, assumed, per_pod, mask in leaf_cases(dev):
+    for name, free, tas, assumed, per_pod, mask in leaf_cases(dev, pk):
         got = leaf.leaf_fit_counts(free, tas, assumed, per_pod, mask)
         want = leaf.leaf_fit_counts_plain(free, tas, assumed, per_pod, mask)
         torch.cuda.synchronize()
@@ -266,25 +299,35 @@ def phase_leaf(dev, leaf):
             forest = (free, tas, assumed, per_pod, mask)
         print(f"  leaf {name}: exact")
 
-    free, tas, assumed, per_pod, mask = forest
-    L, S = free.shape
-    kernel_ms = time_ms(
-        lambda: leaf.leaf_fit_counts(free, tas, assumed, per_pod, mask))
-    plain_ms = time_ms(
-        lambda: leaf.leaf_fit_counts_plain(free, tas, assumed, per_pod, mask))
-    kernel_ms_2 = time_ms(
-        lambda: leaf.leaf_fit_counts(free, tas, assumed, per_pod, mask))
-    n_bytes = 3 * L * S * 8 + S * 8 + L * 1 + L * 4
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    # two subtractions, a division and a minimum per (leaf, column)
-    ops_ms = 4 * L * S / SCALAR_OPS_PER_S * 1e3
-    print(f"  leaf timing L={L} S={S}: kernel_ms={kernel_ms:.6f} "
-          f"(again {kernel_ms_2:.6f}) plain_ms={plain_ms:.6f} "
-          f"library_ms=none bound_ms={max(bytes_ms, ops_ms):.6f} "
-          f"({n_bytes} bytes)")
-    return dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    rows = {}
+    for shape, args in (("forest", forest), ("65536x8", pk.leaf_wide(dev))):
+        L, S = args[0].shape
+
+        def kernel(args=args):
+            return leaf.leaf_fit_counts(*args)
+
+        kernel_ms = pk.time_ms(kernel)
+        plain_ms = pk.time_ms(lambda: leaf.leaf_fit_counts_plain(*args))
+        kernel_ms_2 = pk.time_ms(kernel)
+        prof = pk.device_profile(kernel)
+        n_bytes = pk.leaf_bytes(args[0])
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        # two subtractions, a division and a minimum per (leaf, column)
+        ops_ms = 4 * L * S / SCALAR_OPS_PER_S * 1e3
+        launch = [(k["grid"], k["block"]) for k in prof["kernels"]]
+        print(f"  leaf timing L={L} S={S}: kernel_ms={kernel_ms:.6f} "
+              f"(again {kernel_ms_2:.6f}) device_ms={prof['device_ms']:.6f} "
+              f"launches_per_call={prof['launches_per_call']:g} "
+              f"grid/block={launch} plain_ms={plain_ms:.6f} "
+              f"library_ms=none bound_ms={max(bytes_ms, ops_ms):.6f} "
+              f"({n_bytes} bytes)")
+        rows[shape] = dict(
+            max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            device_ms=prof["device_ms"],
+            launches_per_call=prof["launches_per_call"])
+    return rows["forest"]
 
 
 def phase_tas(dev, leaf, card):
@@ -361,6 +404,7 @@ def main() -> int:
         return 1
     from kueue_tpu_torch.device import resolve_device
     from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.bench import profile_kernels as pk
     from kueue_tpu_torch.ops import heads, leaf
 
     dev = resolve_device()
@@ -380,7 +424,7 @@ def main() -> int:
                     print(f"    {line.strip()}")
 
     print("[3] heads kernel vs plain on the card")
-    heads_row = phase_heads(dev, heads)
+    heads_row = phase_heads(dev, heads, pk)
 
     print("[4] small drain on the card")
     solver, _ = drain(SMALL)
@@ -405,6 +449,10 @@ def main() -> int:
     torch.cuda.synchronize()
     solve2_s = time.perf_counter() - t0
     check(again, FULL_EXPECT, "50000 workloads, second solve")
+    eff_t, cq_t, C = pk.drain_first_cycle_heads(solver)
+    check_heads(heads, f"drain first cycle w={eff_t.numel()} c={C}", eff_t,
+                cq_t, C, torch.cuda.get_device_properties(dev)
+                .multi_processor_count)
     print(f"  encode_s={encode_s:.3f} solve_s={solve_s:.3f} "
           f"admissions_per_s={stats['admitted'] / solve_s:.1f} "
           f"second solve_s={solve2_s:.3f} "
@@ -412,7 +460,7 @@ def main() -> int:
           f"heads_launches={launches} | {card}")
 
     print("[6] leaf kernel vs plain on the card")
-    leaf_row = phase_leaf(dev, leaf)
+    leaf_row = phase_leaf(dev, leaf, pk)
 
     print("[7] device TAS on the 5,120-node forest")
     leaf_launches = phase_tas(dev, leaf, card)

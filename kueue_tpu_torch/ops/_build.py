@@ -28,7 +28,8 @@ _ENTRY = {
     "heads": ("kueue_heads_segment_min",
               [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-               ctypes.c_void_p, ctypes.c_void_p]),
+               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p]),
     "leaf": ("kueue_leaf_fit_counts",
              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -96,3 +97,22 @@ def load(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(name: str, device, *args) -> None:
+    """Call kernel library ``name``'s entry point with ``args`` and the
+    current stream of ``device``; raise if it returns a cudaError_t
+    other than 0. The runtime launches on its current device, so the
+    call enters ``device`` only when that is another one. The stream is
+    read as the raw handle, as PyTorch's own generated kernel launchers
+    read it, without building a ``torch.cuda.Stream`` object per call."""
+    import torch
+
+    fn = load(name)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

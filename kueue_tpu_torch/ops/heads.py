@@ -14,12 +14,43 @@ Callers test ``< big_rank`` for "has a head".
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from kueue_tpu_torch.ops import _build
 
 # Kernel launches made by select_heads since the count was last reset.
 launches = 0
+
+CLUSTER_SIZE = 8  # CTAs of one thread-block cluster (csrc/heads.cu)
+# Bins one CTA holds in shared memory: 227 KB of int64 on Hopper.
+MAX_SHARED_BINS = 232448 // 8
+# Rows one cluster takes; above this, MAX_CLUSTERS clusters and a fold
+# launch. Eight clusters, not the sixteen that 132 SMs could hold: on the
+# H100, sixteen clusters of eight CTAs took more device time than eight
+# at every row count of `profile_kernels.py --sweep`, and one cluster took
+# the least at the drain's 50,000 rows.
+ROWS_PER_CLUSTER = 1 << 16
+MAX_CLUSTERS = 8
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan(n: int, num_cqs: int, sms: int) -> int:
+    """The kernel's branch for ``n`` rows into ``num_cqs`` bins on a card
+    of ``sms`` SMs: 0 for global atomics (the bins do not fit in shared
+    memory), else the number of thread-block clusters: 1 up to
+    ``ROWS_PER_CLUSTER`` rows, above that ``MAX_CLUSTERS`` or as many as
+    the SMs hold."""
+    if num_cqs > MAX_SHARED_BINS:
+        return 0
+    if n <= ROWS_PER_CLUSTER:
+        return 1
+    return max(1, min(MAX_CLUSTERS, sms // CLUSTER_SIZE))
 
 
 def _check(eff_rank, wl_cq, num_cqs: int) -> None:
@@ -51,26 +82,25 @@ def select_heads_plain(eff_rank, wl_cq, num_cqs: int, big_rank):
 def select_heads(eff_rank, wl_cq, num_cqs: int, big_rank):
     """Per-CQ minimum effective rank: int64[num_cqs]."""
     global launches
-    if eff_rank.device.type == "cpu":
+    dev = eff_rank.device
+    if dev.type == "cpu":
         return select_heads_plain(eff_rank, wl_cq, num_cqs, big_rank)
     _check(eff_rank, wl_cq, num_cqs)
-    if eff_rank.device.type != "cuda":
-        raise ValueError(f"select_heads runs on cuda or cpu, got "
-                         f"{eff_rank.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"select_heads runs on cuda or cpu, got {dev}")
     if not (eff_rank.is_contiguous() and wl_cq.is_contiguous()):
         raise ValueError("eff_rank and wl_cq must be contiguous")
-    out = torch.full((num_cqs,), int(big_rank), dtype=torch.int64,
-                     device=eff_rank.device)
-    n = eff_rank.shape[0]
-    if n == 0 or num_cqs == 0:
+    # The kernel writes every bin: no fill.
+    out = torch.empty((num_cqs,), dtype=torch.int64, device=dev)
+    if num_cqs == 0:
         return out
-    kernel = _build.load("heads")
-    with torch.cuda.device(eff_rank.device):
-        stream = torch.cuda.current_stream(eff_rank.device).cuda_stream
-        err = kernel(eff_rank.data_ptr(), wl_cq.data_ptr(),
-                     wl_cq.element_size(), n, num_cqs, int(big_rank),
-                     out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"heads kernel launch failed: cudaError {err}")
+    n = eff_rank.shape[0]
+    clusters = plan(n, num_cqs, _sm_count(dev.index))
+    scratch = (torch.empty((clusters, num_cqs), dtype=torch.int64,
+                           device=dev) if clusters > 1 else None)
+    _build.launch("heads", dev, eff_rank.data_ptr(), wl_cq.data_ptr(),
+                  wl_cq.element_size(), n, num_cqs, int(big_rank), clusters,
+                  None if scratch is None else scratch.data_ptr(),
+                  out.data_ptr())
     launches += 1
     return out

@@ -70,12 +70,12 @@ def leaf_fit_counts_plain(free, tas, assumed, per_pod, leaf_mask):
 def leaf_fit_counts(free, tas, assumed, per_pod, leaf_mask):
     """Pods that fit per leaf: int32[L]."""
     global launches
-    if free.device.type == "cpu":
+    dev = free.device
+    if dev.type == "cpu":
         return leaf_fit_counts_plain(free, tas, assumed, per_pod, leaf_mask)
     _check(free, tas, assumed, per_pod, leaf_mask)
-    if free.device.type != "cuda":
-        raise ValueError(f"leaf_fit_counts runs on cuda or cpu, got "
-                         f"{free.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"leaf_fit_counts runs on cuda or cpu, got {dev}")
     if not all(t.is_contiguous()
                for t in (free, tas, assumed, per_pod, leaf_mask)):
         raise ValueError("leaf_fit_counts inputs must be contiguous")
@@ -83,16 +83,11 @@ def leaf_fit_counts(free, tas, assumed, per_pod, leaf_mask):
     if S > MAX_COLS:
         raise ValueError(f"leaf_fit_counts takes at most {MAX_COLS} "
                          f"columns, got {S}")
-    out = torch.empty((L,), dtype=torch.int32, device=free.device)
+    out = torch.empty((L,), dtype=torch.int32, device=dev)
     if L == 0:
         return out
-    kernel = _build.load("leaf")
-    with torch.cuda.device(free.device):
-        stream = torch.cuda.current_stream(free.device).cuda_stream
-        err = kernel(free.data_ptr(), tas.data_ptr(), assumed.data_ptr(),
-                     per_pod.data_ptr(), leaf_mask.data_ptr(), L, S,
-                     out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"leaf kernel launch failed: cudaError {err}")
+    _build.launch("leaf", dev, free.data_ptr(), tas.data_ptr(),
+                  assumed.data_ptr(), per_pod.data_ptr(),
+                  leaf_mask.data_ptr(), L, S, out.data_ptr())
     launches += 1
     return out

@@ -13,11 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from kueue_tpu.ops import pallas_kernels as pk
+from kueue_tpu_torch.bench import profile_kernels
 from kueue_tpu_torch.ops import heads
 
 BIG = 1 << 40
 GRID = [(1, 1), (37, 3), (256, 7), (1000, 130), (5000, 1000)]
+# The shapes chip_smoke.py adds on the card: the drain's and one per
+# branch of the CUDA kernel (one cluster with up to 227 KB of bins,
+# several clusters, bins beyond shared memory).
+BRANCH_SHAPES = [s for s in chip_smoke.HEADS_SHAPES if s not in GRID]
 
 
 @pytest.fixture(params=["1", "0"], ids=["pallas", "segment_min"])
@@ -43,6 +49,44 @@ def test_select_heads_matches_jax(jax_path, w, c):
     cq = rng.integers(0, c, w).astype(np.int32)
     active = rng.random(w) > 0.3
     _both(np.where(active, rank, BIG), cq, c)
+
+
+@pytest.mark.parametrize("w,c", BRANCH_SHAPES)
+def test_select_heads_branch_shapes_match_jax(jax_path, w, c):
+    rng = np.random.default_rng(w * 1000 + c)
+    rank = rng.permutation(w).astype(np.int64)
+    cq = rng.integers(0, c, w).astype(np.int32)
+    active = rng.random(w) > 0.3
+    _both(np.where(active, rank, BIG), cq, c)
+
+
+@pytest.fixture(scope="module")
+def drain_first_cycle():
+    """The full-width drain's own first-cycle inputs, captured from the
+    port's solver as chip_smoke.py captures them on the card."""
+    return profile_kernels.drain_first_cycle_heads(
+        profile_kernels.full_drain_solver("cpu"))
+
+
+def test_select_heads_drain_first_cycle_matches_jax(jax_path,
+                                                    drain_first_cycle):
+    eff, cq, c = drain_first_cycle
+    assert eff.shape == (50000,) and c == 1000
+    _both(eff.numpy(), cq.numpy(), c)
+
+
+def test_plan_picks_the_branch_by_shape():
+    rows, sms = heads.ROWS_PER_CLUSTER, 132
+    assert heads.plan(50000, 1000, sms) == 1  # the drain: one launch
+    assert heads.plan(0, 1000, sms) == 1
+    assert heads.plan(rows, 1000, sms) == 1
+    assert heads.plan(rows + 1, 1000, sms) == heads.MAX_CLUSTERS
+    assert heads.plan(10**9, 1000, sms) == heads.MAX_CLUSTERS
+    assert heads.plan(10**9, 1000, 16) == 2  # a card of 16 SMs
+    assert heads.plan(10**9, 1000, 4) == 1
+    assert heads.plan(50000, heads.MAX_SHARED_BINS, sms) == 1
+    assert heads.plan(50000, heads.MAX_SHARED_BINS + 1, sms) == 0
+    assert [heads.plan(w, c, sms) for w, c in BRANCH_SHAPES].count(0) == 1
 
 
 def test_select_heads_all_inactive(jax_path):

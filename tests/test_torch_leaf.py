@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from kueue_tpu.ops import pallas_kernels as pk
 from kueue_tpu.ops.tas import _leaf_states_jnp
 from kueue_tpu_torch.ops import leaf
@@ -104,6 +105,27 @@ def test_leaf_wrapping_int64_quantities():
                 np.array([1, 0, 3, 2**33, -1, 7, 2**20, 5], np.int64),
                 rng.random(2048) > 0.05)
     assert got.any()
+
+
+@pytest.mark.parametrize("leaves,res", chip_smoke.LEAF_PATHS)
+def test_leaf_load_paths_match_jax(leaves, res):
+    """chip_smoke.py's cases for each load path of the CUDA kernel: odd S,
+    S = 1, wide rows (odd and even), with quantities and per-pod requests
+    past 2**32."""
+    _both(*chip_smoke.leaf_mixed(np.random.default_rng(leaves + res),
+                                 leaves, res))
+
+
+def test_leaf_rows_off_16_byte_alignment_match_jax():
+    free, tas, assumed, per_pod, mask = chip_smoke.leaf_mixed(
+        np.random.default_rng(5122), 5120, 2)
+    want = np.asarray(_leaf_states_jnp(*map(jnp.asarray, (
+        free, tas, assumed, per_pod, mask))))
+    off = [chip_smoke.off_by_one_element(torch.as_tensor(a))
+           for a in (free, tas, assumed)]
+    got = leaf.leaf_fit_counts(*off, torch.as_tensor(per_pod),
+                               torch.as_tensor(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_leaf_states_dispatches_to_the_leaf_function():
