@@ -29,10 +29,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      the feasibility batch at the final usage, and phase 1 (leaf kernel,
      then the bubble up the tree) per per-pod vector, each against the
      JAX package's checksums, with the leaf kernel launched once per
-     per-pod vector.
+     per-pod vector;
+  8. the fair-sharing drain of hierarchical_fair(n_workloads=40000):
+     500 ClusterQueues under 50 roots x 2 mid cohorts, 40,000 workloads,
+     49 cycles, 22,816 admitted, checksum 0x4135ace0, with the heads
+     kernel launched once per cycle; then the heads kernel vs its plain
+     version on the drain's first-cycle inputs, exact;
+  9. the preemption world at 1,000 ClusterQueues and 20,000 workloads
+     (kueue_tpu_torch/bench/preempt_world.py) through
+     TorchExecutor.cycle_step with fused classical preemption: 42
+     cycles, 2,824 admissions, 2,313 preempting entries, 3,134 victims,
+     no overflow, stream checksum 0xb8e888f4, with the heads kernel
+     launched once per cycle; then the heads kernel vs its plain version
+     on the world's first-cycle inputs, exact.
 The expected decisions are the JAX package's own on the same scenarios
-(tests/test_torch_drain.py and tests/test_torch_tas_feasibility.py
-recompute them). The last two lines are a JSON summary of the kernels
+(tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
+tests/test_torch_fair.py and tests/test_torch_preempt_world.py recompute
+them). The last two lines are a JSON summary of the kernels
 and the result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -70,6 +83,15 @@ HEADS_SHAPES = [(1, 1), (37, 3), (256, 7), (1000, 130), (5000, 1000),
                 (1000000, 1000), (50000, 32768)]
 LEAF_GRID = [(1, 1), (100, 3), (640, 2), (1000, 5)]
 LEAF_PATHS = [(5120, 3), (5120, 1), (4096, 33), (4096, 70)]
+# The JAX package's fair drain of hierarchical_fair(n_workloads=40000):
+# cycles, admitted, crc32 of the decision vectors.
+HIER_FAIR_EXPECT = (49, 22816, 0x4135ace0)
+# The JAX package's cycles through the preemption world at 1,000
+# ClusterQueues (kueue_tpu_torch/bench/preempt_world.py): cycles,
+# admissions, preempting entries, victims, overflow slots and the crc32
+# of the per-cycle decision stream.
+PREEMPT_EXPECT = dict(cycles=42, admitted=2824, preempting=2313,
+                      victims=3134, overflow=0, checksum=0xb8e888f4)
 # The JAX package's outcomes on the 5,120-node TAS world: placed count
 # and the crc32 of the placements, both feasibility batches and phase 1.
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
@@ -369,6 +391,92 @@ def phase_tas(dev, leaf, card):
     return launches
 
 
+def check_launches(heads, label, cycles):
+    """The heads kernel must have launched once per cycle of the run
+    that just ended."""
+    if heads.launches != cycles:
+        raise AssertionError(f"{label}: heads kernel launched "
+                             f"{heads.launches} times in {cycles} cycles")
+
+
+def phase_hier_fair(heads, pk, card, sms):
+    """The 40,000-workload fair drain against the JAX package's
+    decisions; returns the heads kernel's launches in it."""
+    import torch
+
+    from kueue_tpu_torch.bench.scenario import hierarchical_fair
+    from kueue_tpu_torch.cache.snapshot import build_snapshot
+    from kueue_tpu_torch.oracle.batched import BatchedDrainSolver
+
+    t0 = time.perf_counter()
+    scen = hierarchical_fair(n_workloads=40_000)
+    solver = BatchedDrainSolver(
+        build_snapshot(scen.cluster_queues, scen.cohorts, scen.flavors, []),
+        scen.pending_infos(), fair=True)
+    encode_s = time.perf_counter() - t0
+    heads.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stats = solver.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = heads.launches
+    check(stats, HIER_FAIR_EXPECT, "hier_fair 40000 workloads")
+    check_launches(heads, "hier_fair", stats["cycles"])
+    t0 = time.perf_counter()
+    _, again = solver.solve()
+    torch.cuda.synchronize()
+    solve2_s = time.perf_counter() - t0
+    check(again, HIER_FAIR_EXPECT, "hier_fair, second solve")
+    eff_t, cq_t, C = pk.drain_first_cycle_heads(solver)
+    check_heads(heads, f"hier_fair first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+    print(f"  encode_s={encode_s:.3f} solve_s={solve_s:.3f} "
+          f"ms_per_cycle={solve_s / stats['cycles'] * 1e3:.3f} "
+          f"second solve_s={solve2_s:.3f} "
+          f"ms_per_cycle={solve2_s / stats['cycles'] * 1e3:.3f} "
+          f"heads_launches={launches} | {card}")
+    return launches
+
+
+def phase_preempt_world(heads, pk, card, sms):
+    """The 20,000-workload preemption world through the port's executor
+    against the JAX package's decisions; returns the heads kernel's
+    launches in it."""
+    import torch
+
+    from kueue_tpu_torch.bench import preempt_world
+    from kueue_tpu_torch.oracle.service import TorchExecutor
+
+    t0 = time.perf_counter()
+    world = preempt_world.build(**preempt_world.FULL)
+    build_s = time.perf_counter() - t0
+    executor = TorchExecutor()
+    heads.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = preempt_world.run(world, executor.cycle_step)
+    solve_s = time.perf_counter() - t0
+    launches = heads.launches
+    got = {k: stats[k] for k in PREEMPT_EXPECT}
+    print(f"  cycles={got['cycles']} admitted={got['admitted']} "
+          f"preempting={got['preempting']} victims={got['victims']} "
+          f"overflow={got['overflow']} checksum=0x{got['checksum']:08x}")
+    if got != PREEMPT_EXPECT:
+        raise AssertionError(f"preemption world: got {got}, want "
+                             f"{PREEMPT_EXPECT}")
+    check_launches(heads, "preemption world", stats["cycles"])
+    eff_t, cq_t, C = pk.first_heads_inputs(
+        lambda: preempt_world.run(world, executor.cycle_step, max_cycles=1))
+    check_heads(heads, f"preemption world first cycle w={eff_t.numel()} "
+                f"c={C}", eff_t, cq_t, C, sms)
+    print(f"  build_s={build_s:.3f} (fill drain on the card) "
+          f"solve_s={solve_s:.3f} "
+          f"ms_per_cycle={solve_s / stats['cycles'] * 1e3:.3f} "
+          f"heads_launches={launches} | {card}")
+    return launches
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -465,12 +573,22 @@ def main() -> int:
     print("[7] device TAS on the 5,120-node forest")
     leaf_launches = phase_tas(dev, leaf, card)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("[8] hier_fair drain on the card")
+    fair_launches = phase_hier_fair(heads, pk, card, sms)
+
+    print("[9] preemption world on the card")
+    preempt_launches = phase_preempt_world(heads, pk, card, sms)
+
+    by_path = {"full_width_drain": launches, "hier_fair": fair_launches,
+               "preempt_world": preempt_launches}
     print(card)
     print(json.dumps({"kernels": [
         dict(name="heads_segment_min", route="cuda",
              source="kueue_tpu_torch/csrc/heads.cu",
              replaces="kueue_tpu/ops/pallas_kernels.py:83",
-             launches=launches, **heads_row),
+             launches=sum(by_path.values()), launches_by_path=by_path,
+             **heads_row),
         dict(name="leaf_fit_counts", route="cuda",
              source="kueue_tpu_torch/csrc/leaf.cu",
              replaces="kueue_tpu/ops/pallas_kernels.py:152",

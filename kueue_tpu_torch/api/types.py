@@ -2,12 +2,14 @@
 
 A copy of the shapes in ``kueue_tpu/api/types.py`` (field names,
 defaults and enum values unchanged) without the parts no port module
-reads yet: admission status, MultiKueue fields. All quantities are integers in milli-units;
-``INF`` stands in for "Unlimited" and the helpers saturate.
+reads yet: the admission record, MultiKueue fields. All quantities are
+integers in milli-units; ``INF`` stands in for "Unlimited" and the
+helpers saturate.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Optional
@@ -255,8 +257,13 @@ class PodSet:
 
 class WorkloadConditionType(str, Enum):
     QUOTA_RESERVED = "QuotaReserved"
+    ADMITTED = "Admitted"
     EVICTED = "Evicted"
     PREEMPTED = "Preempted"
+    FINISHED = "Finished"
+    PODS_READY = "PodsReady"
+    REQUEUED = "Requeued"
+    BLOCKED_ON_PREEMPTION_GATES = "BlockedOnPreemptionGates"
 
 
 @dataclass
@@ -279,6 +286,8 @@ class WorkloadStatus:
 
 PRIORITY_BOOST_ANNOTATION = "kueue.x-k8s.io/priority-boost"
 
+_uid_counter = itertools.count(1)
+
 
 @dataclass
 class Workload:
@@ -294,7 +303,14 @@ class Workload:
     preemption_gates: tuple[str, ...] = ()
     allowed_resource_flavor: Optional[str] = None
     annotations: dict[str, str] = field(default_factory=dict)
+    # Ties in the preemption-candidate order break on the uid; an empty
+    # one takes the next of a process-wide counter.
+    uid: str = ""
     status: WorkloadStatus = field(default_factory=WorkloadStatus)
+
+    def __post_init__(self) -> None:
+        if not self.uid:
+            self.uid = f"uid-{next(_uid_counter):08d}"
 
     @property
     def key(self) -> str:
@@ -328,3 +344,15 @@ class Workload:
     @property
     def has_quota_reservation(self) -> bool:
         return self.has_condition(WorkloadConditionType.QUOTA_RESERVED)
+
+    @property
+    def is_evicted(self) -> bool:
+        return self.has_condition(WorkloadConditionType.EVICTED)
+
+    def quota_reservation_time(self, now: float) -> float:
+        """When the quota reservation became true; ``now`` when there is
+        none."""
+        c = self.status.conditions.get(WorkloadConditionType.QUOTA_RESERVED)
+        if c is None or not c.status:
+            return now
+        return c.last_transition_time

@@ -166,9 +166,9 @@ def measure(fn) -> dict:
                 **device_profile(fn))
 
 
-def drain_first_cycle_heads(solver):
-    """(eff_rank, wl_cq, num_cqs) that the first cycle of
-    ``solver.solve()`` hands to ``select_heads``, cloned."""
+def first_heads_inputs(run):
+    """(eff_rank, wl_cq, num_cqs) of the first ``select_heads`` call that
+    ``run()`` makes through the cycle, cloned."""
     from kueue_tpu_torch.oracle import batched
 
     captured = []
@@ -181,10 +181,16 @@ def drain_first_cycle_heads(solver):
 
     batched.hops.select_heads = capture
     try:
-        solver.solve(max_cycles=1)
+        run()
     finally:
         batched.hops.select_heads = original
     return captured[0]
+
+
+def drain_first_cycle_heads(solver):
+    """(eff_rank, wl_cq, num_cqs) that the first cycle of
+    ``solver.solve()`` hands to ``select_heads``, cloned."""
+    return first_heads_inputs(lambda: solver.solve(max_cycles=1))
 
 
 def full_drain_solver(device=None):

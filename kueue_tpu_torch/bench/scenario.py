@@ -97,3 +97,59 @@ def baseline_like(n_cohorts: int = 200, cqs_per_cohort: int = 5,
         for i, size in enumerate(sizes)
     ]
     return Scenario(cqs, cohorts, flavors, lqs, workloads)
+
+
+def hierarchical_fair(n_roots: int = 50, mids_per_root: int = 2,
+                      cqs_per_mid: int = 5, n_workloads: int = 20_000,
+                      nominal_per_cq: int = 4_000, seed: int = 1,
+                      oversubscribe: float = 1.5) -> Scenario:
+    """BASELINE.json config 3: 3-level cohort tree (root -> mid -> CQs)
+    with fair-sharing weights at every level and demand oversubscribed so
+    the DRS tournament ordering decides who gets capacity.
+
+    Workload sizes scale to the tree's capacity so the scenario really
+    contains ``n_workloads`` workloads (the round-2 form silently capped
+    the count at the capacity budget — a 674-workload 13 ms "bench")."""
+    from kueue_tpu_torch.api.types import FairSharing
+
+    rng = random.Random(seed)
+    cohorts, cqs, lqs = [], [], []
+    ci = 0
+    for r in range(n_roots):
+        cohorts.append(Cohort(
+            f"root-{r}", resource_groups=(ResourceGroup(
+                (CPU,), (FlavorQuotas("default",
+                                      {CPU: ResourceQuota(
+                                          nominal_per_cq * 2)}),)),)))
+        for m in range(mids_per_root):
+            cohorts.append(Cohort(
+                f"mid-{r}-{m}", parent=f"root-{r}",
+                fair_sharing=FairSharing(
+                    weight=rng.choice([0.5, 1.0, 2.0]))))
+            for _ in range(cqs_per_mid):
+                name = f"cq-{ci}"
+                cqs.append(ClusterQueue(
+                    name=name, cohort=f"mid-{r}-{m}",
+                    fair_sharing=FairSharing(
+                        weight=rng.choice([0.5, 1.0, 1.0, 2.0])),
+                    resource_groups=(ResourceGroup(
+                        (CPU,),
+                        (FlavorQuotas("default",
+                                      {CPU: ResourceQuota(
+                                          nominal_per_cq)}),)),)))
+                lqs.append(LocalQueue(f"lq-{ci}", "default", name))
+                ci += 1
+    n_cqs = ci
+    capacity = n_roots * nominal_per_cq * 2 \
+        + n_cqs * nominal_per_cq
+    budget = int(capacity * oversubscribe)
+    avg = max(1, budget // n_workloads)
+    sizes = [max(1, avg // 2), avg, avg * 2]
+    workloads = []
+    for i in range(n_workloads):
+        workloads.append(Workload(
+            name=f"wl-{i}", queue_name=f"lq-{rng.randrange(n_cqs)}",
+            priority=rng.choice([0, 0, 10]), creation_time=float(i),
+            pod_sets=(PodSet("main", 1, {CPU: rng.choice(sizes)}),)))
+    return Scenario(cqs, cohorts, [ResourceFlavor("default")], lqs,
+                    workloads)

@@ -1,7 +1,7 @@
 """Encoded worlds carried across from another encoder.
 
 For the scheduler, the "weights" are the encoded world: the
-``WorldTensors`` and ``WorkloadTensors`` arrays. These helpers take them
+``WorldTensors``, ``WorkloadTensors`` and ``AdmittedTensors`` arrays. These helpers take them
 as plain mappings of field name to numpy array or scalar (for example
 ``vars()`` of the JAX package's encoder output) and build the port's
 dataclasses, so the port can solve exactly the arrays another encoder
@@ -18,7 +18,11 @@ import numpy as np
 import torch
 
 from kueue_tpu_torch.device import resolve_device
-from kueue_tpu_torch.tensor.schema import WorkloadTensors, WorldTensors
+from kueue_tpu_torch.tensor.schema import (
+    AdmittedTensors,
+    WorkloadTensors,
+    WorldTensors,
+)
 
 
 def _build(cls, mapping):
@@ -48,6 +52,10 @@ def world_tensors(mapping) -> WorldTensors:
 
 def workload_tensors(mapping) -> WorkloadTensors:
     return _build(WorkloadTensors, mapping)
+
+
+def admitted_tensors(mapping) -> AdmittedTensors:
+    return _build(AdmittedTensors, mapping)
 
 
 def to_device(tensors, device=None):

@@ -1,18 +1,21 @@
 """The batched scheduling oracle on tensors: the port of
-``kueue_tpu/oracle/batched.py`` for the classical, no-preemption cycle.
+``kueue_tpu/oracle/batched.py``.
 
 One cycle (``cycle_step``):
   1. derive quota state from current usage        [ops/quota.derive_world]
   2. pick per-CQ heads (priority/ts ranks)        [ops/heads: CUDA kernel]
   3. nominate all heads at once                   [ops/assign.assign_flavors]
-  4. order entries (classical iterator key)       [stable argsort]
-  5. sequential-equivalent commit per root        [ops/commit.commit_grouped]
+  4. select preemption targets for the preempt-flagged heads, when the
+     admitted set is given                  [ops/preempt.classical_targets]
+  5. order and commit, sequential-equivalent per root: the classical
+     iterator key and ops/commit.commit_grouped, or in fair mode the DRS
+     tournament of ops/commit.commit_grouped_fair
   6. park NoFit heads (BestEffortFIFO inadmissible semantics)
 
 ``drain_loop`` runs cycles until one admits nothing, with one host sync
-per cycle on the progress flag. Fair sharing, fused classical
-preemption, bridge overrides and preemption victims are not ported yet:
-passing any of their arguments raises NotImplementedError.
+per cycle on the progress flag. The bridge overrides (kind, borrow level
+and flavor per slot) and per-workload flavor masks are not ported yet:
+passing any of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from kueue_tpu_torch.device import resolve_device
 from kueue_tpu_torch.ops import assign as aops
 from kueue_tpu_torch.ops import commit as cops
 from kueue_tpu_torch.ops import heads as hops
+from kueue_tpu_torch.ops import preempt as pops
 from kueue_tpu_torch.ops import quota as qops
 from kueue_tpu_torch.tensor.schema import (
     WL_PAD_FILLS,
@@ -37,19 +41,6 @@ from kueue_tpu_torch.tensor.schema import (
 )
 
 BIG_RANK = 1 << 40
-
-# Arguments of the JAX cycle that belong to paths not ported yet: bridge
-# overrides and preemption victims, fused classical preemption, and
-# per-workload flavor masks.
-_UNPORTED_ARGS = frozenset({
-    "slot_kind_override", "slot_borrows_override", "slot_flavor_override",
-    "slot_victim_row", "slot_victim_vals", "slot_victim_ids", "claimed0",
-    "adm_cq", "adm_pri", "adm_ts", "adm_qrt", "adm_uid", "adm_evicted",
-    "adm_usage", "adm_rank", "adm_by_root", "pc_wcq_policy",
-    "pc_reclaim_policy", "pc_bwc_forbidden", "pc_bwc_threshold",
-    "pc_cq_has_parent", "root_of_cq", "wl_flavor_ok", "slot_maybe",
-})
-
 
 @dataclass
 class DrainDecision:
@@ -76,26 +67,57 @@ def _cycle_core(
     group_of_res, group_flavors, no_preemption, can_pwb, can_always_reclaim,
     best_effort, fung_borrow_try_next, fung_pref_preempt_first,
     root_members, root_nodes, local_chain,
-    wl_ts=None, fair_weight=None, child_rank=None, local_depth=None,
-    root_parent_local=None,
+    wl_ts=None,  # float64[W] creation time (fair and preemption order)
+    fair_weight=None,  # float64[N]
+    child_rank=None,  # int64[N] fair-tournament child-order tiebreak
+    local_depth=None,  # int32[Rn, K] fair-tournament level structure
+    slot_kind_override=None,  # not ported: raises
+    slot_borrows_override=None,  # not ported: raises
+    slot_flavor_override=None,  # not ported: raises
+    root_parent_local=None,  # int32[Rn, K] (victim-removal bubbling)
+    slot_victim_row=None,  # int32[C, V] victim CQ local positions
+    slot_victim_vals=None,  # int64[C, V, R] victim usage rows
+    slot_victim_ids=None,  # int32[C, V] admitted ids (overlap rule)
+    claimed0=None,  # bool[A] initially claimed victims
+    # Fused classical preemption: with the admitted tensors and the
+    # policy config, preempt-flagged slots get their victims selected
+    # inside the cycle (ops/preempt.classical_targets_impl against the
+    # cycle-start usage).
+    adm_cq=None,  # int32[A]
+    adm_pri=None,  # int64[A]
+    adm_ts=None,  # float64[A]
+    adm_qrt=None,  # float64[A]
+    adm_uid=None,  # int64[A]
+    adm_evicted=None,  # bool[A]
+    adm_usage=None,  # int64[A, R]
+    pc_wcq_policy=None,  # int32[C]
+    pc_reclaim_policy=None,  # int32[C]
+    pc_bwc_forbidden=None,  # bool[C]
+    pc_bwc_threshold=None,  # int64[C]
+    pc_cq_has_parent=None,  # bool[C]
+    root_of_cq=None,  # int32[C]
+    adm_rank=None,  # int64[A] precomputed candidate-ordering rank
+    adm_by_root=None,  # int32[Rn, A_l] admitted ids grouped by root
+    wl_flavor_ok=None,  # not ported: raises
+    slot_maybe=None,  # bool[C] host precheck: this slot's head could
+    #   have preemption candidates (False only when provably none).
+    #   Slots masked off take the "no candidates" outcome; a cycle with
+    #   no such slot skips target selection.
     *,
     depth: int, num_resources: int, num_cqs: int,
     fair_mode: bool = False, num_flavors: int = 1, v_cap: int = 32,
-    **unported,
 ):
-    """One classical scheduling cycle. ``wl_ts``, ``fair_weight``,
-    ``child_rank``, ``local_depth``, ``root_parent_local``,
-    ``num_flavors`` and ``v_cap`` only matter to the fair-sharing and
-    preemption paths; they are accepted, as the JAX cycle accepts them,
-    and not read. Returns the JAX cycle's 14 outputs."""
-    unknown = sorted(set(unported) - _UNPORTED_ARGS)
-    if unknown:
-        raise TypeError(f"unexpected arguments: {unknown}")
-    given = sorted(k for k, v in unported.items() if v is not None)
-    if fair_mode or given:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(
-                (["fair_mode"] if fair_mode else []) + given))
+    """One scheduling cycle, classical or fair (``fair_mode``), with
+    fused classical preemption when the ``adm_*`` / ``pc_*`` arguments
+    are given (ignored in fair mode, as in the JAX cycle). Returns the
+    JAX cycle's 14 outputs."""
+    unported = dict(slot_kind_override=slot_kind_override,
+                    slot_borrows_override=slot_borrows_override,
+                    slot_flavor_override=slot_flavor_override,
+                    wl_flavor_ok=wl_flavor_ok)
+    given = [k for k, v in unported.items() if v is not None]
+    if given:
+        raise NotImplementedError("not ported yet: " + ", ".join(given))
     W = pending.shape[0]
     C = num_cqs
     S = num_resources
@@ -159,20 +181,119 @@ def _cycle_core(
     # Commit against the freshly aggregated usage.
     full_usage = derived["usage"]
 
-    # 4. Commit order.
-    key = cops.make_commit_order_key(
-        wl_has_qr[h_safe] & slot_valid, borrows,
-        torch.where(slot_valid, wl_priority[h_safe], 0),
-        torch.where(slot_valid, commit_rank[h_safe], (1 << 24) - 1))
-    order = torch.argsort(key, stable=True)
-    # 5. Commit.
-    slot_admitted, _ = cops.commit_grouped(
-        key, slot_valid, entry_fr_d, req_fr, kind, borrows, full_usage,
-        derived["subtree_quota"], lend_limit, borrow_limit, nominal,
-        ancestors, root_members, root_nodes, local_chain, depth=depth)
-    # Positions report the global commit order.
-    slot_position = torch.empty(C, dtype=torch.int32, device=dev)
-    slot_position[order] = torch.arange(C, dtype=torch.int32, device=dev)
+    # Fused classical preemption target selection.
+    def no_slots():
+        return torch.zeros((C,), dtype=torch.bool, device=dev)
+
+    slot_overflow = no_slots()
+    victim_mask = torch.zeros((C, 0), dtype=torch.bool, device=dev)
+    victim_variant = torch.zeros((C, 0), dtype=torch.int32, device=dev)
+    fused_preempt = no_slots()
+    if adm_cq is not None and not fair_mode:
+        h_pri = torch.where(slot_valid, wl_priority[h_safe], 0)
+        h_ts = torch.where(slot_valid, wl_ts[h_safe], 0.0)
+        oracle_eff = slot_oracle if slot_maybe is None \
+            else slot_oracle & slot_maybe
+        A = adm_cq.shape[0]
+        V = min(v_cap, A if adm_by_root is None else adm_by_root.shape[1])
+        if bool(oracle_eff.any()):
+            out = pops.classical_targets_impl(
+                oracle_eff, h_pri, h_ts, entry_fr_d, req_fr, pc_wcq_policy,
+                pc_reclaim_policy, pc_bwc_forbidden, pc_bwc_threshold,
+                pc_cq_has_parent, adm_cq, adm_pri, adm_ts, adm_qrt, adm_uid,
+                adm_evicted, adm_usage, full_usage, derived["subtree_quota"],
+                lend_limit, borrow_limit, nominal, ancestors, height,
+                local_chain, root_nodes, root_of_cq, adm_rank=adm_rank,
+                adm_by_root=adm_by_root, depth=depth, v_cap=v_cap)
+            (pfound, poverflow, victim_mask, _, victim_variant, pborrow,
+             pv_ids, ptaken) = out
+            victim_variant = victim_variant.to(torch.int32)
+            pborrow = pborrow.to(torch.int32)
+        else:  # no slot could have candidates: the "none found" outcome
+            pfound = poverflow = no_slots()
+            victim_mask = torch.zeros((C, A), dtype=torch.bool, device=dev)
+            victim_variant = torch.zeros((C, A), dtype=torch.int32,
+                                         device=dev)
+            pborrow = torch.zeros(C, dtype=torch.int32, device=dev)
+            pv_ids = torch.zeros((C, V), dtype=torch.int32, device=dev)
+            ptaken = torch.zeros((C, V), dtype=torch.bool, device=dev)
+        pfound = pfound & oracle_eff
+        fused_preempt = pfound
+        slot_overflow = poverflow & oracle_eff
+        # Precheck-masked slots land here too: no candidates is the
+        # selection's found=False outcome.
+        no_cand = slot_oracle & ~pfound & ~slot_overflow
+        kind = torch.where(
+            pfound, cops.ENTRY_PREEMPT,
+            torch.where(slot_overflow, cops.ENTRY_SKIP,
+                        torch.where(no_cand,
+                                    torch.where(can_always_reclaim[hc],
+                                                cops.ENTRY_SKIP,
+                                                cops.ENTRY_RESERVE),
+                                    kind)))
+        borrows = torch.where(pfound, pborrow, borrows)
+        # Pack each slot's victims into v_cap columns for the commit.
+        pv_safe = torch.clamp(pv_ids, min=0).long()
+        sel = ptaken & pfound[:, None]
+        f_row = torch.where(
+            sel, local_chain[torch.clamp(adm_cq[pv_safe], min=0).long(), 0],
+            -1)
+        f_vals = torch.where(sel[:, :, None], adm_usage[pv_safe], 0)
+        f_ids = torch.where(sel, pv_safe, -1).to(torch.int32)
+        if V < v_cap:
+            pad = v_cap - V
+            f_row = torch.cat([f_row, f_row.new_full((C, pad), -1)], dim=1)
+            f_vals = torch.cat([f_vals, f_vals.new_zeros((C, pad, R))],
+                               dim=1)
+            f_ids = torch.cat([f_ids, f_ids.new_full((C, pad), -1)], dim=1)
+        if slot_victim_row is None:
+            slot_victim_row, slot_victim_vals, slot_victim_ids = \
+                f_row, f_vals, f_ids
+        else:
+            m = pfound[:, None]
+            slot_victim_row = torch.where(m, f_row, slot_victim_row)
+            slot_victim_vals = torch.where(m[:, :, None], f_vals,
+                                           slot_victim_vals)
+            slot_victim_ids = torch.where(m, f_ids, slot_victim_ids)
+        if claimed0 is None:
+            claimed0 = torch.zeros((A,), dtype=torch.bool, device=dev)
+        # Every flagged slot is decided in the cycle; overflow slots are
+        # reported on their own.
+        slot_oracle = no_slots()
+    if fair_mode:
+        # Fair-sharing tournament order fused with the commit: the DRS
+        # is recomputed per root after every winner.
+        slot_admitted, slot_round, _ = cops.commit_grouped_fair(
+            slot_valid, entry_fr_d, req_fr, kind, borrows,
+            torch.where(slot_valid, wl_priority[h_safe], 0),
+            torch.where(slot_valid, wl_ts[h_safe], 0.0),
+            full_usage, derived["subtree_quota"], lend_limit, borrow_limit,
+            nominal, ancestors, derived["potential"], fair_weight, parent,
+            root_members, root_nodes, local_chain, child_rank, local_depth,
+            root_parent_local, depth=depth, num_flavors=num_flavors)
+        slot_preempting = no_slots()
+        # Positions: the tournament round within the root.
+        slot_position = torch.clamp(slot_round, min=0)
+        key = slot_round.long()  # replay order for usage_clean
+    else:
+        # 4. Commit order.
+        key = cops.make_commit_order_key(
+            wl_has_qr[h_safe] & slot_valid, borrows,
+            torch.where(slot_valid, wl_priority[h_safe], 0),
+            torch.where(slot_valid, commit_rank[h_safe], (1 << 24) - 1))
+        order = torch.argsort(key, stable=True)
+        # 5. Commit.
+        slot_committed, _ = cops.commit_grouped(
+            key, slot_valid, entry_fr_d, req_fr, kind, borrows, full_usage,
+            derived["subtree_quota"], lend_limit, borrow_limit, nominal,
+            ancestors, root_members, root_nodes, local_chain,
+            root_parent_local, slot_victim_row, slot_victim_vals,
+            slot_victim_ids, claimed0, depth=depth)
+        slot_admitted = slot_committed & (kind != cops.ENTRY_PREEMPT)
+        slot_preempting = slot_committed & (kind == cops.ENTRY_PREEMPT)
+        # Positions report the global commit order.
+        slot_position = torch.empty(C, dtype=torch.int32, device=dev)
+        slot_position[order] = torch.arange(C, dtype=torch.int32, device=dev)
     adm_target = torch.where(slot_valid & slot_admitted, h_safe, W)
     wl_admitted = torch.zeros(W + 1, dtype=torch.bool, device=dev)
     wl_admitted[adm_target] = True
@@ -180,9 +301,12 @@ def _cycle_core(
 
     # 6. Park NoFit / no-candidate heads on BestEffortFIFO CQs, and with
     # them the pending workloads of the same scheduling-equivalence
-    # hash.
+    # hash. Preempting entries never park: they wait for their victims'
+    # evictions, and their siblings must not be parked with them.
+    preempt_override = fused_preempt & (kind == cops.ENTRY_PREEMPT)
     parked_slot = slot_valid & ~slot_admitted & best_effort[hc] & (
-        (pmode == aops.P_NO_FIT) | (pmode == aops.P_NO_CANDIDATES))
+        (pmode == aops.P_NO_FIT) | (pmode == aops.P_NO_CANDIDATES)) \
+        & ~preempt_override
     wl_parked = torch.zeros(W + 1, dtype=torch.bool, device=dev)
     wl_parked[torch.where(parked_slot, h_safe, W)] = True
     # Index W marks "no parked slot"; W + 1 takes hash ids past the
@@ -206,12 +330,10 @@ def _cycle_core(
         nominal, ancestors, root_members, root_nodes, local_chain,
         depth=depth)
 
-    no_slots = torch.zeros((C,), dtype=torch.bool, device=dev)
     return (new_pending, new_inadmissible, usage_clean, wl_admitted,
             slot_admitted, slot_position, flavor_of_res, slot_oracle.any(),
-            slot_oracle, no_slots, head_idx, no_slots.clone(),
-            torch.zeros((C, 0), dtype=torch.bool, device=dev),
-            torch.zeros((C, 0), dtype=torch.int32, device=dev))
+            slot_oracle, slot_preempting, head_idx, slot_overflow,
+            victim_mask, victim_variant)
 
 
 cycle_step = _cycle_core
@@ -275,17 +397,19 @@ def drain_loop(
 
 class BatchedDrainSolver:
     """Drive the cycle to quiescence over a pending set, on ``device``
-    (CUDA unless the caller asks for the CPU)."""
+    (CUDA unless the caller asks for the CPU); ``fair`` runs the
+    fair-sharing cycle."""
 
     def __init__(self, snapshot, pending_infos, max_depth: int = 4,
-                 device=None):
+                 fair: bool = False, device=None):
         self.device = resolve_device(device)
         self.world = encode_snapshot(snapshot, max_depth=max_depth)
         self.wls = encode_workloads(self.world, pending_infos)
         self.infos = pending_infos
+        self.fair = fair
 
     @classmethod
-    def from_tensors(cls, world, wls, device=None):
+    def from_tensors(cls, world, wls, fair: bool = False, device=None):
         """A solver over an already encoded world: ``world`` and ``wls``
         map WorldTensors / WorkloadTensors field names to numpy arrays
         and scalars (for example ``vars()`` of another encoder's
@@ -295,6 +419,7 @@ class BatchedDrainSolver:
         self.world = carry.world_tensors(world)
         self.wls = carry.workload_tensors(wls)
         self.infos = None
+        self.fair = fair
         return self
 
     def head_ranks(self) -> np.ndarray:
@@ -347,7 +472,8 @@ class BatchedDrainSolver:
     def _statics(self):
         w = self.world
         return dict(depth=w.depth, num_resources=w.num_resources,
-                    num_cqs=w.num_cqs, num_flavors=max(w.num_flavors, 1))
+                    num_cqs=w.num_cqs, fair_mode=self.fair,
+                    num_flavors=max(w.num_flavors, 1))
 
     def solve_one_cycle(self, usage=None):
         """Run exactly one scheduling cycle. Returns (admitted row ids

@@ -354,6 +354,62 @@ def encode_snapshot(snap: Snapshot, max_depth: int = 8) -> WorldTensors:
     )
 
 
+@dataclass
+class AdmittedTensors:
+    """Admitted workloads: the preemption-candidate pool."""
+
+    num_admitted: int  # row count (== array length; may exceed ``live``)
+    keys: list  # host-side workload keys, aligned with rows
+    cq: np.ndarray  # int32[A]
+    priority: np.ndarray  # int64[A]
+    timestamp: np.ndarray  # float64[A] creation time
+    qr_time: np.ndarray  # float64[A] quota-reservation time
+    uid_rank: np.ndarray  # int64[A] rank of the uid (candidate tiebreak)
+    evicted: np.ndarray  # bool[A]
+    usage: np.ndarray  # int64[A, R] on the flavor-resource grid
+    live: int = None  # live admitted count (None = num_admitted)
+
+
+def encode_admitted(world: WorldTensors, infos: list,
+                    now: float = 0.0) -> AdmittedTensors:
+    """Encode admitted workloads (WorkloadInfos with their flavors set)
+    for the preemption target selection."""
+    A = len(infos)
+    R = max(world.num_flavors * world.num_resources, 1)
+    cq_idx = {n: i for i, n in enumerate(world.cq_names)}
+    fl_idx = {n: i for i, n in enumerate(world.flavor_names)}
+    s_idx = {n: i for i, n in enumerate(world.resource_names)}
+    S = world.num_resources
+
+    cq = np.full(A, -1, np.int32)
+    priority = np.zeros(A, np.int64)
+    timestamp = np.zeros(A, np.float64)
+    qr_time = np.zeros(A, np.float64)
+    evicted = np.zeros(A, bool)
+    usage = np.zeros((A, R), np.int64)
+    keys = []
+    uids = []
+    for i, info in enumerate(infos):
+        keys.append(info.key)
+        uids.append(info.obj.uid)
+        cq[i] = cq_idx.get(info.cluster_queue, -1)
+        priority[i] = info.obj.effective_priority
+        timestamp[i] = info.obj.creation_time
+        qr_time[i] = info.obj.quota_reservation_time(now)
+        evicted[i] = info.obj.is_evicted
+        for fr, v in info.usage().items():
+            if fr.flavor in fl_idx and fr.resource in s_idx:
+                # Saturate at INF: larger host ints would wrap in int64.
+                usage[i, fl_idx[fr.flavor] * S + s_idx[fr.resource]] = \
+                    v if v < INF else INF
+    uid_rank = np.empty(A, np.int64)
+    uid_rank[np.argsort(np.asarray(uids, dtype=object))] = np.arange(A)
+    return AdmittedTensors(
+        num_admitted=A, keys=keys, cq=cq, priority=priority,
+        timestamp=timestamp, qr_time=qr_time, uid_rank=uid_rank,
+        evicted=evicted, usage=usage)
+
+
 def encode_podset_requests(info, ci: int, world, s_idx: dict,
                            out) -> bool:
     """Fill one workload's [P, S] request rows (with the implicit pods

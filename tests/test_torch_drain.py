@@ -29,7 +29,12 @@ from kueue_tpu_torch.api import types as ptypes
 from kueue_tpu_torch.bench.scenario import baseline_like
 from kueue_tpu_torch.cache.snapshot import build_snapshot
 from kueue_tpu_torch.oracle import batched as tb
-from kueue_tpu_torch.tensor.schema import WorkloadTensors, WorldTensors
+from kueue_tpu_torch.oracle import engine_bridge as eb
+from kueue_tpu_torch.tensor.schema import (
+    AdmittedTensors,
+    WorkloadTensors,
+    WorldTensors,
+)
 from kueue_tpu_torch.workload_info import WorkloadInfo
 
 SMALL = dict(n_cohorts=4, cqs_per_cohort=4, n_workloads=512,
@@ -208,15 +213,71 @@ def test_carry_round_trip(small_jax):
         carry.world_tensors({"num_cqs": 1})
 
 
+def _ported_extras(port, case):
+    """Arguments of a path the port now runs: the fair cycle, the fused
+    preemption (an empty admitted set, padded as the bridge pads it),
+    host-provided victim lists (inert without a preempting entry), and
+    the fair cycle given an admitted set it must ignore."""
+    w = port.world
+    C = w.num_cqs
+    adm = AdmittedTensors(
+        num_admitted=0, keys=[], cq=np.zeros(0, np.int32),
+        priority=np.zeros(0, np.int64), timestamp=np.zeros(0),
+        qr_time=np.zeros(0), uid_rank=np.zeros(0, np.int64),
+        evicted=np.zeros(0, bool), usage=np.zeros((0, 1), np.int64))
+    ap = eb.adm_padded(adm, w)
+    pcfg = eb.cq_policy_cfg(w, {q: ptypes.ClusterQueue(q, cohort="c")
+                                for q in w.cq_names})
+    fused = dict(
+        adm_cq=ap["adm_cq"], adm_pri=ap["adm_pri"], adm_ts=ap["adm_ts"],
+        adm_qrt=ap["adm_qrt"], adm_uid=ap["adm_uid"],
+        adm_evicted=ap["adm_ev"], adm_usage=ap["adm_usage"],
+        adm_rank=ap["adm_rank"], adm_by_root=ap["adm_by_root"],
+        root_of_cq=w.root_of_cq, slot_maybe=np.ones(C, bool),
+        **{f"pc_{k}": v for k, v in pcfg.items()})
+    victims = dict(slot_victim_row=np.full((C, 4), -1, np.int32),
+                   slot_victim_vals=np.zeros((C, 4, 1), np.int64),
+                   slot_victim_ids=np.full((C, 4), -1, np.int32),
+                   claimed0=np.zeros(8, bool))
+    return {"fair_mode": ({}, True), "adm_cq": (fused, False),
+            "victims": (victims, False), "fair_mode_adm": (fused, True)}[case]
+
+
+@pytest.mark.parametrize("case", ["fair_mode", "adm_cq", "victims",
+                                  "fair_mode_adm"])
+def test_ported_paths_run(small_jax, case):
+    """Two chained cycles of each path: all 14 outputs equal to the JAX
+    cycle's."""
+    jax_solver, _ = small_jax
+    port = small_port()
+    extra, fair = _ported_extras(port, case)
+    statics = dict(port._statics(), fair_mode=fair)
+    j_args = {k: jnp.asarray(v) for k, v in
+              dict(jax_solver._host_args(), **extra).items()}
+    t_args = port._to_device(dict(port._host_args(), **extra))
+    j_state = (np.asarray(port.wls.eligible & (port.wls.cq >= 0)),
+               np.zeros(port.wls.num_workloads, bool), port.world.usage)
+    t_state = tuple(torch.as_tensor(np.array(a)) for a in j_state)
+    for _ in range(2):
+        want = jb.cycle_step(*map(jnp.asarray, j_state), **j_args, **statics)
+        got = tb.cycle_step(*t_state, **t_args, **statics)
+        assert len(got) == len(want) == 14
+        for i, (g, x) in enumerate(zip(got, want)):
+            assert g.numpy().dtype == np.asarray(x).dtype, f"output {i}"
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x),
+                                          err_msg=f"output {i}")
+        j_state = tuple(np.asarray(x) for x in want[:3])
+        t_state = got[:3]
+    assert got[3].any()
+
+
 @pytest.mark.parametrize("unported", [
-    dict(fair_mode=True),
-    dict(adm_cq=torch.zeros(1, dtype=torch.int32)),
     dict(slot_kind_override=torch.zeros(16, dtype=torch.int32)),
     dict(slot_borrows_override=torch.zeros(16, dtype=torch.int32)),
-    dict(slot_victim_row=torch.zeros((16, 1), dtype=torch.int32)),
+    dict(slot_flavor_override=torch.zeros((16, 1), dtype=torch.int32)),
     dict(wl_flavor_ok=torch.ones((512, 1), dtype=torch.bool)),
-], ids=["fair_mode", "adm_cq", "kind_override", "borrows_override",
-        "victims", "flavor_ok"])
+], ids=["kind_override", "borrows_override", "flavor_override",
+        "flavor_ok"])
 def test_unported_paths_raise(unported):
     port = small_port()
     args = port._to_device(port._host_args())
