@@ -41,7 +41,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      cycles, 2,824 admissions, 2,313 preempting entries, 3,134 victims,
      no overflow, stream checksum 0xb8e888f4, with the heads kernel
      launched once per cycle; then the heads kernel vs its plain version
-     on the world's first-cycle inputs, exact.
+     on the world's first-cycle inputs, exact;
+ 10-13. the serving engine (Engine.schedule_once through the OracleBridge
+     and TorchExecutor, kueue_tpu_torch/bench/engine_worlds.py FULL):
+     bench.py's cycle_latency (1,000 ClusterQueues x 50,000 workloads, 1
+     untimed and 8 timed cycles) and fair_cycle_latency (500 ClusterQueues
+     x 20,000 workloads, 1 + 6 cycles), bench_preempt_churn's world (100
+     ClusterQueues, 4,000 pending) drained, and the multi-flavor
+     preemption worlds (sim nomination: flavor_grid and the slot overrides
+     on the card); each against the JAX engine's cycles, admissions,
+     preemptions, decision-stream crc32 and device / hybrid / fallback
+     cycles, with the heads kernel launched once per device cycle and
+     held against its plain version on the run's first-cycle inputs;
+     each prints p50 and p95 s/cycle and the mean phases.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
 tests/test_torch_fair.py and tests/test_torch_preempt_world.py recompute
@@ -94,6 +106,27 @@ PREEMPT_EXPECT = dict(cycles=42, admitted=2824, preempting=2313,
                       victims=3134, overflow=0, checksum=0xb8e888f4)
 # The JAX package's outcomes on the 5,120-node TAS world: placed count
 # and the crc32 of the placements, both feasibility batches and phase 1.
+# The serving engine's runs (kueue_tpu_torch/bench/engine_worlds.py
+# FULL): the JAX engine's numbers on the same worlds and calls, with its
+# serial cycle loop (tests/test_torch_engine_worlds.py recomputes them).
+ENGINE_EXPECT = {
+    "cycle_latency": dict(
+        cycles=9, admitted=9000, preempting=0, preemptions=0,
+        checksum=0x32e2d6f0, on_device=9, hybrid=0, fallback=0,
+        overridden=0),
+    "fair_cycle_latency": dict(
+        cycles=7, admitted=3500, preempting=0, preemptions=0,
+        checksum=0xe7d3c224, on_device=7, hybrid=0, fallback=0,
+        overridden=0),
+    "preempt_churn": dict(
+        cycles=39, admitted=600, preempting=231, preemptions=309,
+        checksum=0xdce70507, on_device=39, hybrid=0, fallback=1,
+        overridden=0),
+    "multiflavor": dict(
+        cycles=416, admitted=379, preempting=146, preemptions=150,
+        checksum=0x9403afa8, on_device=416, hybrid=0, fallback=0,
+        overridden=416),
+}
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
                   feasibility_empty=0x76cebe8a,
@@ -477,6 +510,44 @@ def phase_preempt_world(heads, pk, card, sms):
     return launches
 
 
+def phase_engine(name, heads, pk, card, sms):
+    """One serving-engine run of kueue_tpu_torch/bench/engine_worlds.py
+    (Engine.schedule_once through the OracleBridge and TorchExecutor)
+    against the JAX engine's pinned numbers, with the heads kernel
+    launched once per device cycle and held against its plain version
+    on the run's first-cycle inputs. Returns its heads launches."""
+    from kueue_tpu_torch.bench import engine_worlds as ew
+
+    box = {}
+    heads.launches = 0
+    t0 = time.perf_counter()
+    eff_t, cq_t, C = pk.first_heads_inputs(
+        lambda: box.update(r=ew.run(ew.FULL[name])))
+    total_s = time.perf_counter() - t0
+    launches = heads.launches
+    r = box["r"]
+    got = {k: r[k] for k in ew.PINNED}
+    print("  " + " ".join(
+        f"{k}=0x{v:08x}" if k == "checksum" else f"{k}={v}"
+        for k, v in got.items()))
+    if got != ENGINE_EXPECT[name]:
+        raise AssertionError(f"{name}: got {got}, want {ENGINE_EXPECT[name]}")
+    if launches != r["on_device"]:
+        raise AssertionError(f"{name}: heads kernel launched {launches} "
+                             f"times in {r['on_device']} device cycles")
+    check_heads(heads, f"{name} first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+    times = sorted(r["cycle_seconds"])
+    p50 = times[len(times) // 2]
+    p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
+    mean = {ph: sum(p.get(ph, 0.0) for p in r["phases"]) / len(r["phases"])
+            for ph in ("encode", "device", "apply", "finalize")}
+    print(f"  timed_cycles={len(times)} p50_s={p50:.4f} p95_s={p95:.4f} "
+          "mean_phases_s=" + ",".join(f"{k}:{v:.4f}" for k, v in mean.items())
+          + f" run_s={total_s:.2f} heads_launches={launches} | {card}")
+    return launches
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -582,6 +653,10 @@ def main() -> int:
 
     by_path = {"full_width_drain": launches, "hier_fair": fair_launches,
                "preempt_world": preempt_launches}
+    for i, name in enumerate(("cycle_latency", "fair_cycle_latency",
+                              "preempt_churn", "multiflavor"), start=10):
+        print(f"[{i}] serving engine: {name}")
+        by_path[name] = phase_engine(name, heads, pk, card, sms)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="heads_segment_min", route="cuda",

@@ -1,7 +1,9 @@
-"""Where the time of a drain goes on the GPU.
+"""Where the time of a drain or of serving-engine cycles goes on the GPU.
 
     python -m kueue_tpu_torch.bench.profile_drain \
-        [--scenario baseline|hier_fair|preempt_world] [--out FILE]
+        [--scenario baseline|hier_fair|preempt_world|cycle_latency|
+                    fair_cycle_latency|preempt_churn|multiflavor]
+        [--out FILE]
 
 Scenarios, all at full width:
   * ``baseline`` (the default): the classical drain of baseline_like,
@@ -11,25 +13,59 @@ Scenarios, all at full width:
   * ``preempt_world``: the preemption world of ``bench/preempt_world.py``
     (1,000 ClusterQueues, 20,000 workloads) through
     ``TorchExecutor.cycle_step`` with fused classical preemption, host
-    loop included.
+    loop included;
+  * ``cycle_latency``, ``fair_cycle_latency``, ``preempt_churn``,
+    ``multiflavor``: the serving engine's runs of
+    ``bench/engine_worlds.py`` (FULL; three of the twelve multi-flavor
+    worlds):
+    ``Engine.schedule_once`` through the OracleBridge and TorchExecutor,
+    per engine cycle. Their device events, host calls and busy share
+    count only what starts inside a schedule_once call: the engine's
+    build and the churn's submits are outside every number but the top
+    operators. These also report p50 / p95 seconds per timed cycle and
+    the mean encode / device / apply / finalize phases.
 
 Runs one untimed run to warm up, one timed run, and one run under
 torch.profiler. Prints, and writes as JSON to ``--out``: the timed
 run's wall seconds, cycles and ms per cycle; the profiled run's summed
 device time, its device events (kernels, copies, fills) per cycle, the
 host's kernel launches, copies and synchronisations per cycle, the heads
-kernel's launches, and the device's busy share of its wall time; and the
-operators with the most device and host time. Needs a CUDA device.
+kernel's launches, and the device's busy share of its wall time (for
+the engine, also ``device_s_outside``: device time outside the
+schedule_once calls); and the operators with the most device and host
+time. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import time
 
-SCENARIOS = ("baseline", "hier_fair", "preempt_world")
+ENGINE_SCENARIOS = ("cycle_latency", "fair_cycle_latency", "preempt_churn",
+                    "multiflavor")
+# The multi-flavor worlds profiled: the first two Preempt seeds and the
+# first TryNextFlavor seed of engine_worlds.FULL's twelve (the profiler
+# would hold every event of all 416 cycles).
+MULTIFLAVOR_PROFILED = dict(kind="multiflavor", preempt_seeds=2,
+                            try_next_seeds=1)
+SCENARIOS = ("baseline", "hier_fair", "preempt_world") + ENGINE_SCENARIOS
+
+
+def _engine_run(name):
+    """One engine run; returns its stats with ``cycles`` the
+    schedule_once calls and ``wall_s`` their wall seconds."""
+    from kueue_tpu_torch.bench import engine_worlds as ew
+
+    r = ew.run(MULTIFLAVOR_PROFILED if name == "multiflavor"
+               else ew.FULL[name])
+    r["decided_cycles"] = r["cycles"]
+    r["cycles"] = r["calls"]
+    r["wall_s"] = r["engine_s"]
+    del r["engines"]
+    return r
 
 
 def _runner(name):
@@ -60,11 +96,22 @@ def _runner(name):
                  cluster_queues=len(scen.cluster_queues)))
 
 
-def _count(averages, needle) -> int:
+def _count(events, needle) -> int:
     """Calls of the CUDA runtime API on the host whose name holds
     ``needle`` (device events such as "Memcpy DtoD" are not counted)."""
-    return sum(a.count for a in averages
-               if a.key.startswith("cuda") and needle in a.key)
+    return sum(1 for e in events
+               if e.name.startswith("cuda") and needle in e.name)
+
+
+def _inside(events, spans):
+    """The events that start inside one of ``spans`` (sorted, disjoint
+    (start, end) pairs in the profiler's microseconds)."""
+    starts = [s for s, _ in spans]
+
+    def hit(e):
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        return i >= 0 and e.time_range.start <= spans[i][1]
+    return [e for e in events if hit(e)]
 
 
 def main(argv=None) -> int:
@@ -82,27 +129,48 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    run, described = _runner(args.scenario)
+    engine = args.scenario in ENGINE_SCENARIOS
+    if engine:
+        def run():
+            return _engine_run(args.scenario)
+        described = {}
+    else:
+        run, described = _runner(args.scenario)
     run()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = run()
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    wall_s = stats["wall_s"] if engine else time.perf_counter() - t0
     cycles = stats["cycles"]
 
     heads.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        profiled = run()
         torch.cuda.synchronize()
         profiled_wall_s = time.perf_counter() - t0
+    if engine:
+        profiled_wall_s = profiled["wall_s"]
     heads_launches = heads.launches
-    # Device-side events: kernels, copies and fills.
-    on_device = [e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    from kueue_tpu_torch.bench.engine_worlds import SPAN
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    # Device-side events: kernels, copies and fills. A profiler range
+    # also shows on the device's timeline, spanning its kernels: not one.
+    all_device = [e for e in prof.events()
+                  if e.device_type == cuda and e.name != SPAN]
+    events, on_device = prof.events(), all_device
+    if engine:
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events
+                       if e.name == SPAN and e.device_type == cpu)
+        events = _inside(events, spans)
+        on_device = _inside(all_device, spans)
     device_us = sum(e.device_time_total for e in on_device)
+    # Device time outside the schedule_once calls (engine build, submits).
+    outside_us = sum(e.device_time_total for e in all_device) - device_us
     averages = prof.key_averages()
 
     def top(attr, n=12):
@@ -119,14 +187,30 @@ def main(argv=None) -> int:
         admissions_per_s=stats["admitted"] / wall_s,
         profiled_wall_s=profiled_wall_s,
         device_s=device_us / 1e6, device_events=len(on_device),
+        device_s_outside=outside_us / 1e6,
         device_events_per_cycle=len(on_device) / cycles,
-        host_launches_per_cycle=_count(averages, "LaunchKernel") / cycles,
-        host_copies_per_cycle=_count(averages, "Memcpy") / cycles,
-        host_syncs_per_cycle=_count(averages, "Synchronize") / cycles,
+        host_launches_per_cycle=_count(events, "LaunchKernel") / cycles,
+        host_copies_per_cycle=_count(events, "Memcpy") / cycles,
+        host_syncs_per_cycle=_count(events, "Synchronize") / cycles,
         heads_launches=heads_launches,
         device_busy_share=device_us / 1e6 / profiled_wall_s,
         top_device=top("self_device_time_total"),
         top_cpu=top("self_cpu_time_total"))
+    if engine:
+        times = sorted(stats["cycle_seconds"])
+        result.update(
+            decided_cycles=stats["decided_cycles"],
+            preempting=stats["preempting"],
+            device_cycles=stats["on_device"],
+            hybrid_cycles=stats["hybrid"],
+            fallback_cycles=stats["fallback"],
+            timed_cycles=len(times),
+            p50_s=times[len(times) // 2],
+            p95_s=times[min(len(times) - 1, int(len(times) * 0.95))],
+            mean_phases_s={
+                ph: sum(p.get(ph, 0.0) for p in stats["phases"])
+                / max(len(stats["phases"]), 1)
+                for ph in ("encode", "device", "apply", "finalize")})
     print(json.dumps({k: v for k, v in result.items()
                       if not k.startswith("top_")}))
     for label in ("top_device", "top_cpu"):

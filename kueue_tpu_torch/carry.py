@@ -7,12 +7,14 @@ as plain mappings of field name to numpy array or scalar (for example
 dataclasses, so the port can solve exactly the arrays another encoder
 produced. Fields the port does not have are ignored; a missing field
 raises. ``tas_structure`` does the same for a topology forest's device
-encoding.
+encoding, and ``api_object`` for an API object (flavors, queues,
+workloads).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
 import torch
@@ -36,7 +38,7 @@ def _build(cls, mapping):
         if isinstance(v, np.ndarray):
             v = v.copy()
         elif isinstance(v, (list, tuple)):
-            v = list(v)
+            v = [api_object(x) for x in v]
         elif isinstance(v, (int, np.integer)):
             v = int(v)
         elif v is not None:
@@ -44,6 +46,33 @@ def _build(cls, mapping):
                             f"of type {type(v).__name__}")
         values[f.name] = v
     return cls(**values)
+
+
+def api_object(obj):
+    """The port's API object with the field values of ``obj``, an object
+    of another package's API types of the same class names (dataclasses,
+    enums, and the tuples, lists and dicts holding them), converted
+    field by field. The ``uid`` is copied as it is: preemption candidates
+    break ties on it."""
+    from kueue_tpu_torch.api import types
+
+    if isinstance(obj, enum.Enum):
+        return getattr(types, type(obj).__name__)(obj.value)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = getattr(types, type(obj).__name__)
+        init, rest = {}, {}
+        for f in dataclasses.fields(cls):
+            (init if f.init else rest)[f.name] = api_object(
+                getattr(obj, f.name))
+        out = cls(**init)
+        for k, v in rest.items():
+            object.__setattr__(out, k, v)
+        return out
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(api_object(x) for x in obj)
+    if isinstance(obj, dict):
+        return {api_object(k): api_object(v) for k, v in obj.items()}
+    return obj
 
 
 def world_tensors(mapping) -> WorldTensors:

@@ -8,6 +8,8 @@ from __future__ import annotations
 _DEFAULTS: dict[str, bool] = {
     # FIFO timestamp of workloads preempted while their CQ borrowed.
     "PrioritySortingWithinCohort": True,
+    # NoFit heads park their pending twins of the same shape with them.
+    "SchedulingEquivalenceHashing": True,
     # Reclaimable pods free their share of quota.
     "ReclaimablePods": True,
     # TAS placement solved by the device program (ops/tas.tas_place).

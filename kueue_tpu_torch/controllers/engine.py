@@ -1,0 +1,644 @@
+"""The standalone control-plane engine: queue manager + cache + scheduler
+cycle + workload lifecycle, wired together in-process.
+
+A trimmed copy of ``kueue_tpu/controllers/engine.py`` for the port's
+serving path: object admin, submit / finish / tick on the engine clock,
+eviction and preemption, and ``schedule_once`` through the batched
+oracle (``attach_oracle``, an ``oracle/engine_bridge.OracleBridge`` over
+a ``TorchExecutor``) or the sequential host cycle. Decisions are the JAX
+package's engine's, cycle by cycle. Left out: the journal, tracing, the
+metrics registry and SLOs, admission checks, pods-ready, MultiKueue,
+admission fair sharing, holds, LimitRanges and RuntimeClasses (pod
+templates), columnar apply and TAS (topologies, nodes and topology
+requests raise NotImplementedError).
+
+Lifecycle semantics mirrored from the reference:
+  * admit: set QuotaReserved + Admitted, write Admission, assume in cache
+    (scheduler.go:856 admit, :920 assumeWorkload).
+  * preemption: targets get Evicted/Preempted conditions, their usage is
+    released, and they are requeued pending
+    (preemption.go:194 IssuePreemptions + core/workload_controller.go).
+  * finish: Finished condition, removal from cache, and inadmissible
+    workloads of the cohort are re-queued (workload event handlers,
+    core/workload_controller.go:1228+).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from kueue_tpu_torch.api.types import (
+    ClusterQueue,
+    Cohort,
+    Condition,
+    LocalQueue,
+    ResourceFlavor,
+    Workload,
+    WorkloadConditionType,
+)
+from kueue_tpu_torch.cache.queues import QueueManager
+from kueue_tpu_torch.cache.scheduler_cache import Cache
+from kueue_tpu_torch.scheduler.cycle import (
+    CycleResult,
+    EntryStatus,
+    RequeueReason,
+    SchedulerCycle,
+)
+from kueue_tpu_torch.workload_info import admission_from_assignment
+
+_TAS = "topology-aware scheduling in the engine is not ported"
+
+
+@dataclass
+class EngineEvent:
+    time: float
+    kind: str  # Admitted | Preempted | Requeued | Finished | Submitted
+    workload: str
+    cluster_queue: str = ""
+    detail: str = ""
+
+
+@dataclass
+class EngineMetrics:
+    """The north-star self-metrics (pkg/metrics/metrics.go:345-383)."""
+
+    admission_attempts_total: int = 0
+    admission_cycles: int = 0
+    admissions_total: int = 0
+    preemptions_total: int = 0
+    admission_cycle_preemption_skips: dict[str, int] = field(
+        default_factory=dict)
+
+
+class _BulkAdmitCtx:
+    """Per-cycle state of the batched serving path: the Condition
+    instances every admission of the cycle shares, and the Admission
+    flyweights."""
+
+    __slots__ = ("qr_cond", "adm_cond", "reset_conds", "admissions")
+
+    def __init__(self, now: float):
+        self.qr_cond = Condition(
+            type=WorkloadConditionType.QUOTA_RESERVED, status=True,
+            reason="QuotaReserved", last_transition_time=now)
+        self.adm_cond = Condition(
+            type=WorkloadConditionType.ADMITTED, status=True,
+            reason="Admitted", last_transition_time=now)
+        self.reset_conds = tuple(
+            (ct, Condition(type=ct, status=False, reason="QuotaReserved",
+                           last_transition_time=now))
+            for ct in (WorkloadConditionType.EVICTED,
+                       WorkloadConditionType.PREEMPTED,
+                       WorkloadConditionType.BLOCKED_ON_PREEMPTION_GATES))
+        self.admissions: dict = {}  # (cq, assignment-id) -> Admission
+
+
+class Engine:
+    def __init__(self, enable_fair_sharing: bool = False):
+        self.queues = QueueManager()
+        self.cache = Cache()
+        # When a cycle is active, cohort-inadmissible requeues triggered
+        # by evictions are deferred to cycle end (one pass per distinct
+        # cohort root instead of one per victim).
+        self._deferred_cohort_requeue: Optional[set] = None
+        self.cycle = SchedulerCycle(enable_fair_sharing=enable_fair_sharing)
+        self.cycle.namespace_labels_of = \
+            lambda ns: self.namespace_labels.get(ns)
+        # Engine time: every decision reads this clock; callers advance
+        # it (``eng.clock += dt`` / ``tick``). Phases are timed on the
+        # wall clock, which no decision reads.
+        self.clock: float = 0.0
+        self.events: list[EngineEvent] = []
+        self.metrics = EngineMetrics()
+        self._serving_gc = False  # apply_serving_gc_posture() active
+        # Last cycle's phase durations, and which path decided it:
+        # "sequential", "device", or "hybrid" (device roots + host tail).
+        self.last_cycle_phases: dict[str, float] = {}
+        self.last_cycle_mode: str = ""
+        self.workloads: dict[str, Workload] = {}
+        # OracleBridge (batched device path), via attach_oracle().
+        self.oracle = None
+        # Namespace labels for CQ namespace-selector admissibility (none
+        # are registered in the port: a non-empty selector matches no
+        # namespace).
+        self.namespace_labels: dict[str, dict[str, str]] = {}
+
+    # -- object admin --
+
+    def create_cluster_queue(self, cq: ClusterQueue) -> None:
+        if cq.admission_scope == "UsageBasedAdmissionFairSharing":
+            raise NotImplementedError(
+                "admission fair sharing is not ported")
+        self.cache.add_or_update_cluster_queue(cq)
+        self.queues.add_cluster_queue(cq)
+
+    def create_cohort(self, cohort: Cohort) -> None:
+        self.cache.add_or_update_cohort(cohort)
+
+    def create_resource_flavor(self, rf: ResourceFlavor) -> None:
+        self.cache.add_or_update_resource_flavor(rf)
+        # A CQ may have been inactive for referencing this flavor
+        # (inactiveReason FlavorNotFound): re-queue parked workloads.
+        self.queues.queue_inadmissible_workloads()
+
+    def create_local_queue(self, lq: LocalQueue) -> None:
+        self.queues.add_local_queue(lq)
+
+    def create_topology(self, topology) -> None:
+        raise NotImplementedError(_TAS)
+
+    # -- workload lifecycle --
+
+    def submit(self, wl: Workload) -> bool:
+        if not wl.creation_time:
+            wl.creation_time = self.clock
+        for ps in wl.pod_sets:
+            if ps.topology_request is not None:
+                raise NotImplementedError(_TAS)
+            if ps.template is not None:
+                raise NotImplementedError(
+                    "pod templates (LimitRanges, RuntimeClass overheads) "
+                    "are not ported")
+        self.workloads[wl.key] = wl
+        info = self.queues.add_or_update_workload(wl)
+        if info is None:
+            return False
+        # status.resourceRequests: the effective totals at consideration
+        # time (workload_types.go:886 PodSetRequest).
+        wl.status.resource_requests = {
+            psr.name: dict(psr.requests) for psr in info.total_requests}
+        self._event("Submitted", wl.key,
+                    cluster_queue=info.cluster_queue)
+        return True
+
+    def finish(self, key: str) -> None:
+        wl = self.workloads.get(key)
+        if wl is None:
+            return
+        finished = wl.condition(WorkloadConditionType.FINISHED)
+        reason = (finished.reason if finished is not None and finished.reason
+                  else "Succeeded")
+        wl.set_condition(WorkloadConditionType.FINISHED, True,
+                         reason=reason, now=self.clock)
+        cq_name = (wl.status.admission.cluster_queue
+                   if wl.status.admission else "")
+        self.cache.delete_workload(key)
+        self.queues.delete_workload(wl)
+        self._event("Finished", key, cluster_queue=cq_name)
+        self._requeue_cohort_inadmissible(cq_name)
+
+    # -- the scheduling loop --
+
+    def tick(self, dt: float) -> None:
+        """Advance the clock and enforce maximum execution time
+        (workload_controller.go:838 reconcileMaxExecutionTime)."""
+        self.clock += dt
+        for info in list(self.cache.workloads.values()):
+            wl = self.workloads.get(info.key)
+            if wl is None or not wl.is_admitted or wl.is_finished:
+                continue
+            max_s = wl.maximum_execution_time_seconds
+            if max_s is None:
+                continue
+            adm = wl.condition(WorkloadConditionType.ADMITTED)
+            spent = wl.status.accumulated_past_execution_time_seconds
+            if adm and spent + (self.clock - adm.last_transition_time) \
+                    > max_s:
+                wl.active = False
+                self.evict(wl, "MaximumExecutionTimeExceeded",
+                           requeue=False)
+
+    def attach_oracle(self, max_depth: int = 4, device=None) -> None:
+        """Enable the batched device path for scheduling cycles: an
+        OracleBridge over a TorchExecutor on ``device`` (CUDA unless the
+        caller asks for the CPU; raises when CUDA is absent). An
+        executor error propagates out of schedule_once."""
+        from kueue_tpu_torch.oracle.engine_bridge import OracleBridge
+        from kueue_tpu_torch.oracle.service import TorchExecutor
+
+        self.oracle = OracleBridge(self, TorchExecutor(device),
+                                   max_depth=max_depth)
+
+    def schedule_once(self) -> Optional[CycleResult]:
+        """One schedule() cycle (scheduler.go:286)."""
+        if not self._serving_gc:
+            return self._schedule_once_impl()
+        try:
+            return self._schedule_once_impl()
+        finally:
+            # Serving GC posture: sweep the young generation and
+            # re-freeze survivors after every cycle.
+            import gc
+            gc.collect(0)
+            gc.freeze()
+
+    def _schedule_once_impl(self) -> Optional[CycleResult]:
+        if self.oracle is not None:
+            result = self.oracle.try_cycle()
+            if result is not None:
+                if not result.entries and not result.inadmissible:
+                    return None  # idle
+                self.metrics.admission_cycles += 1
+                return result
+            self.oracle.cycles_fallback += 1
+
+        heads = self.queues.heads(self.clock)
+        if not heads:
+            return None
+        return self._sequential_cycle(heads)
+
+    def _sequential_cycle(self, heads, count_cycle: bool = True) \
+            -> CycleResult:
+        """The sequential decision path for a set of popped heads. Also
+        used by the oracle bridge for the host-handled cohort roots of a
+        hybrid cycle (roots never interact, so running them after the
+        device roots is cycle-equivalent); the bridge passes
+        count_cycle=False."""
+        t0 = time.perf_counter()
+        if count_cycle:
+            self.metrics.admission_cycles += 1
+            self.last_cycle_mode = "sequential"
+        snapshot = self.cache.snapshot()
+        t_snap = time.perf_counter()
+        already = set(self.cache.workloads)
+        try:
+            result = self.cycle.schedule(heads, snapshot, now=self.clock,
+                                         already_admitted=already)
+        finally:
+            snapshot.close()
+        t_decide = time.perf_counter()
+        deferred: set = set()
+        self._deferred_cohort_requeue = deferred
+        try:
+            for e in result.entries:
+                self.metrics.admission_attempts_total += 1
+                if e.status == EntryStatus.ASSUMED:
+                    self._admit(e)
+                elif e.status == EntryStatus.PREEMPTING:
+                    self._issue_preemptions(e)
+                    self._requeue(e)
+                else:
+                    self._requeue(e)
+            for e in result.inadmissible:
+                self._requeue(e)
+        finally:
+            self._deferred_cohort_requeue = None
+        self._requeue_cohorts_bulk(deferred)
+        for cq_name, skips in result.stats.preemption_skips.items():
+            m = self.metrics.admission_cycle_preemption_skips
+            m[cq_name] = m.get(cq_name, 0) + skips
+        if count_cycle:
+            self.last_cycle_phases = {"snapshot": t_snap - t0,
+                                      "decide": t_decide - t_snap,
+                                      "apply": time.perf_counter() - t_decide}
+        return result
+
+    def run_until_quiescent(self, max_cycles: int = 10_000) -> int:
+        """Drive cycles until no progress is possible (tests/bench)."""
+        cycles = 0
+        while cycles < max_cycles:
+            result = self.schedule_once()
+            cycles += 1
+            if result is None:
+                break
+            if not result.assumed and not any(
+                    e.status == EntryStatus.PREEMPTING
+                    for e in result.entries):
+                break
+        return cycles
+
+    # -- internals --
+
+    def apply_serving_gc_posture(self) -> None:
+        """Serving-daemon GC posture: freeze the long-lived world so
+        generational collections stop scanning it mid-cycle; automatic
+        collection is then disabled and replaced by a young-generation
+        sweep + re-freeze after every serving cycle."""
+        import gc
+
+        gc.collect()
+        gc.freeze()
+        gc.disable()
+        self._serving_gc = True
+
+    def begin_bulk_admit(self) -> _BulkAdmitCtx:
+        """Open the bulk-admission context of one serving cycle."""
+        return _BulkAdmitCtx(self.clock)
+
+    def bulk_assume_batch(self, entries, bulk: _BulkAdmitCtx) -> list:
+        """In-cycle half of a device cycle's admitted batch: remove the
+        workloads from the pending world and assume them in the cache
+        (scheduler.go:920 assumeWorkload). Returns the (entry, admission)
+        pairs for bulk_finalize_batch. Entries with reclaimable pods or
+        preemption targets take the exact per-entry _admit path."""
+        if not entries:
+            return []
+        cache = self.cache
+        queues = self.queues
+        workloads_reg = cache.workloads
+        wl_usage = cache._wl_usage
+        live_cqs = cache.cluster_queues
+        # Persistent Admission flyweights: the stored assignment ref
+        # keeps its id() from being recycled, so identity keys are safe.
+        ver = cache.spec_version
+        fly = getattr(self, "_admission_fly", None)
+        if fly is None or fly[0] != ver:
+            fly = (ver, {})
+            self._admission_fly = fly
+        fly = fly[1]
+        if len(fly) > 65536:
+            fly.clear()
+        pairs: list = []
+        slow: list = []
+        for entry in entries:
+            info = entry.info
+            wl = info.obj
+            if (wl.status.reclaimable_pods or entry.preemption_targets
+                    or wl.status.admission_check_states):
+                slow.append(entry)
+                continue
+            key = wl.key
+            cq_name = info.cluster_queue
+            assignment = entry.assignment
+            akey = (cq_name, id(assignment))
+            ent = fly.get(akey)
+            if ent is None or ent[0] is not assignment:
+                admission = admission_from_assignment(
+                    cq_name, assignment.pod_sets)
+                fly[akey] = (assignment, admission)
+            else:
+                admission = ent[1]
+            wl.status.admission = admission
+            trs = info.total_requests
+            psas = admission.pod_set_assignments
+            if len(trs) == len(psas):
+                for psr, psa in zip(trs, psas):
+                    psr.flavors = dict(psa.flavors)
+            else:
+                info.apply_admission(admission)
+            # Pending world exit (the bridge resolved the CQ already).
+            pcq = queues.cluster_queues.get(cq_name)
+            if pcq is not None and (
+                    key in pcq.items or key in pcq.inadmissible
+                    or pcq.in_flight == key):
+                pcq.delete_lazy(key)  # releases the tensor row too
+            else:
+                queues.delete_workload(wl)
+            # Cache assume (add_or_update_workload inlined; the usage
+            # dict is the assignment flyweight's, never mutated).
+            if cq_name in live_cqs:
+                if key in wl_usage:
+                    cache._unaccount(key)
+                workloads_reg[key] = info
+                usage = assignment.usage
+                cqu = cache.cq_usage.get(cq_name)
+                if cqu is None:
+                    cqu = cache.cq_usage[cq_name] = {}
+                for fr, v in usage.items():
+                    cqu[fr] = cqu.get(fr, 0) + v
+                cqw = cache.cq_workloads.get(cq_name)
+                if cqw is None:
+                    cqw = cache.cq_workloads[cq_name] = {}
+                cqw[key] = info
+                wl_usage[key] = (cq_name, usage)
+                cache.mark_admitted_dirty(key)
+            pairs.append((entry, admission))
+        if pairs:
+            cache.admitted_version += 1
+        for entry in slow:
+            self.queues.delete_workload(entry.info.obj)
+            self._admit(entry, bulk=bulk)
+        return pairs
+
+    def bulk_finalize_batch(self, pairs, bulk: _BulkAdmitCtx) -> None:
+        """Status finalization of a device cycle's admitted batch
+        (scheduler.go:870, the reference's async status PATCH): status
+        conditions and events."""
+        if not pairs:
+            return
+        now = self.clock
+        QR = WorkloadConditionType.QUOTA_RESERVED
+        ADM = WorkloadConditionType.ADMITTED
+        n_admitted = 0
+        for entry, admission in pairs:
+            info = entry.info
+            wl = info.obj
+            key = wl.key
+            cq_name = info.cluster_queue
+            conds = wl.status.conditions
+            prev = conds.get(QR)
+            if prev is None or not prev.status:
+                conds[QR] = bulk.qr_cond
+            for ctype, cond in bulk.reset_conds:
+                # Reset only currently-True conditions.
+                pc = conds.get(ctype)
+                if pc is not None and pc.status:
+                    conds[ctype] = cond
+            self._record(EngineEvent(now, "QuotaReserved", key, cq_name))
+            adm_cond_prev = conds.get(ADM)
+            if adm_cond_prev is not None and adm_cond_prev.status:
+                continue  # already admitted: QuotaReserved only
+            conds[ADM] = bulk.adm_cond
+            n_admitted += 1
+            self._record(EngineEvent(now, "Admitted", key, cq_name))
+        self.metrics.admissions_total += n_admitted
+
+    def _admit(self, entry, bulk: Optional[_BulkAdmitCtx] = None) -> None:
+        """scheduler.go:856 (admit): reserve quota, assume in cache, then
+        the Admitted condition."""
+        wl = entry.obj
+        if bulk is not None:
+            akey = (entry.info.cluster_queue, id(entry.assignment))
+            admission = bulk.admissions.get(akey)
+            if admission is None:
+                admission = admission_from_assignment(
+                    entry.info.cluster_queue, entry.assignment.pod_sets)
+                bulk.admissions[akey] = admission
+        else:
+            admission = admission_from_assignment(
+                entry.info.cluster_queue, entry.assignment.pod_sets)
+        wl.status.admission = admission
+        if bulk is not None:
+            prev = wl.status.conditions.get(
+                WorkloadConditionType.QUOTA_RESERVED)
+            if prev is None or not prev.status:
+                wl.status.conditions[
+                    WorkloadConditionType.QUOTA_RESERVED] = bulk.qr_cond
+            for ctype, cond in bulk.reset_conds:
+                if wl.has_condition(ctype):
+                    wl.status.conditions[ctype] = cond
+        else:
+            wl.set_condition(WorkloadConditionType.QUOTA_RESERVED, True,
+                             reason="QuotaReserved", now=self.clock)
+            # Reservation resets the active Evicted / Preempted / blocked-
+            # on-gates conditions (workload.go:852-862).
+            for ctype in (WorkloadConditionType.EVICTED,
+                          WorkloadConditionType.PREEMPTED,
+                          WorkloadConditionType.BLOCKED_ON_PREEMPTION_GATES):
+                if wl.has_condition(ctype):
+                    wl.set_condition(ctype, False, reason="QuotaReserved",
+                                     now=self.clock)
+        entry.info.apply_admission(admission)
+        self.cache.add_or_update_workload(wl, info=entry.info)
+        # The workload left the pending world: free its tensor row.
+        self.queues.rows.on_remove(wl.key)
+        cq_name = entry.info.cluster_queue
+        self._event("QuotaReserved", wl.key, cluster_queue=cq_name)
+        self._sync_admitted(wl, cq_name, bulk=bulk)
+        # Replace-old-slice after successful admission
+        # (scheduler.go:558 replaceOldWorkloadSlice).
+        for target in entry.preemption_targets:
+            if target.reason == "WorkloadSliceReplaced":
+                self.finish(target.workload.key)
+
+    def _sync_admitted(self, wl: Workload, cq_name: str,
+                       bulk: Optional[_BulkAdmitCtx] = None) -> None:
+        """workload.SyncAdmittedCondition (no admission checks)."""
+        if wl.is_admitted:
+            return
+        self.metrics.admissions_total += 1
+        if bulk is not None:
+            wl.status.conditions[WorkloadConditionType.ADMITTED] = \
+                bulk.adm_cond
+        else:
+            wl.set_condition(WorkloadConditionType.ADMITTED, True,
+                             reason="Admitted", now=self.clock)
+        self._event("Admitted", wl.key, cluster_queue=cq_name)
+
+    def evict(self, wl: Workload, reason: str, requeue: bool = True,
+              backoff_seconds: float = 0.0, bulk=None) -> None:
+        """Shared eviction path (pkg/workload/evict). The
+        cohort-inadmissible requeue is deferred per cycle when a cycle
+        is active."""
+        cq_name = (wl.status.admission.cluster_queue
+                   if wl.status.admission else "")
+        _adm = wl.condition(WorkloadConditionType.ADMITTED)
+        admitted_at = (_adm.last_transition_time
+                       if _adm is not None and _adm.status else None)
+        wl.status.eviction_counts[reason] = \
+            wl.status.eviction_counts.get(reason, 0) + 1
+        if admitted_at is not None:
+            wl.status.accumulated_past_execution_time_seconds += \
+                max(0.0, self.clock - admitted_at)
+        wl.set_condition(WorkloadConditionType.EVICTED, True,
+                         reason=reason, now=self.clock)
+        wl.set_condition(WorkloadConditionType.ADMITTED, False,
+                         reason=reason, now=self.clock)
+        wl.set_condition(WorkloadConditionType.QUOTA_RESERVED, False,
+                         reason=reason, now=self.clock)
+        wl.status.admission = None
+        wl.status.admission_check_states = {}
+        wl.status.admission_check_updates = {}
+        self.cache.delete_workload(wl.key)
+        self._event("Evicted", wl.key, cluster_queue=cq_name, detail=reason)
+        if requeue and wl.active:
+            wl.status.requeue_count += 1
+            if backoff_seconds:
+                wl.status.requeue_at = self.clock + backoff_seconds
+            self.queues.add_or_update_workload(wl)
+        if self._deferred_cohort_requeue is not None:
+            self._deferred_cohort_requeue.add(cq_name)
+        else:
+            self._requeue_cohort_inadmissible(cq_name)
+
+    def _issue_preemptions(self, entry, bulk=None) -> None:
+        """preemption.go:194 (IssuePreemptions) + the workload controller's
+        requeue-after-evict. Evictions are observed synchronously, so no
+        issued preemption is ever awaiting observation."""
+        for target in entry.preemption_targets:
+            if target.reason == "WorkloadSliceReplaced":
+                # The old slice keeps running until the replacement admits.
+                continue
+            twl = self.workloads.get(target.workload.key)
+            if twl is None or twl.is_finished:
+                continue
+            if twl.has_condition(WorkloadConditionType.EVICTED):
+                continue  # preemption ongoing (preemption.go:209)
+            twl.set_condition(WorkloadConditionType.PREEMPTED, True,
+                              reason=target.reason, now=self.clock)
+            self.evict(twl, "Preempted", bulk=bulk)
+            self.metrics.preemptions_total += 1
+            self._event("Preempted", twl.key,
+                        cluster_queue=target.workload.cluster_queue,
+                        detail=target.reason)
+
+    def _requeue(self, entry) -> None:
+        """scheduler.go:1016 (requeueAndUpdate)."""
+        wl = entry.obj
+        if wl.is_finished:
+            return
+        reason = entry.requeue_reason
+        if (entry.status not in (EntryStatus.NOT_NOMINATED,
+                                 EntryStatus.INADMISSIBLE)
+                and reason == RequeueReason.GENERIC):
+            reason = RequeueReason.FAILED_AFTER_NOMINATION
+        if reason == RequeueReason.PREEMPTION_GATED:
+            # scheduler.go:1046: surface the orchestrated-preemption
+            # signal so a coordinator can open a gate.
+            wl.set_condition(
+                WorkloadConditionType.BLOCKED_ON_PREEMPTION_GATES, True,
+                reason="PreemptionGated",
+                message=entry.inadmissible_msg, now=self.clock)
+        self.queues.requeue_workload(entry.info, reason)
+        self._event("Requeued", wl.key,
+                    cluster_queue=entry.info.cluster_queue,
+                    detail=f"{reason.value}: {entry.inadmissible_msg}")
+
+    def _cohort_root_of(self, cohort_name: str) -> str:
+        """Root cohort of a (possibly implicit) cohort, from the live
+        registries."""
+        seen = set()
+        name = cohort_name
+        while name not in seen:
+            seen.add(name)
+            co = self.cache.cohorts.get(name)
+            if co is None or not co.parent:
+                return name
+            name = co.parent
+        return name  # defensive: cycle (webhooks reject these)
+
+    def _requeue_cohorts_bulk(self, cq_names: set) -> None:
+        """One inadmissible-requeue pass over the union of the evicting
+        CQs' cohort subtrees (deduped across a whole cycle's victims)."""
+        if not cq_names:
+            return
+        all_names: set = set()
+        for cq_name in cq_names:
+            cq = self.cache.cluster_queues.get(cq_name)
+            if cq is None:
+                continue
+            if not cq.cohort:
+                all_names.add(cq_name)
+                continue
+            root = self._cohort_root_of(cq.cohort)
+            all_names.update(
+                name for name, c in self.cache.cluster_queues.items()
+                if c.cohort and self._cohort_root_of(c.cohort) == root)
+            all_names.add(cq_name)
+        if all_names:
+            self.queues.queue_inadmissible_workloads(all_names)
+
+    def _requeue_cohort_inadmissible(self, cq_name: str) -> None:
+        """Capacity freed: re-activate inadmissible workloads of the cohort
+        (manager.go QueueAssociatedInadmissibleWorkloadsAfter)."""
+        cq = self.cache.cluster_queues.get(cq_name)
+        if cq is None:
+            return
+        if not cq.cohort:  # None or "" — no cohort membership
+            self.queues.queue_inadmissible_workloads({cq_name})
+            return
+        root = self._cohort_root_of(cq.cohort)
+        names = {name for name, c in self.cache.cluster_queues.items()
+                 if c.cohort and self._cohort_root_of(c.cohort) == root}
+        names.add(cq_name)
+        self.queues.queue_inadmissible_workloads(names)
+
+    def _event(self, kind: str, workload: str, cluster_queue: str = "",
+               detail: str = "") -> None:
+        self._record(EngineEvent(self.clock, kind, workload, cluster_queue,
+                                 detail))
+
+    def _record(self, ev: EngineEvent) -> None:
+        self.events.append(ev)

@@ -8,7 +8,10 @@ to earlier pod sets counted against later ones.
 
 The JAX version vmaps over workloads and scans over pod sets, groups
 and flavors; here the workload axis is a batch dimension and the small
-static axes (P, G, F) are Python loops.
+static axes (P, G, F) are Python loops. ``flavor_grid`` exposes the
+per-(slot, group, flavor, resource) classification for the bridge's
+sim-augmented nomination, batched over slots, groups and flavors at
+once.
 
 Mode encoding: 0=NO_FIT, 1=NO_CANDIDATES, 4=FIT.
 """
@@ -43,15 +46,17 @@ def _mode_key(pmode, borrow, pref_preempt_first):
 
 def _classify_flavor(c, req, fl, avail, potential, nominal, derived,
                      ancestors, height, no_preemption, can_pwb, *, depth,
-                     acc):
+                     acc=None):
     """fitsResourceQuota before the preemption consult: classify flavor
-    ``fl`` [W] for every resource of each workload. ``req`` [W, S] is
-    checked as acc[fr] + req, where ``acc`` [W, R + 1] holds the usage
-    already assigned to earlier pod sets (its last column is spare).
-    Returns (pmode [W, S], borrow [W, S], oracle [W, S])."""
+    ``fl`` [W] (non-negative) for every resource of each workload.
+    ``req`` [W, S] is checked as acc[fr] + req, where ``acc`` [W, R + 1],
+    when given, holds the usage already assigned to earlier pod sets
+    (its last column is spare). Returns (pmode [W, S], borrow [W, S],
+    oracle [W, S])."""
     S = req.shape[1]
     fr = fl.long()[:, None] * S + torch.arange(S, device=req.device)
-    req = req + torch.where(req > 0, acc.gather(1, fr), 0)
+    if acc is not None:
+        req = req + torch.where(req > 0, acc.gather(1, fr), 0)
     cc = c.long()[:, None].expand_as(fr)
     a = avail[cc, fr]
     p = potential[cc, fr]
@@ -79,9 +84,10 @@ def _representative(keys, values, in_group):
 
 def _eval_group(g, c, req, acc, g_of_res, flavors, avail, potential,
                 nominal, derived, ancestors, height, no_preemption, can_pwb,
-                try_next_borrow, pref, *, depth):
+                try_next_borrow, pref, ok, *, depth):
     """Scan group g's flavors for every workload: the chosen flavor, the
-    group's representative pmode and borrow, and its oracle flag."""
+    group's representative pmode and borrow, and its oracle flag.
+    ``ok`` bool[W, NF] (or None) masks flavors a workload may not use."""
     W, S = req.shape
     in_group = (g_of_res == g) & (req > 0)  # [W, S]
     best_key = torch.full((W,), -(_BIG * _BIG) - 1, dtype=torch.int64,
@@ -95,6 +101,9 @@ def _eval_group(g, c, req, acc, g_of_res, flavors, avail, potential,
     for f in range(flavors.shape[1]):
         fl = flavors[:, f]
         valid = fl >= 0
+        if ok is not None:
+            valid = valid & ok.gather(
+                1, torch.clamp(fl, min=0).long()[:, None])[:, 0]
         pmode_s, borrow_s, oracle_s = _classify_flavor(
             c, req, torch.clamp(fl, min=0), avail, potential, nominal,
             derived, ancestors, height, no_preemption, can_pwb,
@@ -144,6 +153,9 @@ def assign_flavors(
     can_pwb,  # bool[C]
     fung_borrow_try_next,  # bool[C]
     fung_pref_preempt_first,  # bool[C]
+    flavor_ok=None,  # bool[W, NF] per-workload flavor eligibility (taints,
+    #   selectors, affinity against the flavor's node labels); a masked
+    #   flavor is skipped and the scan tries the next. None: all eligible.
     *,
     depth: int,
     num_resources: int,
@@ -180,7 +192,7 @@ def assign_flavors(
             _eval_group(g, wl_cq, req, acc, g_of_res, group_flavors[c, g],
                         avail, potential, nominal, derived, ancestors,
                         height, no_preemption, can_pwb, try_next_borrow,
-                        pref, depth=depth)
+                        pref, flavor_ok, depth=depth)
             for g in range(G)]
         g_fl = torch.stack([x[0] for x in groups], dim=1)  # [W, G]
         pmode = torch.stack([x[1] for x in groups], dim=1).min(dim=1).values
@@ -212,3 +224,42 @@ def assign_flavors(
             torch.stack(borrow_ps, dim=1).max(dim=1).values,
             torch.stack(oracle_ps, dim=1).any(dim=1),
             torch.stack(usage_fr_ps, dim=1))
+
+
+def flavor_grid(
+    wl_cq,  # int32[C] head CQ per slot
+    wl_req,  # int64[C, S]
+    derived, nominal, ancestors, height, group_of_res, group_flavors,
+    no_preemption, can_pwb,
+    *,
+    depth: int,
+    num_resources: int,
+):
+    """Per-(slot, group, flavor, resource) classification before the
+    preemption consult, for the bridge's sim-augmented nomination: cells
+    flagged ``sim`` need a preemption simulation before the fungibility
+    lattice can pick the flavor. All C x G x F (slot, flavor) pairs are
+    classified in one batch.
+
+    Returns (pmode int64[C, G, F, S] in {NO_FIT, NO_CANDIDATES, FIT},
+    borrow int32[C, G, F, S] before the simulations, sim bool[C, G, F, S],
+    in_group bool[C, G, S])."""
+    S = num_resources
+    C = wl_cq.shape[0]
+    G, F = group_flavors.shape[1], group_flavors.shape[2]
+    dev = wl_req.device
+    avail = torch.clamp(derived["available"], min=0)
+    c = wl_cq.long()
+    fl = group_flavors[c].reshape(C * G * F)
+    pmode, borrow, oracle = _classify_flavor(
+        c.repeat_interleave(G * F), wl_req.repeat_interleave(G * F, dim=0),
+        torch.clamp(fl, min=0), avail, derived["potential"], nominal,
+        derived, ancestors, height, no_preemption, can_pwb, depth=depth)
+    active = wl_req > 0  # [C, S]
+    in_group = (group_of_res[c][:, None, :]
+                == torch.arange(G, device=dev)[None, :, None]) \
+        & active[:, None, :]  # [C, G, S]
+    sim = (oracle & (fl >= 0)[:, None]).reshape(C, G, F, S) \
+        & active[:, None, None, :] & in_group[:, :, None, :]
+    return (pmode.reshape(C, G, F, S), borrow.reshape(C, G, F, S), sim,
+            in_group)

@@ -13,9 +13,9 @@ One cycle (``cycle_step``):
   6. park NoFit heads (BestEffortFIFO inadmissible semantics)
 
 ``drain_loop`` runs cycles until one admits nothing, with one host sync
-per cycle on the progress flag. The bridge overrides (kind, borrow level
-and flavor per slot) and per-workload flavor masks are not ported yet:
-passing any of them raises NotImplementedError.
+per cycle on the progress flag. The serving bridge may override a
+slot's entry kind, borrow level and flavors (its sim nomination) and
+mask the flavors each workload may use.
 """
 
 from __future__ import annotations
@@ -71,9 +71,10 @@ def _cycle_core(
     fair_weight=None,  # float64[N]
     child_rank=None,  # int64[N] fair-tournament child-order tiebreak
     local_depth=None,  # int32[Rn, K] fair-tournament level structure
-    slot_kind_override=None,  # not ported: raises
-    slot_borrows_override=None,  # not ported: raises
-    slot_flavor_override=None,  # not ported: raises
+    slot_kind_override=None,  # int32[C] entry kind per slot, -1 none
+    slot_borrows_override=None,  # int32[C] borrow level per slot, -1 none
+    slot_flavor_override=None,  # int32[C, S] flavor per resource of pod
+    #   set 0, -1 none (the sim nomination is single-podset)
     root_parent_local=None,  # int32[Rn, K] (victim-removal bubbling)
     slot_victim_row=None,  # int32[C, V] victim CQ local positions
     slot_victim_vals=None,  # int64[C, V, R] victim usage rows
@@ -98,7 +99,7 @@ def _cycle_core(
     root_of_cq=None,  # int32[C]
     adm_rank=None,  # int64[A] precomputed candidate-ordering rank
     adm_by_root=None,  # int32[Rn, A_l] admitted ids grouped by root
-    wl_flavor_ok=None,  # not ported: raises
+    wl_flavor_ok=None,  # bool[W, NF] per-workload flavor eligibility
     slot_maybe=None,  # bool[C] host precheck: this slot's head could
     #   have preemption candidates (False only when provably none).
     #   Slots masked off take the "no candidates" outcome; a cycle with
@@ -111,13 +112,6 @@ def _cycle_core(
     fused classical preemption when the ``adm_*`` / ``pc_*`` arguments
     are given (ignored in fair mode, as in the JAX cycle). Returns the
     JAX cycle's 14 outputs."""
-    unported = dict(slot_kind_override=slot_kind_override,
-                    slot_borrows_override=slot_borrows_override,
-                    slot_flavor_override=slot_flavor_override,
-                    wl_flavor_ok=wl_flavor_ok)
-    given = [k for k, v in unported.items() if v is not None]
-    if given:
-        raise NotImplementedError("not ported yet: " + ", ".join(given))
     W = pending.shape[0]
     C = num_cqs
     S = num_resources
@@ -148,13 +142,35 @@ def _cycle_core(
     h_cq = torch.where(slot_valid, wl_cq[h_safe], 0).to(torch.int32)
     h_req = torch.where(slot_valid[:, None, None], wl_req[h_safe], 0)
     hc = h_cq.long()
+    P = h_req.shape[1]
 
     # 3. Nominate all heads at once.
+    h_ok = None
+    if wl_flavor_ok is not None:
+        h_ok = torch.where(slot_valid[:, None], wl_flavor_ok[h_safe], True)
     flavor_of_res, pmode, borrows, needs_oracle, usage_fr = \
         aops.assign_flavors(
             h_cq, h_req, derived, nominal, ancestors, height, group_of_res,
             group_flavors, no_preemption, can_pwb, fung_borrow_try_next,
-            fung_pref_preempt_first, depth=depth, num_resources=S)
+            fung_pref_preempt_first, flavor_ok=h_ok, depth=depth,
+            num_resources=S)
+    if slot_borrows_override is not None:
+        borrows = torch.where(slot_borrows_override >= 0,
+                              slot_borrows_override, borrows)
+    if slot_flavor_override is not None:
+        # Sim-nomination overrides are single-podset: pod set 0 takes
+        # them and the other pod sets are cleared.
+        has_fo = (slot_flavor_override >= 0).any(dim=1)
+        flavor_of_res = flavor_of_res.clone()
+        flavor_of_res[:, 0] = torch.where(
+            has_fo[:, None], slot_flavor_override, flavor_of_res[:, 0])
+        if P > 1:
+            tail_clear = has_fo[:, None, None] & (
+                torch.arange(P, device=dev)[None, :, None] > 0)
+            flavor_of_res = torch.where(tail_clear, -1, flavor_of_res)
+        usage_fr = torch.where(
+            flavor_of_res >= 0,
+            flavor_of_res.long() * S + torch.arange(S, device=dev), -1)
 
     # Dense per-flavor-resource entry form: requests summed over pod
     # sets per fr column, so columns are unique (two pod sets sharing a
@@ -177,6 +193,13 @@ def _cycle_core(
                     torch.where((pmode == aops.P_NO_CANDIDATES)
                                 & ~can_always_reclaim[hc],
                                 cops.ENTRY_RESERVE, cops.ENTRY_SKIP)))
+    # Bridge verdict overrides: an overridden slot is no longer flagged
+    # for the preemptor.
+    overridden = torch.zeros((C,), dtype=torch.bool, device=dev)
+    if slot_kind_override is not None:
+        overridden = slot_valid & (slot_kind_override >= 0)
+        kind = torch.where(overridden, slot_kind_override.long(), kind)
+        needs_oracle = needs_oracle & ~overridden
     slot_oracle = needs_oracle & slot_valid
     # Commit against the freshly aggregated usage.
     full_usage = derived["usage"]
@@ -303,7 +326,8 @@ def _cycle_core(
     # them the pending workloads of the same scheduling-equivalence
     # hash. Preempting entries never park: they wait for their victims'
     # evictions, and their siblings must not be parked with them.
-    preempt_override = fused_preempt & (kind == cops.ENTRY_PREEMPT)
+    preempt_override = (overridden | fused_preempt) \
+        & (kind == cops.ENTRY_PREEMPT)
     parked_slot = slot_valid & ~slot_admitted & best_effort[hc] & (
         (pmode == aops.P_NO_FIT) | (pmode == aops.P_NO_CANDIDATES)) \
         & ~preempt_override

@@ -1,13 +1,25 @@
-"""Dense numpy encoding of the scheduling world, trimmed from
-``kueue_tpu/tensor/schema.py``: the arrays the device cycle consumes.
+"""Dense tensor encoding of the scheduling world — the real API between the
+control plane and the TPU oracle.
+
+Mirrors (in array form) the reference's snapshot structures:
+  * cohort forest → parent-index / ancestor arrays (depth-capped, padded)
+    [pkg/cache/hierarchy, pkg/cache/scheduler/snapshot.go:51]
+  * per-node quota knobs → [N, R] arrays over flavor-resource pairs
+    [resource_node.go:30]
+  * per-CQ resource-group flavor orderings → [C, G, F] index arrays
+    [clusterqueue_snapshot.go ResourceGroups]
+  * workloads → request matrix [W, S] + priority/timestamp/cq vectors
+    [workload.Info, pkg/workload/workload.go:215]
 
 Layout conventions:
   * Nodes 0..C-1 are ClusterQueues, C..N-1 are Cohorts. -1 = "none".
-  * A flavor-resource index is fl * S + s (dense NF x S grid); undefined
-    pairs carry nominal 0 and INF borrowing and lending limits.
+  * A flavor-resource index is fl * S + s (dense NF x S grid); quotas
+    default to nominal 0, no borrowing beyond, nothing lendable... i.e.
+    nominal=0, borrowing_limit=INF, lending_limit=INF for undefined pairs
+    (matching map-miss semantics of the Go code: missing quota = zero
+    nominal, nil limits).
 
 All quantity arrays are int64 (milli-units, INF sentinel = api.types.INF).
-The arrays stay numpy here; the solver moves them to the device.
 """
 
 from __future__ import annotations
@@ -19,19 +31,18 @@ import numpy as np
 from kueue_tpu_torch.api.types import (
     INF,
     BorrowWithinCohortPolicy,
+    ClusterQueue,
     FungibilityPolicy,
     FungibilityPreference,
     PreemptionPolicy,
-    QueueingStrategy,
 )
-from kueue_tpu_torch.cache.queues import scheduling_hash
-from kueue_tpu_torch.cache.snapshot import ClusterQueueSnapshot, Snapshot
-from kueue_tpu_torch.workload_info import WorkloadInfo, queue_order_timestamp
+from kueue_tpu_torch.cache.snapshot import Snapshot
+from kueue_tpu_torch.workload_info import WorkloadInfo
 
 
 @dataclass
 class WorldTensors:
-    """The dense snapshot."""
+    """The dense snapshot. All numpy here; ops/ moves them to device."""
 
     # -- dimensions --
     num_cqs: int
@@ -57,12 +68,13 @@ class WorldTensors:
     nominal: np.ndarray  # int64
     borrow_limit: np.ndarray  # int64, INF = unlimited
     lend_limit: np.ndarray  # int64, INF = everything lendable
-    usage: np.ndarray  # int64, CQ rows only; cohort rows derived in ops
+    usage: np.ndarray  # int64 — CQ rows only; cohort rows derived in ops
 
     # -- per-CQ config --
     group_of_res: np.ndarray  # int32[C, S] resource-group id, -1 = uncovered
     group_flavors: np.ndarray  # int32[C, G, F] flavor ids in try order, -1 pad
-    no_preemption: np.ndarray  # bool[C] all preemption policies Never
+    # static policy flags for the kernel
+    no_preemption: np.ndarray  # bool[C] — all preemption policies Never
     can_preempt_while_borrowing: np.ndarray  # bool[C]
     can_always_reclaim: np.ndarray  # bool[C] reclaimWithinCohort == Any
     best_effort: np.ndarray  # bool[C] BestEffortFIFO (parks NoFit heads)
@@ -71,25 +83,62 @@ class WorldTensors:
     fung_pref_preempt_first: np.ndarray  # bool[C] PreemptionOverBorrowing
     fair_weight: np.ndarray  # float64[N]
 
-    # -- root grouping: admissions interact only within a root subtree,
-    # so the commit runs per root, batched across roots --
+    # -- root grouping (commit parallelism) --
+    # Admissions only interact within a root subtree (all quota math stays
+    # under the root cohort), so the sequential-equivalent commit runs as a
+    # short scan per root, vmapped across roots (ops/commit.commit_grouped).
     num_roots: int = 1
     root_members: np.ndarray = None  # int32[Rn, M] CQ ids per root, -1 pad
     root_nodes: np.ndarray = None  # int32[Rn, K] subtree node ids, -1 pad
     local_chain: np.ndarray = None  # int32[C, depth+1] chain positions
     #   into root_nodes[root_of(cq)], -1 pad
     root_parent_local: np.ndarray = None  # int32[Rn, K] parent position
+    #   within the same root row, -1 = root/pad (victim-removal bubbling)
     root_of_cq: np.ndarray = None  # int32[C] root row per ClusterQueue
-    child_rank: np.ndarray = None  # int64[N] position in the parent's
-    #   ordered child list (cohorts first, then CQs)
-    local_depth: np.ndarray = None  # int32[Rn, K] distance from the root row
+    child_rank: np.ndarray = None  # int64[N] position within the parent's
+    #   ordered child list (cohorts first, then CQs — the fair tournament's
+    #   first-candidate-wins tiebreak, fair_sharing_iterator.go:125)
+    local_depth: np.ndarray = None  # int32[Rn, K] chain distance from the
+    #   root row (root = 0, -1 pad) for the hierarchical fair tournament
+    # Host-only: ResourceFlavor objects aligned with flavor_names (the
+    # row encoders evaluate taint/selector/affinity flavor eligibility
+    # against nodeLabels/taints/tolerations); referenced-but-undefined
+    # flavors carry None.
+    flavor_objects: list = None
+
+    def flavor_spec_token(self) -> tuple:
+        """Identity of the flavor axis AND each flavor's node-matching
+        spec: the per-workload flavor masks are only reusable while
+        this is unchanged. Cached on the instance — WorldTensors are
+        rebuilt on spec changes, and the row cache consults the token
+        on EVERY row encode (hot in churn worlds)."""
+        cached = getattr(self, "_flavor_token", None)
+        if cached is not None:
+            return cached
+        out = []
+        for name, rf in zip(self.flavor_names, self.flavor_objects
+                            or [None] * len(self.flavor_names)):
+            if rf is None:
+                out.append((name,))
+            else:
+                out.append((name,
+                            tuple(sorted(rf.node_labels.items())),
+                            tuple(rf.node_taints),
+                            tuple(rf.tolerations),
+                            rf.topology_name))
+        self._flavor_token = tuple(out)
+        return self._flavor_token
+
+    def fr_index(self, flavor: str, resource: str) -> int:
+        return (self.flavor_names.index(flavor) * self.num_resources
+                + self.resource_names.index(resource))
 
 
 @dataclass
 class WorkloadTensors:
     """Pending workloads on the fast path. The pod-set axis is padded to
-    ``num_podsets`` (a power of two <= MAX_FAST_PODSETS); padding rows
-    carry zero requests."""
+    ``num_podsets`` (P, a power of two ≤ MAX_FAST_PODSETS); padding rows
+    carry zero requests and never affect nomination or commit."""
 
     num_workloads: int
     keys: list  # host-side workload keys, aligned with rows
@@ -98,21 +147,32 @@ class WorkloadTensors:
     timestamp: np.ndarray  # float64[W] queue-order timestamp
     requests: np.ndarray  # int64[W, P, S] count-scaled totals per podset
     has_quota_reservation: np.ndarray  # bool[W]
-    eligible: np.ndarray  # bool[W] encodable on the fast path
-    hash_id: np.ndarray = None  # int32[W] scheduling-equivalence id
+    eligible: np.ndarray  # bool[W] — encodable on the fast path
+    # Scheduling-equivalence hash id (workload.go:236 SchedulingHash),
+    # dense-coded: equal ids => identical admission verdicts.
+    hash_id: np.ndarray = None  # int32[W]
     num_podsets: int = 1  # P
+    # bool[W, NF] per-flavor eligibility (taints/selectors/affinity —
+    # flavor_eligibility_mask); None = every flavor eligible everywhere.
+    flavor_ok: np.ndarray = None
 
 
+# Pod-set cap for the dense path: the kernel scans podsets sequentially
+# (flavorassigner.go:707 walks podsets in order), so the pad is a compile
+# -time constant; workloads beyond it take the host path.
 MAX_FAST_PODSETS = 8
 
 
 def pow2_bucket(n: int, floor: int) -> int:
-    """Power-of-two bucket for a dynamic axis length."""
+    """Power-of-two bucket for a dynamic axis length: repeated launches
+    with drifting sizes reuse one compiled program per bucket."""
     return max(floor, 1 << (max(n, 1) - 1).bit_length())
 
 
 def pad_axis0(arr: np.ndarray, target: int, fill) -> np.ndarray:
-    """Pad axis 0 to ``target`` rows with a sentinel fill."""
+    """Pad axis 0 to ``target`` rows with a sentinel fill. The sentinel
+    must match the kernel's masking semantics (e.g. cq=-1 rows never
+    classify, rank=BIG rows never win heads)."""
     a = np.asarray(arr)
     if a.shape[0] >= target:
         return a
@@ -120,21 +180,20 @@ def pad_axis0(arr: np.ndarray, target: int, fill) -> np.ndarray:
         [a, np.full((target - a.shape[0],) + a.shape[1:], fill, a.dtype)])
 
 
-# Workload-axis sentinel fills for bucket padding: rank/commit_rank BIG
-# (never a head), cq 0 with pending=False.
+# Workload-axis sentinel fills shared by every bucket-padding site:
+# rank/commit_rank BIG (never a head), cq 0 with pending=False.
 WL_PAD_FILLS = dict(rank=np.int64(1) << 40, commit_rank=np.int64(1) << 40,
                     wl_cq=0, wl_req=0, wl_priority=0, wl_has_qr=False,
-                    wl_hash=0, wl_ts=0.0)
+                    wl_hash=0, wl_ts=0.0, wl_flavor_ok=True)
 
 
 def build_root_grouping(parent: np.ndarray, ancestors: np.ndarray,
                         num_cqs: int, max_depth: int):
-    """Group the cohort forest by root subtree for the parallel commit.
-    Nodes 0..num_cqs-1 must be the CQ rows.
+    """Group the cohort forest by root subtree for the parallel commit
+    (ops/commit.commit_grouped). Nodes 0..num_cqs-1 must be the CQ rows.
 
     Returns (num_roots, root_members int32[Rn, M], root_nodes
-    int32[Rn, K], local_chain int32[C, max_depth+1], root_parent_local
-    int32[Rn, K], root_of_cq int32[C], local_depth int32[Rn, K])."""
+    int32[Rn, K], local_chain int32[C, max_depth+1])."""
     N = parent.shape[0]
     C = num_cqs
     root_of = np.arange(N, dtype=np.int32)
@@ -214,7 +273,7 @@ def encode_snapshot(snap: Snapshot, max_depth: int = 8) -> WorldTensors:
         for fr in cs.node.quotas
     })
     # Flavors referenced in quotas but not registered as ResourceFlavor
-    # objects still need ids.
+    # objects still need ids (reference logs "flavor not found").
     referenced = {
         fr.flavor
         for node in list(snap.cluster_queues.values()) + list(
@@ -232,6 +291,7 @@ def encode_snapshot(snap: Snapshot, max_depth: int = 8) -> WorldTensors:
     fair_weight = np.ones(N, np.float64)
 
     def node_of(obj) -> int:
+        from kueue_tpu_torch.cache.snapshot import ClusterQueueSnapshot
         if isinstance(obj, ClusterQueueSnapshot):
             return cq_idx[obj.name]
         return cohort_idx[obj.name]
@@ -299,10 +359,15 @@ def encode_snapshot(snap: Snapshot, max_depth: int = 8) -> WorldTensors:
                 if res in s_idx:
                     group_of_res[ci, s_idx[res]] = gi
             for fi, fq in enumerate(rg.flavors):
-                # A quota naming an unregistered ResourceFlavor is an
-                # unusable slot: -1 keeps the flavor scan off it.
+                # Quotas naming an unregistered ResourceFlavor are
+                # unusable slots ("flavor not found" errors to NoFit in
+                # flavorassigner.go): leave -1 so the kernel's flavor
+                # scan can never choose them. Their fr columns still
+                # exist (usage bookkeeping), but no nomination path
+                # reaches them.
                 if fq.name in snap.resource_flavors:
                     group_flavors[ci, gi, fi] = fl_idx[fq.name]
+        from kueue_tpu_torch.api.types import QueueingStrategy
         best_effort[ci] = (spec.queueing_strategy
                            == QueueingStrategy.BEST_EFFORT_FIFO)
         p = spec.preemption
@@ -329,8 +394,11 @@ def encode_snapshot(snap: Snapshot, max_depth: int = 8) -> WorldTensors:
      root_of_cq, local_depth) = build_root_grouping(parent, ancestors, C,
                                                     max_depth)
 
+    # Fair-tournament tiebreak: the reference iterates child cohorts then
+    # child CQs in list order, first candidate winning exact ties
+    # (fair_sharing_iterator.go:125).
     child_rank = np.zeros(N, np.int64)
-    for cs in snap.cohorts.values():
+    for name, cs in snap.cohorts.items():
         children = list(cs.child_cohorts) + list(cs.child_cqs)
         for j, ch in enumerate(children):
             child_rank[node_of(ch)] = j
@@ -351,20 +419,23 @@ def encode_snapshot(snap: Snapshot, max_depth: int = 8) -> WorldTensors:
         local_chain=local_chain, root_parent_local=root_parent_local,
         root_of_cq=root_of_cq, child_rank=child_rank,
         local_depth=local_depth,
+        flavor_objects=[snap.resource_flavors.get(n)
+                        for n in flavor_names],
     )
 
 
 @dataclass
 class AdmittedTensors:
-    """Admitted workloads: the preemption-candidate pool."""
+    """Admitted workloads (preemption candidate pool)."""
 
-    num_admitted: int  # row count (== array length; may exceed ``live``)
+    num_admitted: int  # ROW-SPACE size (== array length; the
+    #   incremental AdmittedRows keeps holes, so this can exceed `live`)
     keys: list  # host-side workload keys, aligned with rows
     cq: np.ndarray  # int32[A]
     priority: np.ndarray  # int64[A]
     timestamp: np.ndarray  # float64[A] creation time
-    qr_time: np.ndarray  # float64[A] quota-reservation time
-    uid_rank: np.ndarray  # int64[A] rank of the uid (candidate tiebreak)
+    qr_time: np.ndarray  # float64[A] quota-reservation timestamp
+    uid_rank: np.ndarray  # int64[A] rank of uid (CandidatesOrdering tiebreak)
     evicted: np.ndarray  # bool[A]
     usage: np.ndarray  # int64[A, R] on the flavor-resource grid
     live: int = None  # live admitted count (None = num_admitted)
@@ -372,8 +443,7 @@ class AdmittedTensors:
 
 def encode_admitted(world: WorldTensors, infos: list,
                     now: float = 0.0) -> AdmittedTensors:
-    """Encode admitted workloads (WorkloadInfos with their flavors set)
-    for the preemption target selection."""
+    """Encode admitted workloads for the device preemption kernel."""
     A = len(infos)
     R = max(world.num_flavors * world.num_resources, 1)
     cq_idx = {n: i for i, n in enumerate(world.cq_names)}
@@ -399,7 +469,8 @@ def encode_admitted(world: WorldTensors, infos: list,
         evicted[i] = info.obj.is_evicted
         for fr, v in info.usage().items():
             if fr.flavor in fl_idx and fr.resource in s_idx:
-                # Saturate at INF: larger host ints would wrap in int64.
+                # INF saturation, like encode_podset_requests: unbounded
+                # host ints would overflow the int64 grid.
                 usage[i, fl_idx[fr.flavor] * S + s_idx[fr.resource]] = \
                     v if v < INF else INF
     uid_rank = np.empty(A, np.int64)
@@ -412,9 +483,11 @@ def encode_admitted(world: WorldTensors, infos: list,
 
 def encode_podset_requests(info, ci: int, world, s_idx: dict,
                            out) -> bool:
-    """Fill one workload's [P, S] request rows (with the implicit pods
-    resource when the CQ covers it). Returns False when a positive
-    request names a resource outside the world's column space."""
+    """Fill one workload's [P, S] request rows (implicit pods resource
+    when the CQ covers it). Returns False when a positive request names
+    a resource outside the world's column space (host-path-only).
+    Shared by the batch encoder and the incremental row cache so the
+    two can never desynchronize."""
     pods_si = s_idx.get("pods")
     covers_pods = (pods_si is not None
                    and world.group_of_res[ci, pods_si] >= 0)
@@ -429,35 +502,152 @@ def encode_podset_requests(info, ci: int, world, s_idx: dict,
                 if q > 0:
                     ok = False
                 continue
-            # Saturate at INF: larger host ints would wrap in int64.
+            # Saturate at the INF sentinel: unbounded host-side ints
+            # would wrap in the kernels' int64 arithmetic (the
+            # reference's MaxInt64 overflow guards), flipping an
+            # impossible request into a negative fitting one.
             out[p, si] = q if q < INF else INF
     return ok
 
 
 def dense_path_eligible(info) -> bool:
     """Whether a pending workload can be decided on the dense device
-    path. Ineligible: more pod sets than MAX_FAST_PODSETS, partial
-    admission (min_count), topology requests, node selectors, affinity
-    or tolerations, explicit zero-quantity requests (the dense encoding
-    cannot tell them from absent ones) and elastic slice replacements."""
-    if len(info.total_requests) > MAX_FAST_PODSETS:
+    path. Shared by the batch encoder below and the incremental row
+    cache (tensor/rowcache.py) so the two can never desynchronize.
+
+    The kernel handles up to MAX_FAST_PODSETS pod sets per workload
+    (flavorassigner.go:707/932 walks podsets in order; the kernel scans
+    the padded podset axis with within-workload usage accumulation).
+    Ineligible: more podsets than the cap, partial admission
+    (min_count), topology requests, node selectors/affinity,
+    tolerations, explicit zero-quantity requests (Go assigns
+    flavors/borrow levels to those; the dense encoding cannot
+    distinguish explicit-zero from absent), and elastic workload-slice
+    replacements (the host path owns ReplacedWorkloadSlice's freed-usage
+    fit and old-slice finish, scheduler.go:765)."""
+    cached = getattr(info, "_dense_elig", None)
+    if cached is not None:
+        return cached
+    info._dense_elig = out = _dense_path_eligible(info)
+    return out
+
+
+def _dense_path_eligible(info) -> bool:
+    # Pure in the info's immutable shape (pod sets, derived requests,
+    # slice replacement), so dense_path_eligible memoizes per info —
+    # churn worlds re-encode the same rows thousands of times.
+    if not _dense_shape_eligible(info):
         return False
-    if info.obj.replaced_workload_slice is not None:
-        return False
-    for psr, ps in zip(info.total_requests, info.obj.pod_sets):
-        if ps.min_count is not None or ps.topology_request is not None:
-            return False
-        if any(q == 0 for q in psr.requests.values()):
-            return False
+    for ps in info.obj.pod_sets:
         if ps.node_selector or ps.node_affinity or ps.tolerations:
             return False
     return True
 
 
+def _dense_shape_eligible(info) -> bool:
+    """The SHAPE part of fast-path eligibility (podset cap, partial
+    admission, topology, zero-quantity, slice replacement). Node
+    filters (selectors/affinity/tolerations) are NOT a shape problem —
+    the serving row cache encodes them as per-flavor eligibility masks
+    (flavor_eligibility_mask) the cycle kernel consumes; the whole-drain
+    paths, which don't thread masks, keep the strict predicate above.
+    Memoized per info like dense_path_eligible (churn worlds re-encode
+    the same rows thousands of times)."""
+    cached = getattr(info, "_dense_shape_elig", None)
+    if cached is not None:
+        return cached
+    info._dense_shape_elig = out = _dense_shape_eligible_impl(info)
+    return out
+
+
+def _dense_shape_eligible_impl(info) -> bool:
+    if len(info.total_requests) > MAX_FAST_PODSETS:
+        return False
+    if info.obj.replaced_workload_slice is not None:
+        return False
+    for p, psr in enumerate(info.total_requests):
+        ps = info.obj.pod_sets[p]
+        if ps.min_count is not None or ps.topology_request is not None:
+            return False
+        if any(q == 0 for q in psr.requests.values()):
+            return False
+    return True
+
+
+def serving_shape_eligible(info) -> bool:
+    """Shape eligibility for SERVING rows (tensor/rowcache.py). Same as
+    _dense_shape_eligible, except a topology request does not demote the
+    row (the JAX package's batched TAS planner nominates its placement;
+    the port's engine refuses topology requests at submit). Memoized
+    per info."""
+    cached = getattr(info, "_serving_shape_elig", None)
+    if cached is not None:
+        return cached
+    out = _serving_shape_eligible_impl(info)
+    info._serving_shape_elig = out
+    return out
+
+
+def _serving_shape_eligible_impl(info) -> bool:
+    if len(info.total_requests) > MAX_FAST_PODSETS:
+        return False
+    if info.obj.replaced_workload_slice is not None:
+        return False
+    for p, psr in enumerate(info.total_requests):
+        ps = info.obj.pod_sets[p]
+        if ps.min_count is not None:
+            return False
+        if any(q == 0 for q in psr.requests.values()):
+            return False
+    return True
+
+
+def flavor_eligibility_mask(info, world):
+    """bool[num_flavors] — which of the world's flavors this workload's
+    pod sets can match (flavorassigner.flavor_matches_podset: taints vs
+    tolerations, selectors/affinity vs the flavor's nodeLabels). Returns
+    None when the pod sets DISAGREE (the [W, F] encoding has no podset
+    axis; those rows stay host-path) or when a referenced flavor has no
+    registered object. Memoized per info against the world's
+    flavor-spec token."""
+    import numpy as np
+
+    token = world.flavor_spec_token()
+    cached = getattr(info, "_flavor_mask", None)
+    if cached is not None and cached[0] == token:
+        return cached[1]
+    from kueue_tpu_torch.scheduler.flavorassigner import flavor_matches_podset
+
+    NF = max(world.num_flavors, 1)
+    filtered = [ps for ps in info.obj.pod_sets
+                if ps.node_selector or ps.node_affinity or ps.tolerations]
+    if not filtered:
+        mask = np.ones(NF, bool)
+        info._flavor_mask = (token, mask)
+        return mask
+    mask = None
+    for ps in info.obj.pod_sets:
+        row = np.zeros(NF, bool)
+        for i, rf in enumerate(world.flavor_objects or ()):
+            if rf is None:
+                # Referenced-but-undefined flavor: the sequential path
+                # can't match it either; leave ineligible.
+                continue
+            row[i] = flavor_matches_podset(rf, ps) is None
+        if mask is None:
+            mask = row
+        elif not np.array_equal(mask, row):
+            info._flavor_mask = (token, None)
+            return None
+    info._flavor_mask = (token, mask)
+    return mask
+
+
 def encode_workloads(world: WorldTensors,
                      infos: list[WorkloadInfo]) -> WorkloadTensors:
-    """Encode pending workloads; those beyond the fast-path shape
-    (dense_path_eligible) are marked ineligible."""
+    """Encode pending workloads. Workloads beyond the fast-path shape
+    (dense_path_eligible) are marked ineligible; the host fallback
+    handles them."""
     W = len(infos)
     S = world.num_resources
     cq_idx = {n: i for i, n in enumerate(world.cq_names)}
@@ -471,6 +661,8 @@ def encode_workloads(world: WorldTensors,
     hash_id = np.zeros(W, np.int32)
     hash_codes: dict = {}
     keys = []
+    from kueue_tpu_torch.cache.queues import scheduling_hash
+    from kueue_tpu_torch.workload_info import queue_order_timestamp
 
     P = 1
     for info in infos:
@@ -486,6 +678,8 @@ def encode_workloads(world: WorldTensors,
         hash_id[i] = hash_codes.setdefault(h, len(hash_codes))
         cq[i] = cq_idx.get(info.cluster_queue, -1)
         priority[i] = info.obj.effective_priority
+        # Eviction-aware FIFO timestamp (workload.go:1087) — must match
+        # the host heap's ordering exactly.
         timestamp[i] = queue_order_timestamp(info.obj)
         has_qr[i] = info.obj.has_quota_reservation
         if cq[i] < 0 or not dense_path_eligible(info):

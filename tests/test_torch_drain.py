@@ -77,7 +77,7 @@ def assert_same_fields(port_obj, jax_obj):
             assert got.dtype == want.dtype, f.name
             np.testing.assert_array_equal(got, want, err_msg=f.name)
         else:
-            assert got == want, f.name
+            assert got == to_port(want), f.name
 
 
 def assert_same_drain(port_solver, jax_solver):
@@ -271,24 +271,79 @@ def test_ported_paths_run(small_jax, case):
     assert got[3].any()
 
 
-@pytest.mark.parametrize("unported", [
-    dict(slot_kind_override=torch.zeros(16, dtype=torch.int32)),
-    dict(slot_borrows_override=torch.zeros(16, dtype=torch.int32)),
-    dict(slot_flavor_override=torch.zeros((16, 1), dtype=torch.int32)),
-    dict(wl_flavor_ok=torch.ones((512, 1), dtype=torch.bool)),
-], ids=["kind_override", "borrows_override", "flavor_override",
-        "flavor_ok"])
-def test_unported_paths_raise(unported):
-    port = small_port()
-    args = port._to_device(port._host_args())
-    state = (torch.ones(512, dtype=torch.bool),
-             torch.zeros(512, dtype=torch.bool),
-             torch.as_tensor(port.world.usage))
-    statics = dict(port._statics(), **unported)
-    with pytest.raises(NotImplementedError):
-        tb.cycle_step(*state, **args, **statics)
+def _parity_pair(seed):
+    """The JAX and port solvers over one multi-flavor world of
+    tests/test_drain_parity.py."""
+    rng = random.Random(seed + 7)
+    cqs, cohorts = test_drain_parity.build_world(rng)
+    workloads = test_drain_parity.build_workloads(rng, len(cqs))
+    flavors = [JResourceFlavor(f) for f in test_drain_parity.FLAVORS]
+    lq_to_cq = {f"lq{i}": f"cq{i}" for i in range(len(cqs))}
+    jax_solver = jb.BatchedDrainSolver(
+        j_build_snapshot(cqs, cohorts, flavors, []),
+        [JWorkloadInfo.from_workload(w, lq_to_cq[w.queue_name])
+         for w in workloads])
+    port_solver = tb.BatchedDrainSolver.from_tensors(
+        vars(jax_solver.world), vars(jax_solver.wls), device="cpu")
+    return jax_solver, port_solver
+
+
+def _bridge_argument(case, world, wls, rng):
+    """A non-trivial value of one bridge argument of the cycle, drawn
+    from ``rng`` (numpy): slot kinds and borrow levels with -1 holes,
+    flavor picks per resource, and per-workload flavor masks."""
+    C, S = world.num_cqs, world.num_resources
+    NF = max(world.num_flavors, 1)
+    if case == "kind_override":
+        return {case: rng.choice(np.array(
+            [-1, -1, 0, 1, 2], np.int32), size=C)}
+    if case == "borrows_override":
+        return {case: rng.integers(-1, 3, size=C).astype(np.int32)}
+    if case == "flavor_override":
+        fo = rng.integers(-1, NF, size=(C, S)).astype(np.int32)
+        fo[rng.random(C) < 0.4] = -1
+        return {case: fo}
+    return {case: rng.random((wls.num_workloads, NF)) < 0.7}
+
+
+@pytest.mark.parametrize("unported,seed", [
+    pytest.param(case, seed, id=case if seed == 0 else f"{case}-seed{seed}")
+    for seed in (0, 1)
+    for case in ("kind_override", "borrows_override", "flavor_override",
+                 "flavor_ok")])
+def test_unported_paths_raise(unported, seed):
+    """The arguments the cycle once refused, which the serving bridge
+    adds (the three slot overrides of its sim nomination and the
+    per-workload flavor masks), now run: each at a non-trivial value,
+    two chained cycles, all 14 outputs equal to the JAX cycle's. An
+    unknown argument still raises."""
+    jax_solver, port = _parity_pair(seed)
+    name = {"kind_override": "slot_kind_override",
+            "borrows_override": "slot_borrows_override",
+            "flavor_override": "slot_flavor_override",
+            "flavor_ok": "wl_flavor_ok"}[unported]
+    extra = {name: v for v in _bridge_argument(
+        unported, port.world, port.wls,
+        np.random.default_rng(seed)).values()}
+    statics = port._statics()
+    j_args = {k: jnp.asarray(v) for k, v in
+              dict(jax_solver._host_args(), **extra).items()}
+    t_args = port._to_device(dict(port._host_args(), **extra))
+    j_state = (np.asarray(port.wls.eligible & (port.wls.cq >= 0)),
+               np.zeros(port.wls.num_workloads, bool), port.world.usage)
+    t_state = tuple(torch.as_tensor(np.array(a)) for a in j_state)
+    for _ in range(2):
+        want = jb.cycle_step(*map(jnp.asarray, j_state), **j_args, **statics)
+        got = tb.cycle_step(*t_state, **t_args, **statics)
+        assert len(got) == len(want) == 14
+        for i, (g, x) in enumerate(zip(got, want)):
+            assert g.numpy().dtype == np.asarray(x).dtype, f"output {i}"
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x),
+                                          err_msg=f"output {i}")
+        j_state = tuple(np.asarray(x) for x in want[:3])
+        t_state = got[:3]
     with pytest.raises(TypeError):
-        tb.cycle_step(*state, **args, **port._statics(), no_such_arg=1)
+        tb.cycle_step(*t_state, **t_args, **statics, no_such_arg=1)
 
 
 def test_solver_defaults_to_cuda():

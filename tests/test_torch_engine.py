@@ -1,0 +1,440 @@
+"""The port's serving engine (kueue_tpu_torch/controllers/engine.py, with
+its OracleBridge over a TorchExecutor on the CPU) against the JAX
+package's engine, cycle by cycle.
+
+``MirroredEngine`` is the JAX engine with a port engine beside it: every
+create_*, submit, finish, tick, attach_oracle and clock change a test
+makes is made on both (API objects carried across with their uid), and
+every schedule_once runs both and asserts, in order, equal decision
+streams (admitted entries with their flavors, preempted keys, stats),
+the same path (device, hybrid or sequential) and equal bridge counters
+and reasons. Patched in as the reference tests' ``Engine``, it runs
+their own worlds and call sequences; when the test ends, every workload's
+outcome and the event streams must be equal too. Exact throughout."""
+
+import numpy as np
+import pytest
+import torch
+
+import test_fair_device
+import test_hybrid_cycles
+import test_multiflavor_preempt_device as tmf
+import test_oracle_engine
+import test_preempt_churn
+from kueue_tpu.api.types import WorkloadConditionType as JWCT
+from kueue_tpu.controllers.engine import Engine as JEngine
+from kueue_tpu.ops import assign as jassign
+from kueue_tpu_torch import carry
+from kueue_tpu_torch.bench.engine_worlds import decision_stream
+from kueue_tpu_torch.controllers.engine import Engine as PEngine
+from kueue_tpu_torch.ops import assign as tassign
+
+_ENGINES: list = []
+
+
+def _bridge_state(eng):
+    b = eng.oracle
+    if b is None:
+        return None
+    return (b.cycles_on_device, b.cycles_hybrid, b.cycles_fallback,
+            dict(b.fallback_reasons), dict(b.host_root_reasons))
+
+
+def outcome(wl):
+    adm = wl.status.admission
+    return (wl.is_admitted, wl.is_finished, wl.is_evicted,
+            wl.status.requeue_count, dict(wl.status.eviction_counts),
+            None if adm is None else (adm.cluster_queue, tuple(
+                (psa.name, psa.count, tuple(sorted(psa.flavors.items())))
+                for psa in adm.pod_set_assignments)),
+            tuple(sorted((c.value, cond.status, cond.reason)
+                         for c, cond in wl.status.conditions.items())))
+
+
+class MirroredEngine(JEngine):
+    """The JAX engine driving a port engine through the same calls."""
+
+    def __init__(self, enable_fair_sharing=False, **kw):
+        self.port = PEngine(enable_fair_sharing=enable_fair_sharing)
+        self.cycles = 0
+        super().__init__(enable_fair_sharing=enable_fair_sharing, **kw)
+        _ENGINES.append(self)
+
+    @property
+    def clock(self):
+        return self.__dict__["_clock"]
+
+    @clock.setter
+    def clock(self, value):
+        self.__dict__["_clock"] = value
+        self.port.clock = value
+
+    def create_resource_flavor(self, rf):
+        super().create_resource_flavor(rf)
+        self.port.create_resource_flavor(carry.api_object(rf))
+
+    def create_cohort(self, cohort):
+        super().create_cohort(cohort)
+        self.port.create_cohort(carry.api_object(cohort))
+
+    def create_cluster_queue(self, cq):
+        super().create_cluster_queue(cq)
+        self.port.create_cluster_queue(carry.api_object(cq))
+
+    def create_local_queue(self, lq):
+        super().create_local_queue(lq)
+        self.port.create_local_queue(carry.api_object(lq))
+
+    def submit(self, wl):
+        pw = carry.api_object(wl)
+        assert pw.uid == wl.uid
+        got = self.port.submit(pw)
+        assert super().submit(wl) == got
+        return got
+
+    def finish(self, key):
+        super().finish(key)
+        self.port.finish(key)
+
+    def tick(self, dt):
+        before = self.clock
+        super().tick(dt)
+        self.port.clock = before
+        self.port.tick(dt)
+        assert self.port.clock == self.clock
+
+    def attach_oracle(self, max_depth=4, remote_address=None):
+        super().attach_oracle(max_depth=max_depth)
+        self.port.attach_oracle(max_depth=max_depth, device="cpu")
+
+    def schedule_once(self):
+        want = super().schedule_once()
+        got = self.port.schedule_once()
+        self.cycles += 1
+        where = f"cycle {self.cycles}"
+        assert decision_stream(got) == decision_stream(want), where
+        assert ([[t.workload.key for t in e.preemption_targets]
+                 for e in (got.entries if got else ())]
+                == [[t.workload.key for t in e.preemption_targets]
+                    for e in (want.entries if want else ())]), where
+        assert self.port.last_cycle_mode == self.last_cycle_mode, where
+        assert _bridge_state(self.port) == _bridge_state(self), where
+        return want
+
+    def assert_same_world(self):
+        assert self.port.clock == self.clock
+        assert sorted(self.port.workloads) == sorted(self.workloads)
+        for key, wl in self.workloads.items():
+            assert outcome(self.port.workloads[key]) == outcome(wl), key
+        assert [(e.time, e.kind, e.workload, e.cluster_queue, e.detail)
+                for e in self.port.events] == [
+            (e.time, e.kind, e.workload, e.cluster_queue, e.detail)
+            for e in self.events
+            if e.kind not in ("Inadmissible", "OnHold", "HoldCleared")]
+
+
+@pytest.fixture
+def mirrored(monkeypatch):
+    """Patch MirroredEngine into the reference test modules; after the
+    test, hold every mirrored engine's world to the JAX engine's. The JAX
+    bridge runs its serial loop (KUEUE_TPU_PIPELINE=0), as the port's
+    does: a speculative encode syncs the admitted rows a cycle early,
+    which renumbers them and so reorders a slot's victim list (and the
+    evictions) without changing the decisions."""
+    monkeypatch.setenv("KUEUE_TPU_PIPELINE", "0")
+    for mod in (test_oracle_engine, test_hybrid_cycles, tmf,
+                test_preempt_churn, test_fair_device):
+        monkeypatch.setattr(mod, "Engine", MirroredEngine)
+    _ENGINES.clear()
+    yield
+    assert _ENGINES, "no mirrored engine was built"
+    for eng in _ENGINES:
+        eng.assert_same_world()
+    _ENGINES.clear()
+
+
+@pytest.mark.parametrize("name", [
+    "test_oracle_engine_matches_sequential_outcomes",
+    "test_oracle_engine_continues_after_finish",
+    "test_oracle_handles_within_cq_preemption_on_device",
+    "test_oracle_falls_back_for_cross_cq_reclaim"])
+def test_oracle_engine_worlds(mirrored, name):
+    getattr(test_oracle_engine, name)()
+
+
+@pytest.mark.parametrize("name", [
+    "test_mixed_world_stays_on_device",
+    "test_mixed_preemption_scopes_hybrid",
+    "test_cross_cq_reclaim_on_device",
+    "test_multi_podset_heads_stay_on_device"])
+def test_hybrid_cycle_worlds(mirrored, name):
+    getattr(test_hybrid_cycles, name)()
+
+
+def test_requeue_backoff_on_device(mirrored):
+    """tests/test_hybrid_cycles.py's backoff world, with the test's
+    direct status write made on both engines' objects."""
+    from kueue_tpu.api.types import PodSet, Workload
+
+    eng = test_hybrid_cycles.make_engine(
+        oracle=True, n_cohorts=1, cqs_per_cohort=1, nominal=1000)
+    eng.clock = 1.0
+    w1 = Workload(name="held", queue_name="lq0",
+                  pod_sets=(PodSet("main", 1, {"cpu": 500}),))
+    eng.submit(w1)
+    w1.status.requeue_at = 100.0  # backoff until t=100
+    eng.port.workloads[w1.key].status.requeue_at = 100.0
+    eng.clock = 2.0
+    w2 = Workload(name="ready", queue_name="lq0",
+                  pod_sets=(PodSet("main", 1, {"cpu": 500}),))
+    eng.submit(w2)
+    eng.schedule_once()
+    assert w2.is_admitted and not w1.is_admitted
+    eng.clock = 101.0
+    eng.schedule_once()
+    assert w1.is_admitted
+
+
+def test_gated_head_on_host(mirrored):
+    """tests/test_hybrid_cycles.py's closed-preemption-gate world: the
+    gated head demotes to the host cycle, then the gate opens (on both
+    engines' objects and queues)."""
+    from kueue_tpu.api.types import (
+        ClusterQueuePreemption,
+        PodSet,
+        PreemptionPolicy,
+        Workload,
+    )
+
+    eng = test_hybrid_cycles.make_engine(
+        oracle=True, n_cohorts=1, cqs_per_cohort=1, nominal=1000,
+        preemption_of=lambda i: ClusterQueuePreemption(
+            within_cluster_queue=PreemptionPolicy.LOWER_PRIORITY))
+    filler = Workload(name="filler", queue_name="lq0",
+                      pod_sets=(PodSet("main", 1, {"cpu": 1000}),))
+    eng.submit(filler)
+    eng.schedule_once()
+    eng.clock += 1
+    hi = Workload(name="hi", queue_name="lq0", priority=5,
+                  pod_sets=(PodSet("main", 1, {"cpu": 1000}),))
+    hi.ensure_preemption_gate("mk-gate")
+    eng.submit(hi)
+    eng.schedule_once()
+    assert hi.has_condition(JWCT.BLOCKED_ON_PREEMPTION_GATES)
+    assert eng.oracle.host_root_reasons.get("preemption-gated", 0) >= 1
+    for w, q in ((hi, eng.queues), (eng.port.workloads[hi.key],
+                                    eng.port.queues)):
+        w.open_preemption_gate("mk-gate", eng.clock)
+        q.queue_inadmissible_workloads()
+    test_hybrid_cycles.drain(eng)
+    assert filler.is_evicted and hi.is_admitted
+
+
+_GRID_CALLS: list = []
+
+
+@pytest.fixture
+def grid_recorder(monkeypatch):
+    """Record every flavor_grid call of the JAX bridge (inputs and
+    outputs as numpy)."""
+    real = jassign.flavor_grid
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        _GRID_CALLS.append((
+            [{k: np.asarray(v) for k, v in a.items()}
+             if isinstance(a, dict) else np.asarray(a) for a in args],
+            dict(kw), [np.asarray(o) for o in out]))
+        return out
+
+    _GRID_CALLS.clear()
+    monkeypatch.setattr(jassign, "flavor_grid", recording)
+    yield _GRID_CALLS
+    _GRID_CALLS.clear()
+
+
+def _assert_grid_calls_match(calls):
+    assert calls, "the sim nomination never ran"
+    for args, kw, want in calls:
+        t_args = [{k: torch.as_tensor(np.array(v)) for k, v in a.items()}
+                  if isinstance(a, dict) else torch.as_tensor(np.array(a))
+                  for a in args]
+        got = tassign.flavor_grid(*t_args, **kw)
+        for i, (g, x) in enumerate(zip(got, want)):
+            assert g.numpy().dtype == x.dtype, f"output {i}"
+            np.testing.assert_array_equal(g.numpy(), x,
+                                          err_msg=f"output {i}")
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_multiflavor_preempt_worlds(mirrored, grid_recorder, seed):
+    """Sim nomination with all three slot overrides; flavor_grid equal
+    to the JAX one on the bridge's own inputs."""
+    tmf.test_multiflavor_preempt_matches_sequential(seed)
+    _assert_grid_calls_match(grid_recorder)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_multiflavor_try_next_worlds(mirrored, grid_recorder, seed):
+    tmf.test_multiflavor_try_next_matches_sequential(seed)
+    _assert_grid_calls_match(grid_recorder)
+
+
+def test_stops_at_preempt_capable_flavor(mirrored):
+    tmf.test_stops_at_preempt_capable_flavor()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_preempt_churn_worlds(mirrored, seed):
+    test_preempt_churn.test_churn_outcomes_match_sequential(seed)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fair_nested_worlds(mirrored, seed):
+    test_fair_device.test_fair_device_hierarchical_matches_sequential(seed)
+
+
+def node_selector_world(oracle: bool, seed: int, engine_cls=JEngine):
+    """Two cohorts of ClusterQueues over an "ssd" and an "hdd" flavor
+    (node labels disk=ssd / disk=hdd) without preemption: workloads that
+    select disk=ssd get a per-workload flavor mask on the device path."""
+    from kueue_tpu.api.types import (
+        ClusterQueue,
+        Cohort,
+        FlavorQuotas,
+        LocalQueue,
+        ResourceFlavor,
+        ResourceGroup,
+        ResourceQuota,
+    )
+
+    rng = np.random.default_rng(seed)
+    eng = engine_cls()
+    eng.create_resource_flavor(ResourceFlavor(
+        "hdd", node_labels={"disk": "hdd"}))
+    eng.create_resource_flavor(ResourceFlavor(
+        "ssd", node_labels={"disk": "ssd"}))
+    for c in range(2):
+        eng.create_cohort(Cohort(f"co{c}"))
+    for i in range(4):
+        order = ("hdd", "ssd") if i % 2 else ("ssd", "hdd")
+        eng.create_cluster_queue(ClusterQueue(
+            name=f"cq{i}", cohort=f"co{i % 2}",
+            resource_groups=(ResourceGroup(("cpu",), tuple(
+                FlavorQuotas(f, {"cpu": ResourceQuota(
+                    int(rng.choice([1000, 2000])))})
+                for f in order)),)))
+        eng.create_local_queue(LocalQueue(f"lq{i}", "default", f"cq{i}"))
+    if oracle:
+        eng.attach_oracle()
+    return eng
+
+
+def node_selector_traffic(eng, seed: int, n=40):
+    """Submissions (a third select disk=ssd), cycles and finishes."""
+    from kueue_tpu.api.types import PodSet, Workload
+
+    rng = np.random.default_rng(seed + 1)
+    for i in range(n):
+        eng.clock += 0.25
+        sel = {"disk": "ssd"} if rng.random() < 0.35 else {}
+        eng.submit(Workload(
+            name=f"w{i}", queue_name=f"lq{int(rng.integers(4))}",
+            priority=int(rng.choice([0, 5])),
+            pod_sets=(PodSet("main", 1, {"cpu": int(rng.choice(
+                [300, 700, 1200]))}, node_selector=sel),)))
+        if rng.random() < 0.5:
+            eng.schedule_once()
+        if rng.random() < 0.25:
+            admitted = sorted(k for k, x in eng.workloads.items()
+                              if x.is_admitted)
+            if admitted:
+                eng.finish(admitted[int(rng.integers(len(admitted)))])
+    for _ in range(60):
+        r = eng.schedule_once()
+        if r is None or not r.assumed:
+            break
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_node_selector_worlds(mirrored, seed):
+    """Per-workload flavor masks on the device path, against the JAX
+    engine."""
+    eng = node_selector_world(True, seed, engine_cls=MirroredEngine)
+    node_selector_traffic(eng, seed)
+    assert eng.oracle.cycles_on_device > 0
+
+
+def test_attach_oracle_defaults_to_cuda():
+    eng = PEngine()
+    if torch.cuda.is_available():
+        eng.attach_oracle()
+        assert eng.oracle.executor.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            eng.attach_oracle()
+    eng.attach_oracle(device="cpu")
+    assert eng.oracle.executor.device.type == "cpu"
+
+
+def test_executor_error_propagates():
+    """A failing executor is not turned into a host fallback: the error
+    leaves schedule_once and nothing is counted as a fallback."""
+    from kueue_tpu_torch.bench.engine_worlds import build_cycle_engine, \
+        port_kit
+    from kueue_tpu_torch.bench.scenario import baseline_like
+
+    eng = build_cycle_engine(
+        baseline_like(n_cohorts=2, cqs_per_cohort=2, n_workloads=40),
+        kit=port_kit("cpu"))
+
+    def fail(tensors, statics):
+        raise RuntimeError("device failure")
+
+    eng.oracle.executor.cycle_step = fail
+    with pytest.raises(RuntimeError, match="device failure"):
+        eng.schedule_once()
+    assert eng.oracle.cycles_fallback == 0
+    assert eng.oracle.fallback_reasons == {}
+
+
+def test_topologies_are_refused():
+    from kueue_tpu_torch.api.types import (
+        PodSet,
+        PodSetTopologyRequest,
+        ResourceFlavor,
+        Workload,
+    )
+
+    eng = PEngine()
+    with pytest.raises(NotImplementedError):
+        eng.create_topology(object())
+    with pytest.raises(NotImplementedError):
+        eng.create_resource_flavor(ResourceFlavor("tas",
+                                                  topology_name="topo"))
+    with pytest.raises(NotImplementedError):
+        eng.submit(Workload(name="t", pod_sets=(PodSet(
+            "main", 1, {"cpu": 1},
+            topology_request=PodSetTopologyRequest()),)))
+
+
+def test_admission_fair_sharing_is_refused():
+    from kueue_tpu_torch.api.types import ClusterQueue
+
+    eng = PEngine()
+    with pytest.raises(NotImplementedError):
+        eng.create_cluster_queue(ClusterQueue(
+            name="cq", admission_scope="UsageBasedAdmissionFairSharing"))
+    assert "cq" not in eng.queues.cluster_queues
+
+
+def test_mirrored_worlds_carry_uids():
+    """The uid is carried across as it is (candidate order breaks ties
+    on it)."""
+    from kueue_tpu.api.types import PodSet, Workload
+
+    w = Workload(name="a", pod_sets=(PodSet("main", 2, {"cpu": 3}),))
+    p = carry.api_object(w)
+    assert p.uid == w.uid and type(p).__module__.startswith(
+        "kueue_tpu_torch")
+    assert p.pod_sets[0].requests == {"cpu": 3}

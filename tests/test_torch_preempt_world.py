@@ -182,18 +182,25 @@ def to_jax_fill(world):
 class ComparingExecutor(LocalExecutor):
     """The JAX executor, with every cycle_step and classical_targets call
     also run by the port's executor on the same arrays and compared. A
-    mismatch is recorded, not raised: the engine would take an exception
-    as a reason to fall back for the cycle."""
+    mismatch, or an exception the port raised, is recorded, not raised:
+    the JAX engine would take an exception as a reason to fall back for
+    the cycle, and the test would not see it."""
 
     def __init__(self):
         self.torch = TorchExecutor("cpu")
         self.calls = {"cycle_step": 0, "classical_targets": 0}
         self.fused = 0
-        self.skipped = 0
+        self.masked = 0  # cycles with a non-trivial wl_flavor_ok
+        self.overridden = 0  # cycles with the sim nomination's overrides
         self.mismatches = []
 
-    def _compare(self, op, want, got):
+    def _compare(self, op, want, port_call):
         self.calls[op] += 1
+        try:
+            got = port_call()
+        except Exception as e:
+            self.mismatches.append((op, self.calls[op], repr(e)))
+            return
         for i, (g, x) in enumerate(zip(got, want)):
             x = np.asarray(x)
             if g.dtype != x.dtype or not np.array_equal(g, x):
@@ -202,23 +209,22 @@ class ComparingExecutor(LocalExecutor):
     def cycle_step(self, tensors, statics):
         want = super().cycle_step(tensors, statics)
         arrays = {k: np.array(v) for k, v in tensors.items()}
-        # The bridge ships per-workload flavor masks (not ported); a mask
-        # that admits every flavor is the JAX cycle's None.
-        ok = arrays.pop("wl_flavor_ok", None)
+        ok = arrays.get("wl_flavor_ok")
         if ok is not None and not ok.all():
-            self.skipped += 1
-            return want
+            self.masked += 1
+        if "slot_kind_override" in arrays:
+            self.overridden += 1
         if "adm_cq" in arrays and not statics.get("fair_mode"):
             self.fused += 1
         self._compare("cycle_step", want,
-                      self.torch.cycle_step(arrays, statics))
+                      lambda: self.torch.cycle_step(arrays, statics))
         return want
 
     def classical_targets(self, tensors, statics, derived=None):
         want = super().classical_targets(tensors, statics, derived)
-        got = self.torch.classical_targets(
-            {k: np.array(v) for k, v in tensors.items()}, statics)
-        self._compare("classical_targets", want, got)
+        arrays = {k: np.array(v) for k, v in tensors.items()}
+        self._compare("classical_targets", want,
+                      lambda: self.torch.classical_targets(arrays, statics))
         return want
 
 
@@ -237,7 +243,6 @@ def test_engine_churn_cycles_match_jax(seed):
     tpc.churn(eng, n_cqs, seed)
     assert not ex.mismatches, ex.mismatches[:5]
     assert ex.calls["cycle_step"] > 0 and ex.fused > 0
-    assert ex.skipped == 0
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -254,7 +259,37 @@ def test_engine_fair_cycles_match_jax(seed):
     tfd.populate(eng, n_cqs, n=24, seed=seed * 11 + 1)
     tfd.drain(eng)
     assert not ex.mismatches, ex.mismatches[:5]
-    assert ex.calls["cycle_step"] > 0 and ex.skipped == 0
+    assert ex.calls["cycle_step"] > 0
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_engine_multiflavor_cycles_match_jax(seed):
+    """tests/test_multiflavor_preempt_device.py's worlds driven by the JAX
+    package's engine: every cycle the bridge sends, the sim nomination's
+    slot overrides and victim lists included, gives the same 14 outputs
+    in the port, and the port raises on none."""
+    import test_multiflavor_preempt_device as tmf
+
+    eng = tmf.build_engine(True, random.Random(1000 + seed))
+    ex = ComparingExecutor()
+    eng.oracle.executor = ex
+    tmf.churn(eng, random.Random(seed))
+    assert not ex.mismatches, ex.mismatches[:5]
+    assert ex.overridden > 0 and ex.calls["classical_targets"] > 0
+
+
+def test_engine_flavor_mask_cycles_match_jax():
+    """A world whose workloads select nodes (per-workload flavor masks),
+    driven by the JAX package's engine: every cycle with a non-trivial
+    wl_flavor_ok mask gives the same 14 outputs in the port."""
+    import test_torch_engine as tte
+
+    eng = tte.node_selector_world(oracle=True, seed=3)
+    ex = ComparingExecutor()
+    eng.oracle.executor = ex
+    tte.node_selector_traffic(eng, seed=3)
+    assert not ex.mismatches, ex.mismatches[:5]
+    assert ex.masked > 0
 
 
 def test_executor_and_fair_solver_default_to_cuda():
