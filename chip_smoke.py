@@ -53,11 +53,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      preemptions, decision-stream crc32 and device / hybrid / fallback
      cycles, with the heads kernel launched once per device cycle and
      held against its plain version on the run's first-cycle inputs;
-     each prints p50 and p95 s/cycle and the mean phases.
+     each prints p50 and p95 s/cycle and the mean phases;
+ 14-16. topology-aware scheduling in the serving engine
+     (kueue_tpu_torch/bench/tas_engine_worlds.py FULL): bench.py's tas
+     (640 nodes, 800 gang workloads), tas_large (5,120 nodes, 120
+     workloads) and tas_churn (5,120 nodes, 32 ClusterQueues, 80 fill and
+     20 churn cycles), each run with its TAS placements pinned to the
+     host descent and to the device program (tas_churn also with the
+     feasibility batch off); every arm against the JAX engine's cycles,
+     admissions, decision-stream and placement crc32, device / hybrid /
+     fallback cycles, host-root reasons and TAS stats (placed by each
+     path, memo hits, commit drops, tas_place_batch calls), with the
+     heads kernel launched once per device cycle and held against its
+     plain version on the world's first-cycle inputs; each prints p50
+     and p95 s/cycle, the planner's encode, place and decode seconds,
+     tas_place_batch calls and heads per call, and the crossover probe
+     (one host descent against one device placement on the world's
+     forest).
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
-tests/test_torch_fair.py and tests/test_torch_preempt_world.py recompute
-them). The last two lines are a JSON summary of the kernels
+tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
+tests/test_torch_engine_worlds.py and
+tests/test_torch_tas_engine_worlds.py recompute them). The last two lines are a JSON summary of the kernels
 and the result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -126,6 +143,28 @@ ENGINE_EXPECT = {
         cycles=416, admitted=379, preempting=146, preemptions=150,
         checksum=0x9403afa8, on_device=416, hybrid=0, fallback=0,
         overridden=416),
+}
+# The TAS engine runs (kueue_tpu_torch/bench/tas_engine_worlds.py FULL):
+# the JAX engine's numbers on the same worlds, calls and pins, in every
+# arm (tests/test_torch_tas_engine_worlds.py recomputes them). ``placed``
+# heads go to placed_device or placed_host by the arm's path;
+# ``batch_calls`` are the device arm's tas_place_batch launches.
+TAS_ENGINE_EXPECT = {
+    "tas": dict(
+        cycles=456, admitted=800, checksum=0xc5be1efd,
+        placements=0xc288e4dd, on_device=456, hybrid=0, fallback=0,
+        host_root_reasons={}, placed=2815, memo_hits=0, commit_drops=2823,
+        batch_calls=1828),
+    "tas_large": dict(
+        cycles=100, admitted=120, checksum=0x0ee1d4d2,
+        placements=0x75070b6e, on_device=100, hybrid=0, fallback=0,
+        host_root_reasons={}, placed=579, memo_hits=0, commit_drops=630,
+        batch_calls=396),
+    "tas_churn": dict(
+        cycles=45, admitted=263, checksum=0x63450bb7,
+        placements=0xd60b382d, on_device=13, hybrid=13, fallback=33,
+        host_root_reasons={"tas-commit-conflict": 13, "tas-no-fit": 32},
+        placed=154, memo_hits=0, commit_drops=0, batch_calls=70),
 }
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
@@ -548,6 +587,78 @@ def phase_engine(name, heads, pk, card, sms):
     return launches
 
 
+def phase_tas_engine(name, heads, pk, card, sms):
+    """One TAS world of kueue_tpu_torch/bench/tas_engine_worlds.py through
+    Engine.schedule_once, every arm against the JAX engine's numbers,
+    with the heads kernel launched once per device cycle and held
+    against its plain version on the world's first-cycle inputs.
+    Returns its heads launches over all arms."""
+    import torch
+
+    from kueue_tpu_torch.bench import tas_engine_worlds as tw
+
+    config = tw.FULL[name]
+    launches = 0
+    first = None
+    cycle_ms = {}
+    for path, feas in tw.ARMS[name]:
+        box = {}
+        heads.launches = 0
+        t0 = time.perf_counter()
+
+        def run(path=path, feas=feas, box=box):
+            box["r"] = tw.run(config, path, feas,
+                              sync=torch.cuda.synchronize)
+
+        if first is None:
+            first = pk.first_heads_inputs(run)
+        else:
+            run()
+        total_s = time.perf_counter() - t0
+        r = box["r"]
+        launches += heads.launches
+        got = tw.pinned_numbers(r)
+        want = tw.arm_expect(TAS_ENGINE_EXPECT[name], path)
+        print(f"  [{path} feas={feas}] " + " ".join(
+            f"{k}=0x{v:08x}" if k in ("checksum", "placements")
+            else f"{k}={v}" for k, v in got.items()))
+        if got != want:
+            raise AssertionError(f"{name} {path} feas={feas}: got {got}, "
+                                 f"want {want}")
+        if heads.launches != r["on_device"]:
+            raise AssertionError(
+                f"{name} {path}: heads kernel launched {heads.launches} "
+                f"times in {r['on_device']} device cycles")
+        times = sorted(r["cycle_seconds"])
+        p50 = times[len(times) // 2]
+        p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
+        cycle_ms[(path, feas)] = sum(times) / len(times) * 1e3
+        per_call = (r["batch_heads"] / r["batch_calls"]
+                    if r["batch_calls"] else 0.0)
+        ts = r["tas_seconds"]
+        print(f"  [{path} feas={feas}] timed_cycles={len(times)} "
+              f"p50_s={p50:.4f} p95_s={p95:.4f} "
+              f"mean_cycle_ms={cycle_ms[(path, feas)]:.3f} "
+              f"planner_s=encode:{ts['encode']:.4f},"
+              f"place:{ts['place']:.4f},decode:{ts['decode']:.4f} "
+              f"tas_place_batch_calls={r['batch_calls']} "
+              f"heads_per_call={per_call:.3f} run_s={total_s:.2f} "
+              f"heads_launches={heads.launches} | {card}")
+    eff_t, cq_t, C = first
+    check_heads(heads, f"{name} first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+    if name == "tas_churn":
+        print(f"  churn cycle ms, feasibility batch on: device "
+              f"{cycle_ms[('device', '1')]:.3f} host "
+              f"{cycle_ms[('host', '1')]:.3f}; off: device "
+              f"{cycle_ms[('device', '0')]:.3f} host "
+              f"{cycle_ms[('host', '0')]:.3f} | {card}")
+    xo = tw.crossover_measure(config, sync=torch.cuda.synchronize)
+    print(f"  crossover probe: host_place_ms={xo['host_place_ms']:.4f} "
+          f"device_place_ms={xo['device_place_ms']:.4f} | {card}")
+    return launches
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -657,6 +768,10 @@ def main() -> int:
                               "preempt_churn", "multiflavor"), start=10):
         print(f"[{i}] serving engine: {name}")
         by_path[name] = phase_engine(name, heads, pk, card, sms)
+    for i, name in enumerate(("tas", "tas_large", "tas_churn"), start=14):
+        print(f"[{i}] serving engine, TAS: {name}")
+        by_path[f"{name}_engine"] = phase_tas_engine(name, heads, pk, card,
+                                                     sms)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="heads_segment_min", route="cuda",

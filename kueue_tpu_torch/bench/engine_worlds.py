@@ -28,24 +28,28 @@ from typing import Callable
 class Kit:
     """What a world is built with: ``types`` (the API types module),
     ``scenario`` (the scenario generators module), ``engine(fair)`` a
-    new engine and ``attach(engine)`` attaching its oracle."""
+    new engine, ``attach(engine)`` attaching its oracle and ``tas`` the
+    TAS snapshot module (its ``Node`` and ``HOSTNAME_LABEL``)."""
 
     types: ModuleType
     scenario: ModuleType
     engine: Callable
     attach: Callable
+    tas: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
-    """The port's types, scenarios and Engine, its oracle on ``device``
-    (CUDA unless the caller asks for the CPU)."""
+    """The port's types, scenarios and Engine, its TAS forests and its
+    oracle on ``device`` (CUDA unless the caller asks for the CPU)."""
     from kueue_tpu_torch.api import types
     from kueue_tpu_torch.bench import scenario
     from kueue_tpu_torch.controllers.engine import Engine
+    from kueue_tpu_torch.tas import snapshot
 
     return Kit(types, scenario,
-               lambda fair=False: Engine(enable_fair_sharing=fair),
-               lambda eng: eng.attach_oracle(device=device))
+               lambda fair=False: Engine(enable_fair_sharing=fair,
+                                         device=device),
+               lambda eng: eng.attach_oracle(device=device), snapshot)
 
 
 def build_cycle_engine(scen, fair=False, kit=None):

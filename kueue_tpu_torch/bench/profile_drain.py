@@ -2,8 +2,9 @@
 
     python -m kueue_tpu_torch.bench.profile_drain \
         [--scenario baseline|hier_fair|preempt_world|cycle_latency|
-                    fair_cycle_latency|preempt_churn|multiflavor]
-        [--out FILE]
+                    fair_cycle_latency|preempt_churn|multiflavor|
+                    tas|tas_large|tas_churn]
+        [--path device|host] [--out FILE]
 
 Scenarios, all at full width:
   * ``baseline`` (the default): the classical drain of baseline_like,
@@ -23,7 +24,14 @@ Scenarios, all at full width:
     count only what starts inside a schedule_once call: the engine's
     build and the churn's submits are outside every number but the top
     operators. These also report p50 / p95 seconds per timed cycle and
-    the mean encode / device / apply / finalize phases.
+    the mean encode / device / apply / finalize phases;
+  * ``tas``, ``tas_large``, ``tas_churn``: the TAS engine runs of
+    ``bench/tas_engine_worlds.py`` (FULL; ``tas`` cut to its first 120
+    cycles of 456, the profiler would hold every event of all), their
+    placements pinned to ``--path`` (the device program by default),
+    counted like the engine runs above; they also report the
+    tas_place_batch calls and the planner's encode / place / decode
+    seconds.
 
 Runs one untimed run to warm up, one timed run, and one run under
 torch.profiler. Prints, and writes as JSON to ``--out``: the timed
@@ -51,7 +59,25 @@ ENGINE_SCENARIOS = ("cycle_latency", "fair_cycle_latency", "preempt_churn",
 # would hold every event of all 416 cycles).
 MULTIFLAVOR_PROFILED = dict(kind="multiflavor", preempt_seeds=2,
                             try_next_seeds=1)
-SCENARIOS = ("baseline", "hier_fair", "preempt_world") + ENGINE_SCENARIOS
+TAS_SCENARIOS = ("tas", "tas_large", "tas_churn")
+SCENARIOS = ("baseline", "hier_fair", "preempt_world") + ENGINE_SCENARIOS \
+    + TAS_SCENARIOS
+
+
+def _tas_run(name, path):
+    """One TAS engine run, counted like _engine_run's."""
+    from kueue_tpu_torch.bench import tas_engine_worlds as tw
+
+    config = tw.FULL[name]
+    if name == "tas":
+        config = dict(config, max_cycles=120)
+    r = tw.run(config, path)
+    r["decided_cycles"] = r["cycles"]
+    r["cycles"] = r["calls"]
+    r["wall_s"] = r["engine_s"]
+    r["preempting"] = 0
+    del r["engine"]
+    return r
 
 
 def _engine_run(name):
@@ -122,6 +148,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenario", choices=SCENARIOS, default="baseline")
+    ap.add_argument("--path", choices=("device", "host"), default="device",
+                    help="TAS placement path of the tas scenarios")
     ap.add_argument("--out", default=None, help="JSON result file")
     args = ap.parse_args(argv)
 
@@ -129,8 +157,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    engine = args.scenario in ENGINE_SCENARIOS
-    if engine:
+    engine = args.scenario in ENGINE_SCENARIOS + TAS_SCENARIOS
+    if args.scenario in TAS_SCENARIOS:
+        def run():
+            return _tas_run(args.scenario, args.path)
+        described = dict(path=args.path)
+    elif engine:
         def run():
             return _engine_run(args.scenario)
         described = {}
@@ -211,6 +243,10 @@ def main(argv=None) -> int:
                 ph: sum(p.get(ph, 0.0) for p in stats["phases"])
                 / max(len(stats["phases"]), 1)
                 for ph in ("encode", "device", "apply", "finalize")})
+    if args.scenario in TAS_SCENARIOS:
+        result.update(batch_calls=stats["batch_calls"],
+                      batch_heads=stats["batch_heads"],
+                      tas_seconds=stats["tas_seconds"])
     print(json.dumps({k: v for k, v in result.items()
                       if not k.startswith("top_")}))
     for label in ("top_device", "top_cpu"):

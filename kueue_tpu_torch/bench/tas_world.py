@@ -22,12 +22,15 @@ one against live usage (each success committed with ``add_usage``, as
 the scheduler's assume step does, so the forest fills and later
 requests fail), the feasibility batch again at the final usage, and
 phase 1 (leaf counts, then the bubble up the tree) once per distinct
-per-pod vector at the final usage. Each outcome is folded into a crc32,
-so two backends agree when their checksums do.
+per-pod vector at the final usage. The port's placements are pinned to
+the device program (``pinned("device")``). Each outcome is folded into
+a crc32, so two backends agree when their checksums do.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import random
 import time
 import zlib
@@ -96,10 +99,37 @@ def request_specs(blocks: int, racks: int, hosts: int) -> list[RequestSpec]:
     return out
 
 
+# KUEUE_TPU_DEVICE_TAS_MIN per path: the leaf threshold above which a
+# placement takes the device program (0: every forest; 1,000,000: none).
+PATH_PIN = {"device": "0", "host": "1000000"}
+
+
+@contextlib.contextmanager
+def pinned(path: str, feas=None):
+    """Pin every TAS placement made inside to ``path`` ("device" or
+    "host") through KUEUE_TPU_DEVICE_TAS_MIN, and the feasibility batch
+    through KUEUE_TPU_TAS_FEAS when ``feas`` ("0" or "1") is given,
+    restoring both variables after."""
+    values = {"KUEUE_TPU_DEVICE_TAS_MIN": PATH_PIN[path]}
+    if feas is not None:
+        values["KUEUE_TPU_TAS_FEAS"] = feas
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 class PortBackend:
     """The port's side of ``run``: its snapshot on ``device``, placement
-    through ``find_topology_assignments``, the feasibility launch and
-    phase 1 through ``leaf_states`` and ``bubble_counts``."""
+    through ``find_topology_assignments`` pinned to the device program,
+    the feasibility launch and phase 1 through ``leaf_states`` and
+    ``bubble_counts``."""
 
     def __init__(self, device=None):
         from kueue_tpu_torch.api import types
@@ -120,7 +150,8 @@ class PortBackend:
     def find(self, snap, request):
         before = snap.device_placements
         t0 = time.perf_counter()
-        out = snap.find_topology_assignments(request)
+        with pinned("device"):
+            out = snap.find_topology_assignments(request)
         if snap.device_placements != before:
             self.device_seconds += time.perf_counter() - t0
         return out

@@ -3,9 +3,10 @@ snapshots each cycle.
 
 Reference: pkg/cache/scheduler/cache.go:129 (Cache) — CQ/cohort/flavor
 registries, admitted-workload usage, assume/forget, snapshotting.
-Copied from ``kueue_tpu/cache/scheduler_cache.py`` without topologies,
-nodes and the TAS usage aggregates (TAS inside the engine is not
-ported).
+Copied from ``kueue_tpu/cache/scheduler_cache.py`` without admission
+checks and resource transformations; non-TAS pod usage is an empty
+per-node table (its controller is not ported). TAS forests are built on
+``tas_device`` (CUDA unless the engine asks for the CPU).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ class Cache:
         self.cluster_queues: dict[str, ClusterQueue] = {}
         self.cohorts: dict[str, Cohort] = {}
         self.resource_flavors: dict[str, ResourceFlavor] = {}
+        self.topologies: dict[str, object] = {}  # api.Topology
+        self.nodes: dict[str, object] = {}  # tas.Node
         # key -> admitted/assumed WorkloadInfo
         self.workloads: dict[str, WorkloadInfo] = {}
         # Incremental admitted-side accounting (cache.go keeps usage live
@@ -53,7 +56,18 @@ class Cache:
         self.admitted_dirty_epoch = 0
         # Bumped on every CQ/cohort spec change (views memoize on it).
         self.spec_version = 0
+        # flavor -> domain values tuple -> {resource: total}
+        self.tas_usage_agg: dict[str, dict[tuple, dict[str, int]]] = {}
         self._wl_usage: dict[str, tuple] = {}  # key -> (cq, usage dict)
+        self._wl_tas: dict[str, list] = {}  # key -> tas_domains tuples
+        # Cached TAS forest prototypes (see tas_prototypes()), and the
+        # device their tensors live on.
+        self._tas_protos = None
+        self.tas_device = None
+        # Non-TAS pod usage (tas_non_tas_pod_cache.go): per-node totals
+        # subtracted from TAS leaf capacity at prototype build. Nothing
+        # fills it in the port.
+        self.non_tas_usage: dict[str, dict[str, int]] = {}
 
     # -- object lifecycle --
 
@@ -72,7 +86,10 @@ class Cache:
     def delete_cluster_queue(self, name: str) -> None:
         if self.cluster_queues.pop(name, None) is not None:
             self.spec_version += 1
-            # Drop the deleted CQ's contributions.
+            # Drop the deleted CQ's contributions — TAS aggregates are
+            # flavor-keyed, so without this its still-registered
+            # workloads would keep occupying shared topology leaves that
+            # the from-scratch encoder (which filters by live CQs) frees.
             self.rebuild_accounting()
 
     def add_or_update_cohort(self, cohort: Cohort) -> None:
@@ -84,16 +101,83 @@ class Cache:
         if self.cohorts.pop(name, None) is not None:
             self.spec_version += 1
 
+    def _invalidate_tas_prototypes(self) -> None:
+        self._tas_protos = None
+
     def add_or_update_resource_flavor(self, rf: ResourceFlavor) -> None:
-        if rf.topology_name:
-            raise NotImplementedError(
-                "topology-aware scheduling in the engine is not ported")
+        was_tas = self._tas_flavor_names()
         self.resource_flavors[rf.name] = rf
         self.spec_version += 1
+        self._invalidate_tas_prototypes()
+        if was_tas != self._tas_flavor_names():
+            self.rebuild_accounting()
 
     def delete_resource_flavor(self, name: str) -> None:
-        self.resource_flavors.pop(name, None)
+        rf = self.resource_flavors.pop(name, None)
         self.spec_version += 1
+        self._invalidate_tas_prototypes()
+        if rf is not None and rf.topology_name:
+            self.rebuild_accounting()
+
+    def add_or_update_topology(self, topology) -> None:
+        self.topologies[topology.name] = topology
+        self.spec_version += 1
+        self._invalidate_tas_prototypes()
+
+    def delete_topology(self, name: str) -> None:
+        self.topologies.pop(name, None)
+        self.spec_version += 1
+        self._invalidate_tas_prototypes()
+
+    def add_or_update_node(self, node) -> None:
+        self.nodes[node.name] = node
+        self._invalidate_tas_prototypes()
+
+    def delete_node(self, name: str) -> None:
+        self.nodes.pop(name, None)
+        self._invalidate_tas_prototypes()
+
+    def set_tas_device(self, device) -> None:
+        """Build the TAS forests on ``device`` from now on."""
+        if device != self.tas_device:
+            self.tas_device = device
+            self._invalidate_tas_prototypes()
+
+    def tas_prototypes(self):
+        """Cached per-flavor TAS forest prototypes (the tas_cache.go
+        node-forest cache): rebuilt only when nodes/topologies/flavors
+        change; snapshots fork them instead of re-adding every node."""
+        if self._tas_protos is None:
+            from kueue_tpu_torch.tas.snapshot import TASFlavorSnapshot
+
+            protos = {}
+            for rf in self.resource_flavors.values():
+                topo = self.topologies.get(rf.topology_name) \
+                    if rf.topology_name else None
+                if topo is None:
+                    continue
+                snap = TASFlavorSnapshot(
+                    topo, flavor_tolerations=tuple(rf.tolerations),
+                    device=self.tas_device)
+                for node in self.nodes.values():
+                    if all(node.labels.get(k) == v
+                           for k, v in rf.node_labels.items()):
+                        snap.add_node(
+                            node,
+                            non_tas_usage=self.non_tas_usage.get(
+                                node.name))
+                protos[rf.name] = snap
+            # Prototypes carry the LIVE admitted usage from birth;
+            # _account_tas/_unaccount write commits through from here on
+            # (snapshots share the forest under an undo scope instead of
+            # forking it — tas/snapshot.py begin_cycle).
+            for name, proto in protos.items():
+                for values, totals in self.tas_usage_agg.get(name,
+                                                             {}).items():
+                    if any(totals.values()):
+                        proto.install_usage(values, totals)
+            self._tas_protos = protos
+        return self._tas_protos
 
     def mark_admitted_dirty(self, key: str) -> None:
         if len(self.admitted_dirty) > 100_000:
@@ -105,6 +189,10 @@ class Cache:
 
     # -- workloads (cache.go:766 AddOrUpdateWorkload / assume) --
 
+    def _tas_flavor_names(self) -> set:
+        return {rf.name for rf in self.resource_flavors.values()
+                if rf.topology_name}
+
     def _account(self, key: str, info: WorkloadInfo) -> None:
         if info.cluster_queue not in self.cluster_queues:
             # Mirrors the from-scratch encoder's live-CQ filter; the
@@ -115,7 +203,27 @@ class Cache:
         for fr, v in usage.items():
             cq_usage[fr] = cq_usage.get(fr, 0) + v
         self.cq_workloads.setdefault(info.cluster_queue, {})[key] = info
+        tas = info.tas_domains(self._tas_flavor_names())
+        self._account_tas(tas)
         self._wl_usage[key] = (info.cluster_queue, usage)
+        self._wl_tas[key] = tas
+
+    def _account_tas(self, tas) -> None:
+        protos = self._tas_protos
+        for flavor, values, single, count in tas:
+            by_values = self.tas_usage_agg.setdefault(flavor, {})
+            totals = by_values.setdefault(values, {})
+            for res, per_pod in single.items():
+                totals[res] = totals.get(res, 0) + per_pod * count
+            # Pod slots (tas_flavor_snapshot.go:321).
+            totals["pods"] = totals.get("pods", 0) + count
+            if protos is not None:
+                proto = protos.get(flavor)
+                if proto is not None:
+                    deltas = {res: per_pod * count
+                              for res, per_pod in single.items()}
+                    deltas["pods"] = deltas.get("pods", 0) + count
+                    proto.commit_usage(values, deltas)
 
     def _unaccount(self, key: str) -> None:
         entry = self._wl_usage.pop(key, None)
@@ -131,13 +239,43 @@ class Cache:
             wls = self.cq_workloads.get(cq_name)
             if wls is not None:
                 wls.pop(key, None)
+        protos = self._tas_protos
+        for flavor, values, single, count in self._wl_tas.pop(key, ()):
+            totals = self.tas_usage_agg.get(flavor, {}).get(values)
+            if totals is None:
+                continue
+            for res, per_pod in single.items():
+                left = totals.get(res, 0) - per_pod * count
+                if left:
+                    totals[res] = left
+                else:
+                    totals.pop(res, None)
+            left = totals.get("pods", 0) - count
+            if left:
+                totals["pods"] = left
+            else:
+                totals.pop("pods", None)
+            if protos is not None:
+                proto = protos.get(flavor)
+                if proto is not None:
+                    deltas = {res: -per_pod * count
+                              for res, per_pod in single.items()}
+                    deltas["pods"] = deltas.get("pods", 0) - count
+                    proto.commit_usage(values, deltas)
 
     def rebuild_accounting(self) -> None:
         """Recompute the incremental aggregates from the workload
-        registry (a ClusterQueue was added or deleted)."""
+        registry — the recovery path after flavor/topology registry
+        changes reclassify which flavors are TAS."""
+        # Live prototypes carry the old aggregates — drop them so the
+        # rebuild's _account write-throughs can't double-install (the
+        # next tas_prototypes() call re-installs the fresh aggregates).
+        self._invalidate_tas_prototypes()
         self.cq_usage = {}
         self.cq_workloads = {}
+        self.tas_usage_agg = {}
         self._wl_usage = {}
+        self._wl_tas = {}
         self.admitted_version += 1
         self.admitted_dirty.update(self.workloads.keys())
         for key, info in self.workloads.items():
@@ -208,6 +346,15 @@ class Cache:
             reasons.append((
                 "FlavorNotFound",
                 f"references missing ResourceFlavor(s): {missing}"))
+        for rg in cq.resource_groups:
+            for fq in rg.flavors:
+                rf = self.resource_flavors.get(fq.name)
+                topo = getattr(rf, "topology_name", None) if rf else None
+                if topo and topo not in self.topologies:
+                    reasons.append((
+                        "TopologyNotFound",
+                        f"there is no Topology {topo!r} for TAS flavor "
+                        f"{fq.name!r}"))
         return reasons
 
     def inactive_cluster_queues(self) -> set[str]:
@@ -221,6 +368,10 @@ class Cache:
             list(self.resource_flavors.values()),
             None,
             inactive_cluster_queues=self.inactive_cluster_queues(),
+            topologies=list(self.topologies.values()),
+            nodes=list(self.nodes.values()),
+            tas_prototypes=self.tas_prototypes(),
             cq_usage=self.cq_usage,
             cq_workloads=self.cq_workloads,
+            tas_usage_agg=self.tas_usage_agg,
         )

@@ -441,9 +441,9 @@ class Snapshot:
                 if mc:
                     for k in [k for k in mc if k[0] != ver]:
                         mc.pop(k)
-                jc = getattr(tas, "_j_usage_cache", None)
+                jc = getattr(tas, "_usage_tensor_cache", None)
                 if jc is not None and jc[0][0] != ver:
-                    tas._j_usage_cache = None
+                    tas._usage_tensor_cache = None
                 pm = getattr(tas, "_place_memo", None)
                 if pm is not None and pm[0] != ver:
                     tas._place_memo = None

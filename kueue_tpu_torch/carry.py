@@ -8,7 +8,7 @@ dataclasses, so the port can solve exactly the arrays another encoder
 produced. Fields the port does not have are ignored; a missing field
 raises. ``tas_structure`` does the same for a topology forest's device
 encoding, and ``api_object`` for an API object (flavors, queues,
-workloads).
+workloads, topologies, TAS nodes and topology assignments).
 """
 
 from __future__ import annotations
@@ -50,16 +50,19 @@ def _build(cls, mapping):
 
 def api_object(obj):
     """The port's API object with the field values of ``obj``, an object
-    of another package's API types of the same class names (dataclasses,
+    of another package's API types (or TAS snapshot types: ``Node``,
+    ``TopologyAssignment``) of the same class names (dataclasses,
     enums, and the tuples, lists and dicts holding them), converted
     field by field. The ``uid`` is copied as it is: preemption candidates
     break ties on it."""
     from kueue_tpu_torch.api import types
+    from kueue_tpu_torch.tas import snapshot
 
     if isinstance(obj, enum.Enum):
         return getattr(types, type(obj).__name__)(obj.value)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        cls = getattr(types, type(obj).__name__)
+        name = type(obj).__name__
+        cls = getattr(types, name, None) or getattr(snapshot, name)
         init, rest = {}, {}
         for f in dataclasses.fields(cls):
             (init if f.init else rest)[f.name] = api_object(

@@ -5,12 +5,17 @@ A trimmed copy of ``kueue_tpu/controllers/engine.py`` for the port's
 serving path: object admin, submit / finish / tick on the engine clock,
 eviction and preemption, and ``schedule_once`` through the batched
 oracle (``attach_oracle``, an ``oracle/engine_bridge.OracleBridge`` over
-a ``TorchExecutor``) or the sequential host cycle. Decisions are the JAX
+a ``TorchExecutor``) or the sequential host cycle, topology-aware
+scheduling included (``create_topology`` / ``create_node`` /
+``delete_node``, topology requests placed by the host descent or, in a
+device cycle, by the batched TAS planner). Decisions are the JAX
 package's engine's, cycle by cycle. Left out: the journal, tracing, the
 metrics registry and SLOs, admission checks, pods-ready, MultiKueue,
 admission fair sharing, holds, LimitRanges and RuntimeClasses (pod
-templates), columnar apply and TAS (topologies, nodes and topology
-requests raise NotImplementedError).
+templates), columnar apply, and of TAS non-TAS pod usage
+(``observe_pod``), node failure and replacement
+(``mark_node_unhealthy``), balanced placement and elastic slices, each
+raising NotImplementedError.
 
 Lifecycle semantics mirrored from the reference:
   * admit: set QuotaReserved + Admitted, write Admission, assume in cache
@@ -47,8 +52,6 @@ from kueue_tpu_torch.scheduler.cycle import (
     SchedulerCycle,
 )
 from kueue_tpu_torch.workload_info import admission_from_assignment
-
-_TAS = "topology-aware scheduling in the engine is not ported"
 
 
 @dataclass
@@ -96,9 +99,13 @@ class _BulkAdmitCtx:
 
 
 class Engine:
-    def __init__(self, enable_fair_sharing: bool = False):
+    def __init__(self, enable_fair_sharing: bool = False, device=None):
         self.queues = QueueManager()
         self.cache = Cache()
+        # Where the TAS forests' tensors and the oracle live: CUDA unless
+        # the caller asks for the CPU (here or in attach_oracle).
+        self.device = device
+        self.cache.set_tas_device(device)
         # When a cycle is active, cohort-inadmissible requeues triggered
         # by evictions are deferred to cycle end (one pass per distinct
         # cohort root instead of one per victim).
@@ -147,7 +154,24 @@ class Engine:
         self.queues.add_local_queue(lq)
 
     def create_topology(self, topology) -> None:
-        raise NotImplementedError(_TAS)
+        self.cache.add_or_update_topology(topology)
+        self.queues.queue_inadmissible_workloads()
+
+    def create_node(self, node) -> None:
+        """Node lifecycle (tas/node_controller.go)."""
+        self.cache.add_or_update_node(node)
+        self.queues.queue_inadmissible_workloads()
+
+    def delete_node(self, name: str) -> None:
+        self.cache.delete_node(name)
+        self.queues.queue_inadmissible_workloads()
+
+    def observe_pod(self, pod) -> None:
+        raise NotImplementedError("non-TAS pod usage is not ported")
+
+    def mark_node_unhealthy(self, name: str, reason: str = "") -> None:
+        raise NotImplementedError(
+            "node failure and replacement are not ported")
 
     # -- workload lifecycle --
 
@@ -155,8 +179,6 @@ class Engine:
         if not wl.creation_time:
             wl.creation_time = self.clock
         for ps in wl.pod_sets:
-            if ps.topology_request is not None:
-                raise NotImplementedError(_TAS)
             if ps.template is not None:
                 raise NotImplementedError(
                     "pod templates (LimitRanges, RuntimeClass overheads) "
@@ -212,13 +234,17 @@ class Engine:
 
     def attach_oracle(self, max_depth: int = 4, device=None) -> None:
         """Enable the batched device path for scheduling cycles: an
-        OracleBridge over a TorchExecutor on ``device`` (CUDA unless the
-        caller asks for the CPU; raises when CUDA is absent). An
-        executor error propagates out of schedule_once."""
+        OracleBridge over a TorchExecutor on ``device`` (the engine's
+        device when not given: CUDA unless the caller asks for the CPU;
+        raises when CUDA is absent). The TAS forests move to the same
+        device. An executor error propagates out of schedule_once."""
         from kueue_tpu_torch.oracle.engine_bridge import OracleBridge
         from kueue_tpu_torch.oracle.service import TorchExecutor
 
-        self.oracle = OracleBridge(self, TorchExecutor(device),
+        if device is not None:
+            self.device = device
+            self.cache.set_tas_device(device)
+        self.oracle = OracleBridge(self, TorchExecutor(self.device),
                                    max_depth=max_depth)
 
     def schedule_once(self) -> Optional[CycleResult]:
@@ -337,8 +363,10 @@ class Engine:
             return []
         cache = self.cache
         queues = self.queues
+        tas_names = cache._tas_flavor_names()
         workloads_reg = cache.workloads
         wl_usage = cache._wl_usage
+        wl_tas = cache._wl_tas
         live_cqs = cache.cluster_queues
         # Persistent Admission flyweights: the stored assignment ref
         # keeps its id() from being recycled, so identity keys are safe.
@@ -370,6 +398,8 @@ class Engine:
                 fly[akey] = (assignment, admission)
             else:
                 admission = ent[1]
+            # status.admission is part of the assume state: the cache
+            # accounting below reads it (tas_domains).
             wl.status.admission = admission
             trs = info.total_requests
             psas = admission.pod_set_assignments
@@ -404,6 +434,11 @@ class Engine:
                 cqw[key] = info
                 wl_usage[key] = (cq_name, usage)
                 cache.mark_admitted_dirty(key)
+                if tas_names:
+                    tas = info.tas_domains(tas_names)
+                    if tas:
+                        wl_tas[key] = tas
+                        cache._account_tas(tas)
             pairs.append((entry, admission))
         if pairs:
             cache.admitted_version += 1

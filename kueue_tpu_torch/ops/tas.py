@@ -17,7 +17,10 @@ Here:
     counts run as the CUDA kernel of ``ops/leaf.py`` on a CUDA tensor and
     as its plain version on a CPU tensor;
   * ``tas_place``: the full placement, phase 1 fused with the sorted
-    descent;
+    descent, written over a leading batch axis (``_place_rows``);
+  * ``tas_place_batch``: that placement for a batch of leaderless
+    requests against one forest, one row per request (the reference's
+    vmap of ``tas_place``);
   * ``tas_feasibility``: exact fit/no-fit verdicts for a batch of
     leaderless requests, phase 1 only.
 
@@ -27,7 +30,9 @@ of ``leaf_states``/``bubble_counts``, as in the reference. Three JAX
 behaviours are reproduced exactly: ``lax.sort`` over several keys (a
 chain of stable argsorts, last key first), empty
 ``segment_min``/``segment_max`` segments (int64 max and int64 min), and
-``argmin`` ties (the first index, as ``torch.argmin`` gives).
+``argmin`` ties (the first index, as ``torch.argmin`` gives). Over the
+batch axis, each segment reduction flattens row b's segments to
+``b * nseg + seg``, so rows never share a segment.
 """
 
 from __future__ import annotations
@@ -123,32 +128,71 @@ def bubble_counts(leaf_state, parent_of_level, level_sizes_max: int,
 # ---------------------------------------------------------------------------
 
 
+def _bseg_sum(data, seg, nseg: int):
+    """Per-row segment sum: data, seg [B, N] (seg in [0, nseg)) ->
+    [B, nseg]. Row b's segments are flattened to b*nseg + seg."""
+    B = data.shape[0]
+    off = torch.arange(B, dtype=torch.int64,
+                       device=data.device)[:, None] * nseg
+    out = torch.zeros(B * nseg, dtype=data.dtype, device=data.device)
+    return out.index_add_(0, (seg + off).reshape(-1),
+                          data.reshape(-1)).view(B, nseg)
+
+
+def _bseg_reduce(data, seg, nseg: int, how: str, empty: int):
+    """Per-row segment amin / amax with the empty-segment identity of
+    jax.ops.segment_min / segment_max (int64 max / int64 min)."""
+    B = data.shape[0]
+    off = torch.arange(B, dtype=torch.int64,
+                       device=data.device)[:, None] * nseg
+    out = torch.full((B * nseg,), empty, dtype=torch.int64,
+                     device=data.device)
+    return out.scatter_reduce_(0, (seg + off).reshape(-1),
+                               data.reshape(-1), how,
+                               include_self=True).view(B, nseg)
+
+
+def _bseg_min(data, seg, nseg: int):
+    return _bseg_reduce(data, seg, nseg, "amin", _I64_MAX)
+
+
+def _bseg_max(data, seg, nseg: int):
+    return _bseg_reduce(data, seg, nseg, "amax", _I64_MIN)
+
+
 def _count_in(rem, req, has_pods_cap, pods_col: int):
-    """count_in of fillLeafCounts: pods that fit per leaf given remaining
-    capacity. A leaf without explicit "pods" capacity is unlimited on
-    that resource; a leaf with zero applicable constraints fits zero
-    pods."""
-    app = (req > 0)[None, :].expand(rem.shape).clone()
+    """count_in of fillLeafCounts, per row: pods that fit per leaf given
+    remaining capacity ``rem`` [M, S] or [B, M, S] and per-pod requests
+    ``req`` [B, S]. A leaf without explicit "pods" capacity is unlimited
+    on that resource; a leaf with zero applicable constraints fits zero
+    pods. Returns [B, M]."""
+    B, S = req.shape
+    M = rem.shape[-2]
+    app = (req > 0)[:, None, :].expand(B, M, S).clone()
     if pods_col >= 0:
-        app[:, pods_col] = (req[pods_col] > 0) & has_pods_cap
+        app[:, :, pods_col] = ((req[:, pods_col] > 0)[:, None]
+                               & has_pods_cap[None, :])
     cnt = torch.where(
         app, _floordiv(torch.clamp(rem, min=0),
-                       torch.clamp(req, min=1)[None, :]),
-        torch.full_like(rem, _IBIG))
-    n_app = app.sum(dim=1)
-    return torch.where(n_app > 0, cnt.amin(dim=1),
-                       torch.zeros_like(n_app))
+                       torch.clamp(req, min=1)[:, None, :]),
+        torch.full_like(app, _IBIG, dtype=torch.int64))
+    n_app = app.sum(dim=2)
+    return torch.where(n_app > 0, cnt.amin(dim=2), torch.zeros_like(n_app))
 
 
 def _phase1(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
-            has_pods_cap, valid, parent, slice_size: int, *,
+            has_pods_cap, valid, parent, slice_size, *,
             num_levels: int, max_domains: int, pods_col: int,
             slice_level: int, has_leader: bool):
-    """fillInCounts with the leader variants. Returns the five stacked
-    state arrays, each int64[num_levels, max_domains]."""
+    """fillInCounts with the leader variants, for B requests against one
+    forest: per_pod/leader_per_pod [B, S], leaf_mask [B, M],
+    slice_size [B]. Returns the five state arrays, each
+    int64[NL, B, M]."""
     M = max_domains
+    B = per_pod.shape[0]
     dev = free.device
-    zeros = torch.zeros(M, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((B, M), dtype=torch.int64, device=dev)
+    ss = slice_size[:, None]
     rem0 = free - usage - assumed
     st_leaf = torch.where(leaf_mask,
                           _count_in(rem0, per_pod, has_pods_cap, pods_col),
@@ -156,7 +200,7 @@ def _phase1(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
     if has_leader:
         lead_fit = leaf_mask & (
             _count_in(rem0, leader_per_pod, has_pods_cap, pods_col) > 0)
-        rem1 = rem0 - leader_per_pod[None, :]
+        rem1 = rem0[None] - leader_per_pod[:, None, :]
         swl_leaf = torch.where(
             lead_fit, _count_in(rem1, per_pod, has_pods_cap, pods_col),
             zeros)
@@ -175,42 +219,44 @@ def _phase1(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
     swl[leaf_lvl] = swl_leaf
     ls[leaf_lvl] = ls_leaf
     if leaf_lvl == slice_level:
-        sst[leaf_lvl] = _floordiv(st_leaf, slice_size)
-        sstl[leaf_lvl] = _floordiv(swl_leaf, slice_size)
+        sst[leaf_lvl] = _floordiv(st_leaf, ss)
+        sstl[leaf_lvl] = _floordiv(swl_leaf, ss)
     else:
         sst[leaf_lvl] = zeros
         sstl[leaf_lvl] = zeros
 
-    ibig = torch.full((M,), _IBIG, dtype=torch.int64, device=dev)
+    ibig = torch.full((B, M), _IBIG, dtype=torch.int64, device=dev)
     for lvl in range(num_levels - 2, -1, -1):
-        child_valid = valid[lvl + 1]
-        seg = torch.where(child_valid, parent[lvl + 1], M)
+        child_valid = valid[lvl + 1][None, :]
+        seg = torch.where(child_valid, parent[lvl + 1][None, :],
+                          M).expand(B, M)
         stc, sstc, swlc, sstlc, lsc = (st[lvl + 1], sst[lvl + 1],
                                        swl[lvl + 1], sstl[lvl + 1],
                                        ls[lvl + 1])
-        sum_st = _segment_sum(torch.where(child_valid, stc, zeros), seg,
-                              M + 1)[:M]
-        sum_sst = _segment_sum(torch.where(child_valid, sstc, zeros), seg,
-                               M + 1)[:M]
+        sum_st = _bseg_sum(torch.where(child_valid, stc, zeros), seg,
+                           M + 1)[:, :M]
+        sum_sst = _bseg_sum(torch.where(child_valid, sstc, zeros), seg,
+                            M + 1)[:, :M]
         # Leader-capable children bound the with-leader variants (min of
         # state - stateWithLeader).
-        cond = child_valid & (lsc > 0) if has_leader else child_valid
-        min_diff = _segment_min(torch.where(cond, stc - swlc, ibig), seg,
-                                M + 1)[:M]
-        min_sdiff = _segment_min(torch.where(cond, sstc - sstlc, ibig), seg,
-                                 M + 1)[:M]
-        has_contrib = _segment_max(cond.long(), seg, M + 1)[:M] > 0
+        cond = child_valid & (lsc > 0) if has_leader \
+            else child_valid.expand(B, M)
+        min_diff = _bseg_min(torch.where(cond, stc - swlc, ibig), seg,
+                             M + 1)[:, :M]
+        min_sdiff = _bseg_min(torch.where(cond, sstc - sstlc, ibig), seg,
+                              M + 1)[:, :M]
+        has_contrib = _bseg_max(cond.long(), seg, M + 1)[:, :M] > 0
         st_p = sum_st
         swl_p = torch.where(has_contrib, sum_st - min_diff, zeros)
         sstl_p = torch.where(has_contrib, sum_sst - min_sdiff, zeros)
-        ls_p = _segment_max(torch.where(child_valid, lsc, zeros), seg,
-                            M + 1)[:M]
+        ls_p = _bseg_max(torch.where(child_valid, lsc, zeros), seg,
+                         M + 1)[:, :M]
         if lvl == slice_level:
-            sst_p = _floordiv(st_p, slice_size)
-            sstl_p = _floordiv(swl_p, slice_size)
+            sst_p = _floordiv(st_p, ss)
+            sstl_p = _floordiv(swl_p, ss)
         else:
             sst_p = sum_sst
-        v = valid[lvl]
+        v = valid[lvl][None, :]
         st[lvl] = torch.where(v, st_p, zeros)
         sst[lvl] = torch.where(v, sst_p, zeros)
         swl[lvl] = torch.where(v, swl_p, zeros)
@@ -220,16 +266,19 @@ def _phase1(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
             torch.stack(sstl), torch.stack(ls))
 
 
-def _rank_of(keys, M: int):
-    """Sort permutation + per-slot rank for a lexicographic key tuple:
-    ``lax.sort(keys + (iota,), num_keys=len(keys), is_stable=True)`` as
-    a chain of stable argsorts from the last key to the first."""
+def _rank_of(keys):
+    """Sort permutation + per-slot rank, per row, for a lexicographic key
+    tuple of [B, M] tensors: ``lax.sort(keys + (iota,),
+    num_keys=len(keys), is_stable=True)`` as a chain of stable argsorts
+    from the last key to the first."""
+    B, M = keys[0].shape
     dev = keys[0].device
-    perm = torch.arange(M, dtype=torch.int64, device=dev)
+    iota = torch.arange(M, dtype=torch.int64, device=dev).expand(B, M)
+    perm = iota
     for key in reversed(keys):
-        perm = perm[torch.argsort(key[perm], stable=True)]
-    rank = torch.empty(M, dtype=torch.int64, device=dev).scatter_(
-        0, perm, torch.arange(M, dtype=torch.int64, device=dev))
+        perm = perm.gather(1, torch.argsort(key.gather(1, perm), dim=1,
+                                            stable=True))
+    rank = torch.empty_like(perm).scatter_(1, perm, iota)
     return perm, rank
 
 
@@ -252,108 +301,110 @@ def _normal_keys(st, sst, vr, valid, unconstrained: bool):
 def _consume(seg, cap, capwl, ls, tie_rank, need, leadp, *, nseg: int,
              unconstrained: bool):
     """The greedy minimal-prefix walk of updateCountsToMinimumGeneric /
-    consumeWithLeadersGeneric, segmented.
+    consumeWithLeadersGeneric, segmented, per row.
 
-    Elements are given in walk order; ``seg[i]`` is the segment id
-    (>= nseg marks padding). Per segment: walk elements, the first one
-    consuming the leader when ``leadp``; full takes until the first
-    element whose own capacity covers the remainder; that terminal take
-    goes to the best-fit domain in the suffix (least leftover capacity,
-    earliest ``tie_rank`` on ties) unless unconstrained.
+    Elements are given in walk order along dim 1; ``seg[b, i]`` is the
+    segment id (>= nseg marks padding); ``need``/``leadp`` are
+    [B, nseg]. Per segment: walk elements, the first one consuming the
+    leader when ``leadp``; full takes until the first element whose own
+    capacity covers the remainder; that terminal take goes to the
+    best-fit domain in the suffix (least leftover capacity, earliest
+    ``tie_rank`` on ties) unless unconstrained.
 
-    Returns (cnt[i] units, lead[i], seg_ok[nseg], leader_ok[nseg],
-    consumed[nseg])."""
-    N = seg.shape[0]
+    Returns (cnt[b, i] units, lead[b, i], seg_ok[B, nseg],
+    leader_ok[B, nseg], consumed[B, nseg])."""
+    B, N = seg.shape
     dev = seg.device
-    idx = torch.arange(N, dtype=torch.int64, device=dev)
-    zeros = torch.zeros(N, dtype=torch.int64, device=dev)
-    ibig = torch.full((N,), _IBIG, dtype=torch.int64, device=dev)
+    idx = torch.arange(N, dtype=torch.int64, device=dev).expand(B, N)
+    zeros = torch.zeros((B, N), dtype=torch.int64, device=dev)
+    ibig = torch.full((B, N), _IBIG, dtype=torch.int64, device=dev)
     valid = seg < nseg
     segc = torch.clamp(seg, 0, nseg - 1)
     segfull = torch.where(valid, seg, nseg)
-    is_first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          seg[1:] != seg[:-1]]) & valid
-    lp_e = valid & leadp[segc]
-    need_e = torch.where(valid, need[segc], zeros)
+    is_first = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                          seg[:, 1:] != seg[:, :-1]], dim=1) & valid
+    lp_e = valid & leadp.gather(1, segc)
+    need_e = torch.where(valid, need.gather(1, segc), zeros)
     eff = torch.where(is_first & lp_e, capwl, cap)
     eff = torch.where(valid, eff, zeros)
-    cs = torch.cumsum(eff, dim=0)
+    cs = torch.cumsum(eff, dim=1)
     excl = cs - eff
-    base = _segment_sum(torch.where(is_first, excl, zeros), segfull,
-                        nseg + 1)
-    prefix = excl - base[segfull]
+    base = _bseg_sum(torch.where(is_first, excl, zeros), segfull, nseg + 1)
+    prefix = excl - base.gather(1, segfull)
     remaining = torch.clamp(need_e - prefix, min=0)
     # Terminal fit: own capacity covers the remainder (the leader-first
     # element additionally needs leader capacity).
     fit = valid & (eff >= remaining) & (~(is_first & lp_e) | (ls >= 1))
-    t_pos = _segment_min(torch.where(fit, idx, ibig), segfull, nseg + 1)
-    seg_ok = t_pos[:nseg] < _IBIG
-    f_pos = _segment_min(torch.where(valid, idx, ibig), segfull, nseg + 1)
-    f_safe = torch.clamp(f_pos[:nseg], 0, N - 1)
-    leader_ok = ~leadp | ((f_pos[:nseg] < _IBIG) & (ls[f_safe] > 0))
-    t_e = t_pos[segfull]
+    t_pos = _bseg_min(torch.where(fit, idx, ibig), segfull, nseg + 1)
+    seg_ok = t_pos[:, :nseg] < _IBIG
+    f_pos = _bseg_min(torch.where(valid, idx, ibig), segfull, nseg + 1)
+    f_safe = torch.clamp(f_pos[:, :nseg], 0, N - 1)
+    leader_ok = ~leadp | ((f_pos[:, :nseg] < _IBIG)
+                          & (ls.gather(1, f_safe) > 0))
+    t_e = t_pos.gather(1, segfull)
     t_safe = torch.clamp(t_e, 0, N - 1)
-    rem_t_e = torch.where(t_e < _IBIG, remaining[t_safe], zeros)
-    flt_e = lp_e & (t_e == f_pos[segfull])  # leader consumed at terminal
+    rem_t_e = torch.where(t_e < _IBIG, remaining.gather(1, t_safe), zeros)
+    # leader consumed at terminal
+    flt_e = lp_e & (t_e == f_pos.gather(1, segfull))
     bkey = torch.where(flt_e, capwl, cap)
     in_suf = valid & (idx >= t_e)
     cond = in_suf & (bkey >= rem_t_e) & (~flt_e | (ls >= 1))
-    mk = _segment_min(torch.where(cond, bkey, ibig), segfull, nseg + 1)
+    mk = _bseg_min(torch.where(cond, bkey, ibig), segfull, nseg + 1)
     if unconstrained:
         is_b = valid & (idx == t_e)
     else:
         tie = torch.where(flt_e, tie_rank, idx)
-        best = cond & (bkey == mk[segfull])
-        bt = _segment_min(torch.where(best, tie, ibig), segfull, nseg + 1)
-        is_b = best & (tie == bt[segfull])
+        best = cond & (bkey == mk.gather(1, segfull))
+        bt = _bseg_min(torch.where(best, tie, ibig), segfull, nseg + 1)
+        is_b = best & (tie == bt.gather(1, segfull))
     cnt = torch.where(valid & (idx < t_e), eff, zeros)
     cnt = cnt + torch.where(is_b, rem_t_e, zeros)
     lead = (flt_e & is_b).long() + torch.where(
         lp_e & is_first & ~flt_e, torch.clamp(ls, max=1), zeros)
-    consumed = _segment_sum(eff, segfull, nseg + 1)[:nseg]
+    consumed = _bseg_sum(eff, segfull, nseg + 1)[:, :nseg]
     return cnt, lead, seg_ok, leader_ok, consumed
 
 
-def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
-              has_pods_cap, valid, vrank, parent, count: int,
-              slice_size: int, *, num_levels: int, max_domains: int,
-              pods_col: int, req_level: int, slice_level: int,
-              required: bool, unconstrained: bool, has_leader: bool):
-    """findTopologyAssignment end to end on the device.
-
-    free/usage/assumed: int64[M, S] leaf-slot capacity state;
-    per_pod/leader_per_pod: int64[S]; leaf_mask/has_pods_cap: bool[M];
-    valid: bool[NL, M]; vrank: int64[NL, M] lexicographic value rank;
-    parent: int64[NL, M] parent slot at the level above.
-
-    Returns (status, fit_arg, cnt int64[M], lead int64[M]): status and
-    fit_arg are 0-d int64 tensors; cnt/lead are the per-leaf-slot worker
-    pod counts and leader placements."""
+def _place_rows(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
+                has_pods_cap, valid, vrank, parent, count, slice_size, *,
+                num_levels: int, max_domains: int, pods_col: int,
+                req_level: int, slice_level: int, required: bool,
+                unconstrained: bool, has_leader: bool):
+    """findTopologyAssignment for B requests against one forest, each row
+    its own placement: per_pod/leader_per_pod int64[B, S], leaf_mask
+    bool[B, M], count/slice_size int64[B]; the rest shared as in
+    tas_place. Every step is a masked tensor step over the whole batch
+    (no row stops early). Returns (status int64[B], fit_arg int64[B],
+    cnt int64[B, M], lead int64[B, M])."""
     NL, M = num_levels, max_domains
+    B = per_pod.shape[0]
     dev = free.device
     i64 = dict(dtype=torch.int64, device=dev)
-    zeros = torch.zeros(M, **i64)
-    ibig = torch.full((M,), _IBIG, **i64)
-    slice_count = count // slice_size
+    zeros = torch.zeros((B, M), **i64)
+    ibig = torch.full((B, M), _IBIG, **i64)
+    slice_count = _floordiv(count, slice_size)
     st, sst, swl, sstl, ls = _phase1(
         free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
         has_pods_cap, valid, parent, slice_size, num_levels=NL,
         max_domains=M, pods_col=pods_col, slice_level=slice_level,
         has_leader=has_leader)
     leader_count = 1 if has_leader else 0
+    validb = valid[:, None, :].expand(NL, B, M)
+    vrankb = vrank[:, None, :].expand(NL, B, M)
+    parentb = parent[:, None, :].expand(NL, B, M)
 
     def scalar(v):
-        return torch.tensor(v, **i64)
+        return torch.full((B,), v, **i64)
 
     def level_arrays(lvl):
         return st[lvl], sst[lvl], swl[lvl], sstl[lvl], ls[lvl]
 
     def at(vec, i):
-        """vec[i] for a 0-d index tensor, without a host sync."""
-        return vec.gather(0, i.reshape(1))[0]
+        """vec[b, i[b]] per row, without a host sync."""
+        return vec.gather(1, i[:, None])[:, 0]
 
     def placed_at(pick, value):
-        return zeros.scatter(0, pick.reshape(1), scalar(value).reshape(1))
+        return zeros.scatter(1, pick[:, None], value[:, None])
 
     # Per-level leader-order ranks and top-fit flags. Required and
     # unconstrained place at exactly req_level, so the selection sorts
@@ -364,13 +415,14 @@ def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
     for lvl in sel_levels:
         stl_, sst_, swl_, sstl_, ls_ = level_arrays(lvl)
         perm, rank = _rank_of(
-            _leader_keys(swl_, sstl_, ls_, vrank[lvl], valid[lvl],
-                         unconstrained), M)
+            _leader_keys(swl_, sstl_, ls_, vrankb[lvl], validb[lvl],
+                         unconstrained))
         lperm[lvl], lrank[lvl] = perm, rank
-        top = perm[0]
-        topfit[lvl] = (at(valid[lvl], top) & (at(sstl_, top) >= slice_count)
+        top = perm[:, 0]
+        topfit[lvl] = (at(validb[lvl], top)
+                       & (at(sstl_, top) >= slice_count)
                        & (at(ls_, top) >= leader_count))
-        topslice[lvl] = torch.where(at(valid[lvl], top), at(sst_, top),
+        topslice[lvl] = torch.where(at(validb[lvl], top), at(sst_, top),
                                     scalar(0))
 
     # findLevelWithFitDomains: the deepest level whose best domain fits;
@@ -382,66 +434,73 @@ def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
         for lvl in range(req_level + 1):
             fit_level = torch.where(topfit[lvl], scalar(lvl), fit_level)
 
+    sc_col = slice_count[:, None]
+
     def single_pick(lvl):
         """Top domain fits: findBestFitDomainForSlices over the whole
         level (ties in leader-sort order)."""
         _, sst_, _, sstl_, ls_ = level_arrays(lvl)
-        cond = valid[lvl] & (sstl_ >= slice_count) & (ls_ >= leader_count)
+        cond = validb[lvl] & (sstl_ >= sc_col) & (ls_ >= leader_count)
         key = torch.where(cond, sstl_, ibig)
-        mn = key.min()
+        mn = key.amin(dim=1, keepdim=True)
         pick = torch.argmin(torch.where(cond & (key == mn), lrank[lvl],
-                                        ibig))
-        return (placed_at(pick, count), placed_at(pick, leader_count),
-                scalar(OK), scalar(0))
+                                        ibig), dim=1)
+        return (placed_at(pick, count), placed_at(pick, scalar(
+            leader_count)), scalar(OK), scalar(0))
 
     def unconstrained_pick(lvl):
         """LeastFreeCapacity scan: the fullest single domain that fits
         (by slice_state; the leader consume can then underflow, which
         the reference reports as an accounting underflow)."""
         _, sst_, _, sstl_, ls_ = level_arrays(lvl)
-        cond = valid[lvl] & (sst_ >= slice_count)
-        pick = torch.argmin(torch.where(cond, lrank[lvl], ibig))
+        cond = validb[lvl] & (sst_ >= sc_col)
+        pick = torch.argmin(torch.where(cond, lrank[lvl], ibig), dim=1)
         if has_leader:
             ok = (at(sstl_, pick) >= slice_count) & (at(ls_, pick)
                                                      >= leader_count)
             status = torch.where(ok, scalar(OK), scalar(ERR_UNDERFLOW))
         else:
             status = scalar(OK)
-        return (placed_at(pick, count), placed_at(pick, leader_count),
-                status, scalar(0))
+        return (placed_at(pick, count), placed_at(pick, scalar(
+            leader_count)), status, scalar(0))
+
+    lead_flag = torch.full((B, 1), has_leader, dtype=torch.bool,
+                           device=dev)
 
     def greedy_pick(lvl):
         """Multi-domain greedy: the leader-capable pick first, then the
         rest re-sorted without the leader keys; one consume walk yields
         the same takes as the select+minimize pair."""
         st_, sst_, swl_, sstl_, ls_ = level_arrays(lvl)
-        nk = _normal_keys(st_, sst_, vrank[lvl], valid[lvl], unconstrained)
+        nk = _normal_keys(st_, sst_, vrankb[lvl], validb[lvl],
+                          unconstrained)
         if has_leader:
-            f0 = lperm[lvl][0]
+            f0 = lperm[lvl][:, 0]
             leader_bad = at(ls_, f0) <= 0
-            kf = (torch.arange(M, device=dev) != f0).long()
-            perm, _ = _rank_of((kf,) + nk, M)
+            kf = (torch.arange(M, device=dev)[None, :]
+                  != f0[:, None]).long()
+            perm, _ = _rank_of((kf,) + nk)
         else:
-            leader_bad = torch.tensor(False, device=dev)
-            perm, _ = _rank_of(nk, M)
-        validp = valid[lvl][perm]
+            leader_bad = torch.zeros(B, dtype=torch.bool, device=dev)
+            perm, _ = _rank_of(nk)
+        validp = validb[lvl].gather(1, perm)
         seg = (~validp).long()
         cnt_u, lead_u, seg_ok, _lok, consumed = _consume(
-            seg, sst_[perm], sstl_[perm], ls_[perm], lrank[lvl][perm],
-            scalar(slice_count).reshape(1),
-            torch.tensor([has_leader], device=dev),
-            nseg=1, unconstrained=unconstrained)
-        cnt = zeros.scatter(0, perm,
-                            torch.where(validp, cnt_u * slice_size, zeros))
-        lead = zeros.scatter(0, perm, torch.where(validp, lead_u, zeros))
+            seg, sst_.gather(1, perm), sstl_.gather(1, perm),
+            ls_.gather(1, perm), lrank[lvl].gather(1, perm), sc_col,
+            lead_flag, nseg=1, unconstrained=unconstrained)
+        cnt = zeros.scatter(1, perm, torch.where(
+            validp, cnt_u * slice_size[:, None], zeros))
+        lead = zeros.scatter(1, perm, torch.where(validp, lead_u, zeros))
         status = torch.where(
             leader_bad, scalar(ERR_NOT_FIT),
-            torch.where(seg_ok[0], scalar(OK), scalar(ERR_NOT_FIT)))
-        fit_arg = torch.where(leader_bad, scalar(0), consumed[0])
+            torch.where(seg_ok[:, 0], scalar(OK), scalar(ERR_NOT_FIT)))
+        fit_arg = torch.where(leader_bad, scalar(0), consumed[:, 0])
         return cnt, lead, status, fit_arg
 
     def choose(flag, a, b):
-        return tuple(torch.where(flag, x, y) for x, y in zip(a, b))
+        return tuple(torch.where(flag if x.dim() == 1 else flag[:, None],
+                                 x, y) for x, y in zip(a, b))
 
     def selection_at(lvl):
         if required:
@@ -451,40 +510,40 @@ def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
             return cnt, lead, status, fit_arg
         if unconstrained:
             _, sst_, _, _, _ = level_arrays(lvl)
-            found = torch.any(valid[lvl] & (sst_ >= slice_count))
+            found = torch.any(validb[lvl] & (sst_ >= sc_col), dim=1)
             return choose(found, unconstrained_pick(lvl), greedy_pick(lvl))
         # preferred
         if lvl == 0:
             return choose(topfit[lvl], single_pick(lvl), greedy_pick(lvl))
         return single_pick(lvl)
 
+    pos = torch.arange(M, **i64).expand(B, M)
+
     def pooled_step(lvl, cnt, lead):
         """First descent loop: children of all chosen domains pooled, one
         global sort + consume in slice units."""
         chosen = (cnt > 0) | (lead > 0)
-        cv = valid[lvl + 1]
-        par = torch.clamp(parent[lvl + 1], 0, M - 1)
-        elig = cv & chosen[par]
+        par = torch.clamp(parentb[lvl + 1], 0, M - 1)
+        elig = validb[lvl + 1] & chosen.gather(1, par)
         stc, sstc, swlc, sstlc, lsc = level_arrays(lvl + 1)
         if has_leader:
-            keys = _leader_keys(swlc, sstlc, lsc, vrank[lvl + 1], elig,
+            keys = _leader_keys(swlc, sstlc, lsc, vrankb[lvl + 1], elig,
                                 unconstrained)
         else:
-            keys = _normal_keys(stc, sstc, vrank[lvl + 1], elig,
+            keys = _normal_keys(stc, sstc, vrankb[lvl + 1], elig,
                                 unconstrained)
-        perm, _ = _rank_of(keys, M)
-        eligp = elig[perm]
+        perm, _ = _rank_of(keys)
+        eligp = elig.gather(1, perm)
         seg = (~eligp).long()
-        pos = torch.arange(M, **i64)
         cnt_u, lead_u, seg_ok, lok, _cons = _consume(
-            seg, sstc[perm], sstlc[perm], lsc[perm], pos,
-            scalar(slice_count).reshape(1),
-            torch.tensor([has_leader], device=dev),
-            nseg=1, unconstrained=unconstrained)
-        new_cnt = zeros.scatter(
-            0, perm, torch.where(eligp, cnt_u * slice_size, zeros))
-        new_lead = zeros.scatter(0, perm, torch.where(eligp, lead_u, zeros))
-        status = torch.where(seg_ok[0] & lok[0], scalar(OK),
+            seg, sstc.gather(1, perm), sstlc.gather(1, perm),
+            lsc.gather(1, perm), pos, sc_col, lead_flag, nseg=1,
+            unconstrained=unconstrained)
+        new_cnt = zeros.scatter(1, perm, torch.where(
+            eligp, cnt_u * slice_size[:, None], zeros))
+        new_lead = zeros.scatter(1, perm,
+                                 torch.where(eligp, lead_u, zeros))
+        status = torch.where(seg_ok[:, 0] & lok[:, 0], scalar(OK),
                              scalar(ERR_NOT_FIT))
         return new_cnt, new_lead, status, scalar(0)
 
@@ -493,13 +552,12 @@ def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
         pod units (balanced placement never runs here, so slices are
         already anchored)."""
         chosen = (cnt > 0) | (lead > 0)
-        cv = valid[lvl + 1]
-        par = torch.clamp(parent[lvl + 1], 0, M - 1)
-        elig = cv & chosen[par]
+        par = torch.clamp(parentb[lvl + 1], 0, M - 1)
+        elig = validb[lvl + 1] & chosen.gather(1, par)
         leadp_parent = lead > 0
-        child_lp = elig & leadp_parent[par]
+        child_lp = elig & leadp_parent.gather(1, par)
         stc, sstc, swlc, sstlc, lsc = level_arrays(lvl + 1)
-        vr = vrank[lvl + 1]
+        vr = vrankb[lvl + 1]
         if unconstrained:
             lk = (-lsc, sstlc, swlc, vr)
             nk = (sstc, stc, vr, zeros)
@@ -507,19 +565,19 @@ def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
             lk = (-lsc, -sstlc, swlc, vr)
             nk = (-sstc, stc, vr, zeros)
         ka = [torch.where(child_lp, a, b) for a, b in zip(lk, nk)]
-        pkey = torch.where(elig, parent[lvl + 1], M)
-        perm, _ = _rank_of((pkey,) + tuple(ka), M)
-        seg = pkey[perm]
-        pos = torch.arange(M, **i64)
+        pkey = torch.where(elig, parentb[lvl + 1], M)
+        perm, _ = _rank_of((pkey,) + tuple(ka))
+        seg = pkey.gather(1, perm)
         cnt_u, lead_u, seg_ok, lok, _cons = _consume(
-            seg, stc[perm], swlc[perm], lsc[perm], pos, cnt,
-            leadp_parent, nseg=M, unconstrained=unconstrained)
-        eligp = elig[perm]
-        new_cnt = zeros.scatter(0, perm, torch.where(eligp, cnt_u, zeros))
-        new_lead = zeros.scatter(0, perm,
+            seg, stc.gather(1, perm), swlc.gather(1, perm),
+            lsc.gather(1, perm), pos, cnt, leadp_parent, nseg=M,
+            unconstrained=unconstrained)
+        eligp = elig.gather(1, perm)
+        new_cnt = zeros.scatter(1, perm, torch.where(eligp, cnt_u, zeros))
+        new_lead = zeros.scatter(1, perm,
                                  torch.where(eligp, lead_u, zeros))
         bad = chosen & (~seg_ok | (leadp_parent & ~lok))
-        status = torch.where(torch.any(bad), scalar(ERR_UNDERFLOW),
+        status = torch.where(torch.any(bad, dim=1), scalar(ERR_UNDERFLOW),
                              scalar(OK))
         return new_cnt, new_lead, status, scalar(0)
 
@@ -550,6 +608,55 @@ def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
             cnt, lead, status, fit_arg = choose(
                 act, step, (cnt, lead, status, fit_arg))
     return status, fit_arg, cnt, lead
+
+
+def tas_place(free, usage, assumed, per_pod, leader_per_pod, leaf_mask,
+              has_pods_cap, valid, vrank, parent, count: int,
+              slice_size: int, *, num_levels: int, max_domains: int,
+              pods_col: int, req_level: int, slice_level: int,
+              required: bool, unconstrained: bool, has_leader: bool):
+    """findTopologyAssignment end to end on the device.
+
+    free/usage/assumed: int64[M, S] leaf-slot capacity state;
+    per_pod/leader_per_pod: int64[S]; leaf_mask/has_pods_cap: bool[M];
+    valid: bool[NL, M]; vrank: int64[NL, M] lexicographic value rank;
+    parent: int64[NL, M] parent slot at the level above.
+
+    Returns (status, fit_arg, cnt int64[M], lead int64[M]): status and
+    fit_arg are 0-d int64 tensors; cnt/lead are the per-leaf-slot worker
+    pod counts and leader placements. One row of ``_place_rows``."""
+    dev = free.device
+    status, fit_arg, cnt, lead = _place_rows(
+        free, usage, assumed, per_pod[None], leader_per_pod[None],
+        leaf_mask[None], has_pods_cap, valid, vrank, parent,
+        torch.tensor([count], dtype=torch.int64, device=dev),
+        torch.tensor([slice_size], dtype=torch.int64, device=dev),
+        num_levels=num_levels, max_domains=max_domains, pods_col=pods_col,
+        req_level=req_level, slice_level=slice_level, required=required,
+        unconstrained=unconstrained, has_leader=has_leader)
+    return status[0], fit_arg[0], cnt[0], lead[0]
+
+
+def tas_place_batch(free, usage, per_pod, leaf_mask, count, slice_size,
+                    has_pods_cap, valid, vrank, parent, *, num_levels: int,
+                    max_domains: int, pods_col: int, req_level: int,
+                    slice_level: int, required: bool,
+                    unconstrained: bool):
+    """tas_place for B leaderless head requests against one forest, as a
+    leading batch axis (the JAX package's vmap): all heads place against
+    the same usage, with no assumed usage.
+
+    free/usage: int64[M, S] shared; per_pod: int64[B, S];
+    leaf_mask: bool[B, M]; count/slice_size: int64[B]; the rest as in
+    tas_place. Returns (status int64[B], fit_arg int64[B],
+    cnt int64[B, M], lead int64[B, M])."""
+    return _place_rows(
+        free, usage, torch.zeros_like(usage), per_pod,
+        torch.zeros_like(per_pod), leaf_mask, has_pods_cap, valid, vrank,
+        parent, count, slice_size, num_levels=num_levels,
+        max_domains=max_domains, pods_col=pods_col, req_level=req_level,
+        slice_level=slice_level, required=required,
+        unconstrained=unconstrained, has_leader=False)
 
 
 def encode_tas_snapshot(tas_snap, resources: list[str]):

@@ -10,8 +10,9 @@ assume path the sequential scheduler uses.
 A cohort root runs on the device unless one of its member ClusterQueues
 needs the host this cycle: a head the dense path cannot encode, a
 flavor with taints, a namespace-selector mismatch, a closed preemption
-gate, or a preemption beyond the device preemptor (fair-sharing
-strategies, more than ``v_cap`` victims). Host roots go through the
+gate, a TAS head the batched planner cannot place (``tas-*`` reasons),
+or a preemption beyond the device preemptor (fair-sharing strategies,
+more than ``v_cap`` victims). Host roots go through the
 engine's sequential cycle in the same ``schedule_once`` call; roots
 never share quota, so device-then-host is cycle-equivalent.
 
@@ -21,11 +22,17 @@ plus one batched preemption simulation per (group, flavor, resource)
 cell (``ops/preempt.classical_targets``), folded through the host
 fungibility lattice, then committed through the cycle's slot overrides.
 
+TAS heads get their topology placements from the batched planner
+(``tas/batched.plan_cycle``) before the cycle program runs, and the
+device admits carrying one are re-checked in commit order
+(``tas/batched.commit_plan``); ``KUEUE_TPU_TAS_BATCH=0`` hands every
+root with a TAS flavor to the host instead.
+
 Differences from the JAX package's bridge: the cycle loop is serial (no
 speculative encode of the next cycle, which the JAX package holds
-decision-identical), there is no TAS planner (the port's engine refuses
-topologies) and no supervisor: an executor error propagates out of
-``schedule_once`` instead of turning the cycle into a host fallback.
+decision-identical) and there is no supervisor: an executor error (or a
+failed TAS launch) propagates out of ``schedule_once`` instead of
+turning the cycle into a host fallback.
 
 The module-level ``cq_policy_cfg``, ``adm_padded`` and ``slot_maybe``
 are the numpy argument helpers of the fused-preemption cycle.
@@ -222,10 +229,25 @@ class _CycleExit:
         self.value = value
 
 
-def _flavor_unsafe(rf) -> bool:
-    """A flavor whose workloads must take the host path: taints need the
-    host toleration matching."""
+def _flavor_taint_unsafe(rf) -> bool:
+    """A flavor whose workloads must take the host path regardless of
+    the batched TAS planner: taints need the host toleration
+    matching."""
     return rf is not None and bool(rf.node_taints)
+
+
+def _flavor_unsafe(rf) -> bool:
+    """The host-path predicate with the batched TAS planner off: taints
+    AND topologies demote. With the planner on, a topology alone no
+    longer demotes — tas/batched.plan_cycle nominates placements for TAS
+    heads inside the hybrid cycle and demotes per head only when a
+    request needs an unsupported TAS feature."""
+    return rf is not None and bool(rf.node_taints or rf.topology_name)
+
+
+def _flavor_predicate():
+    from kueue_tpu_torch.tas import batched as _tb
+    return _flavor_taint_unsafe if _tb.enabled() else _flavor_unsafe
 
 
 class OracleBridge:
@@ -243,6 +265,13 @@ class OracleBridge:
         self.host_root_reasons: dict[str, int] = {}
         # CRC-32 of the last device cycle's raw verdict arrays.
         self.last_verdict_digest: Optional[int] = None
+        # Batched-TAS planner accounting: per-phase totals and the
+        # heads-per-launch histogram of tas_place_batch.
+        self.tas_stats: dict[str, float] = {
+            "plan_cycles": 0, "heads_planned": 0, "placed_device": 0,
+            "placed_host": 0, "memo_hits": 0, "commit_drops": 0,
+            "encode_s": 0.0, "place_s": 0.0, "decode_s": 0.0}
+        self.tas_heads_per_launch: dict[int, int] = {}
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a),
@@ -252,6 +281,7 @@ class OracleBridge:
         """False when every ClusterQueue with pending work has a flavor
         that demotes to the host (every root would demote)."""
         eng = self.engine
+        unsafe = _flavor_predicate()
         any_safe = False
         any_pending = False
         for name, pcq in eng.queues.cluster_queues.items():
@@ -261,7 +291,7 @@ class OracleBridge:
             cq = eng.cache.cluster_queues.get(name)
             if cq is None:
                 continue
-            if not any(_flavor_unsafe(eng.cache.resource_flavors.get(fq.name))
+            if not any(unsafe(eng.cache.resource_flavors.get(fq.name))
                        for rg in cq.resource_groups
                        for fq in rg.flavors):
                 any_safe = True
@@ -335,15 +365,37 @@ class OracleBridge:
         return cached[1]
 
     def _cq_flavor_safe(self, w) -> np.ndarray:
-        """bool[C]: none of the CQ's flavors demotes to the host."""
+        """bool[C]: none of the CQ's flavors demotes to the host. With
+        the batched TAS planner on, only taints demote here;
+        topology-carrying CQs stay and get their placements from
+        tas/batched.plan_cycle (which applies its own per-head demotion
+        matrix)."""
         eng = self.engine
+        unsafe = _flavor_predicate()
         safe = np.ones(w.num_cqs, bool)
         for ci, name in enumerate(w.cq_names):
             spec = eng.cache.cluster_queues[name]
             safe[ci] = not any(
-                _flavor_unsafe(eng.cache.resource_flavors.get(fq.name))
+                unsafe(eng.cache.resource_flavors.get(fq.name))
                 for rg in spec.resource_groups for fq in rg.flavors)
         return safe
+
+    def _cq_tas_mask(self, w):
+        """bool[C] mask of CQs referencing at least one TAS flavor, or
+        None when the world has none (the common case — skips the
+        whole TAS planning block). Memoized by spec version."""
+        cached = getattr(self, "_tas_mask_cache", None)
+        ver = self.engine.cache.spec_version
+        if cached is None or cached[0] != ver:
+            from kueue_tpu_torch.tas import batched as _tb
+            info = _tb.cq_tas_info(self.engine.cache)
+            mask = np.zeros(w.num_cqs, bool)
+            for ci, name in enumerate(w.cq_names):
+                if name in info:
+                    mask[ci] = True
+            cached = (ver, mask if mask.any() else None)
+            self._tas_mask_cache = cached
+        return cached[1]
 
     def _cq_policy_cfg(self, w):
         """cq_policy_cfg of the live specs, with device copies under
@@ -696,10 +748,26 @@ class OracleBridge:
         enc.out = self.executor.cycle_step(enc.inputs, enc.statics)
         return self._commit_cycle(enc, t0, t_encode)
 
+    def _commit_tas_stats(self, tas_plan) -> None:
+        st = self.tas_stats
+        st["plan_cycles"] += 1
+        st["heads_planned"] += len(tas_plan.placements) + sum(
+            len(v) for v in tas_plan.demote.values())
+        st["placed_device"] += tas_plan.placed_device
+        st["placed_host"] += tas_plan.placed_host
+        st["memo_hits"] += tas_plan.memo_hits
+        st["encode_s"] += tas_plan.timings["encode"]
+        st["place_s"] += tas_plan.timings["place"]
+        st["decode_s"] += tas_plan.timings["decode"]
+        for n in tas_plan.launch_sizes:
+            self.tas_heads_per_launch[n] = \
+                self.tas_heads_per_launch.get(n, 0) + 1
+
     def _encode_cycle(self):
         """The encode phase: world + row tensors, head selection with
-        hold-back, per-root host/device partitioning, the sim-augmented
-        multi-flavor nomination, and the cycle's device inputs. Returns
+        hold-back, per-root host/device partitioning, batched TAS
+        nomination, the sim-augmented multi-flavor nomination, and the
+        cycle's device inputs. Returns
         the encoded cycle for _commit_cycle, or a _CycleExit."""
         eng = self.engine
         now = eng.clock
@@ -785,6 +853,58 @@ class OracleBridge:
             if pending_infos[head_wid[ci]].obj.has_closed_preemption_gate():
                 gated[ci] = True
         demote(gated, "preemption-gated")
+
+        # --- batched TAS planning (tas/batched.py) ---
+        # Nominate a topology assignment for every device-eligible TAS
+        # head BEFORE the cycle program launches; heads needing an
+        # unsupported TAS feature (or whose placement fails) demote
+        # only their root. With the planner off (KUEUE_TPU_TAS_BATCH=0)
+        # _cq_flavor_safe already demoted every TAS CQ above.
+        from kueue_tpu_torch.tas import batched as _tb
+        tas_plan = None
+        tas_cq = None
+        t_tas0 = time.perf_counter()
+        if _tb.enabled():
+            tas_cq = self._cq_tas_mask(w)
+            # The serving rows keep topology heads device-eligible on
+            # the planner's behalf (schema.serving_shape_eligible); a
+            # topology head on a CQ with no TAS flavor can't be placed
+            # by anyone — the host path owns its inadmissible verdict.
+            topo = np.zeros(C, bool)
+            for ci in np.nonzero(has_head)[0]:
+                inf = pending_infos[head_wid[ci]]
+                h = getattr(inf, "_has_topo_req", None)
+                if h is None:
+                    h = any(ps.topology_request is not None
+                            for ps in inf.obj.pod_sets)
+                    inf._has_topo_req = h
+                topo[ci] = h
+            demote(topo if tas_cq is None else (topo & ~tas_cq),
+                   "tas-flavor-mismatch")
+        if tas_cq is not None:
+            # Preemption-enabled TAS CQs: the host owns the
+            # PREEMPT -> simulate-empty ladder AND the sim grid never
+            # sees TAS flavors (pre-demoting keeps sim_cq clean).
+            demote(has_head & tas_cq & ~w.no_preemption,
+                   "tas-preemption")
+            need = has_head & tas_cq & ~host_root[root_of_cq]
+            if need.any():
+                tas_plan = _tb.plan_cycle(eng, w, head_wid, need)
+                for reason, cis in sorted(tas_plan.demote.items()):
+                    m = np.zeros(C, bool)
+                    m[cis] = True
+                    demote(m, reason)
+                # Shared-forest closure: forests also committed by
+                # host-root TAS heads must serialize through one path.
+                closed = _tb.closure_demotions(
+                    tas_plan, _tb.cq_tas_info(eng.cache), w, has_head,
+                    tas_cq, host_root)
+                if closed:
+                    m = np.zeros(C, bool)
+                    m[closed] = True
+                    demote(m, "tas-forest-shared")
+                self._commit_tas_stats(tas_plan)
+        t_tas = time.perf_counter() - t_tas0
         cq_on_device = ~host_root[root_of_cq]
 
         # Multi-flavor groups on preemption-enabled CQs: the flavor
@@ -939,12 +1059,16 @@ class OracleBridge:
             cq_safe_idx=cq_safe_idx, device_w=device_w,
             cq_on_device=cq_on_device, host_root=host_root,
             root_of_cq=root_of_cq, has_head=has_head, fused=fused,
-            admitted=admitted, preempt_targets=preempt_targets)
+            admitted=admitted, preempt_targets=preempt_targets,
+            tas_plan=tas_plan, t_tas=t_tas)
 
     def _commit_cycle(self, enc, t0: float,
                       t_encode: float) -> Optional[CycleResult]:
-        """Commit a device cycle: the verdicts through the engine's
-        assume path, then status finalization, then the host tail."""
+        """Commit a device cycle: the TAS commit-order re-check, the
+        verdicts through the engine's assume path, then status
+        finalization, then the host tail."""
+        from kueue_tpu_torch.tas import batched as _tb
+
         eng = self.engine
         w, wl, out = enc.w, enc.wl, enc.out
         pending_infos = enc.pending_infos
@@ -1013,12 +1137,50 @@ class OracleBridge:
             vd = zlib.crc32(np.ascontiguousarray(arr).tobytes(), vd)
         self.last_verdict_digest = vd
 
+        # Commit-order re-check for planned TAS admits: serialize them
+        # through the overlay (tas/batched.commit_plan); a nominated
+        # placement beaten to its leaves by an earlier slot DROPS its
+        # admit verdict — the batched form of the sequential commit
+        # skip. Dropped rows were never popped, so they simply stay
+        # pending for the next cycle.
+        tas_plan = enc.tas_plan
+        tas_attach = None
+        tas_drops: list = []
+        if tas_plan is not None and tas_plan.placements:
+            for _round in range(C + 1):
+                tas_attach, tas_drops, demote_cis = _tb.commit_plan(
+                    eng, w, wl, tas_plan, wl_admitted, slot_position,
+                    flavor_of_res, cq_on_device, W)
+                if not demote_cis:
+                    break
+                # A drop on a multi-CQ root invalidates the root's
+                # later quota verdicts; the host re-runs the root.
+                m = np.zeros(C, bool)
+                m[demote_cis] = True
+                demote(m, "tas-commit-conflict")
+                cq_on_device = ~host_root[root_of_cq]
+            if tas_drops:
+                self.tas_stats["commit_drops"] += len(tas_drops)
+                wl_admitted = wl_admitted.copy()
+                wl_admitted[tas_drops] = False
+
         apply_rows = device_w & cq_on_device[cq_safe_idx]
         result, finalize = self._apply(
             w, wl, pending_infos, wl_admitted, new_inadmissible,
             slot_position, flavor_of_res, apply_rows=apply_rows,
             slot_mask=cq_on_device, slot_preempting=slot_preempting,
-            head_idx=head_idx, preempt_targets=preempt_targets)
+            head_idx=head_idx, preempt_targets=preempt_targets,
+            tas_attach=tas_attach)
+        for i in tas_drops:
+            # Sequential stats/entry parity for commit skips
+            # (_process_entry's "no longer fits" verdict).
+            e = Entry(info=pending_infos[i])
+            e.status = EntryStatus.SKIPPED
+            e.inadmissible_msg = (
+                "Workload no longer fits after processing another "
+                "workload")
+            result.entries.append(e)
+            result.stats.skipped += 1
         t_apply = time.perf_counter()
         finalize()
         # Phase accounting: encode (snapshot + tensorize + the sim
@@ -1027,7 +1189,8 @@ class OracleBridge:
         t_final = time.perf_counter()
         eng.last_cycle_phases = {
             "encode": t_encode - t0, "device": t_device - t_encode,
-            "apply": t_apply - t_device, "finalize": t_final - t_apply}
+            "apply": t_apply - t_device, "finalize": t_final - t_apply,
+            "tas_place": enc.t_tas}
 
         # --- host tail: sequential cycle over the host roots ---
         eng.last_cycle_mode = "device"
@@ -1061,7 +1224,7 @@ class OracleBridge:
     def _apply(self, w, wls, pending_infos, wl_admitted, parked,
                slot_position, flavor_of_res, apply_rows=None,
                slot_mask=None, slot_preempting=None,
-               head_idx=None, preempt_targets=None):
+               head_idx=None, preempt_targets=None, tas_attach=None):
         """Apply verdicts through the engine's assume path. Rows outside
         ``apply_rows`` / slots outside ``slot_mask`` belong to host roots
         and are left untouched (the sequential tail owns them).
@@ -1105,7 +1268,7 @@ class OracleBridge:
                 parked_of_slot, pending_infos, w, wls,
                 flavor_of_res, slot_position,
                 slot_preempting, head_idx, preempt_targets,
-                eng, bulk, result)
+                eng, bulk, result, tas_attach=tas_attach)
         finally:
             eng._deferred_cohort_requeue = None
 
@@ -1118,7 +1281,7 @@ class OracleBridge:
     def _apply_slots(self, nominate_order, slot_mask, admit_of_slot,
                      parked_of_slot, pending_infos, w, wls, flavor_of_res,
                      slot_position, slot_preempting, head_idx,
-                     preempt_targets, eng, bulk, result):
+                     preempt_targets, eng, bulk, result, tas_attach=None):
         admits = []
         # The per-slot loop reads its verdict columns through plain
         # Python lists, and the assignment-flyweight key bytes for all
@@ -1138,6 +1301,8 @@ class OracleBridge:
                 info = pending_infos[i]
                 entry = self._make_entry(
                     info, w, wls, flavor_of_res, i,
+                    topo=None if tas_attach is None
+                    else tas_attach.get(i),
                     fbytes=fb_all[ci * fb_stride:(ci + 1) * fb_stride],
                     ci=ci)
                 entry.status = EntryStatus.ASSUMED
@@ -1189,10 +1354,12 @@ class OracleBridge:
         return eng.bulk_assume_batch(admits, bulk)
 
     def _make_entry(self, info, w, wls, flavor_of_res, i,
-                    fbytes=None, ci=None) -> Entry:
+                    topo=None, fbytes=None, ci=None) -> Entry:
         """Entry for an admitted verdict row. Assignments are flyweights:
         rows with equal scheduling-equivalence hash (less its ClusterQueue)
-        and equal slot flavor picks share one immutable Assignment.
+        and equal slot flavor picks share one immutable Assignment. TAS
+        admits carry a per-admission topology assignment (``topo``) and
+        bypass the flyweight both ways.
 
         ``flavor_of_res[ci]`` is [P, S]: one PodSetAssignment per real
         pod set (flavorassigner.go:707)."""
@@ -1208,7 +1375,7 @@ class OracleBridge:
             fbytes = flavor_of_res[ci].tobytes()
         h = rows._hash_tuple[i]
         key = (h[1:] if h is not None else None, fbytes)
-        if h is not None:
+        if topo is None and h is not None:
             cached = cache[1].get(key)
             if cached is not None:
                 return Entry(info=info, assignment=cached)
@@ -1227,8 +1394,9 @@ class OracleBridge:
             pod_sets.append(PodSetAssignment(
                 name=psr.name, flavors=flavors,
                 requests=dict(psr.requests), count=psr.count,
-                topology_assignment=None))
+                topology_assignment=None if topo is None
+                else topo.get(psr.name)))
         assignment = Assignment(pod_sets=pod_sets, usage=usage)
-        if h is not None:
+        if topo is None and h is not None:
             cache[1][key] = assignment
         return Entry(info=info, assignment=assignment)

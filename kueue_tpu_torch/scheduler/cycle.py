@@ -1,7 +1,9 @@
 """One scheduling cycle: nominate → order → commit.
 
-Copied from ``kueue_tpu/scheduler/cycle.py`` without the TAS passes
-(topology requests and TAS flavors raise NotImplementedError here).
+Copied from ``kueue_tpu/scheduler/cycle.py``, with its TAS passes: the
+batched feasibility pre-pass at nomination, the topology placement of
+each assignment (``tas/assigner.apply_tas_pass``) and the TAS domain
+capacity in the commit's fits check.
 
 Sequential correctness-oracle implementation of the reference's
 pkg/scheduler/scheduler.go:286 (schedule) and
@@ -161,6 +163,13 @@ class SchedulerCycle:
     def _nominate(self, heads: list[WorkloadInfo], snapshot: Snapshot,
                   result: CycleResult, already_admitted: set[str],
                   now: float) -> list[Entry]:
+        from kueue_tpu_torch.tas import feasibility
+
+        # One batched launch per TAS forest decides fit/no-fit for every
+        # qualifying head before the per-entry walk; apply_tas_pass
+        # consults the verdicts and skips the sequential descent for
+        # provably-unplaceable entries.
+        feasibility.precompute(heads, snapshot)
         entries: list[Entry] = []
         for w in heads:
             e = Entry(info=w)
@@ -204,6 +213,8 @@ class SchedulerCycle:
     def _get_assignments(self, wl: WorkloadInfo, snapshot: Snapshot,
                          now: float) -> tuple[Assignment, list[Target]]:
         """scheduler.go:733,762 (getAssignments / getInitialAssignments)."""
+        from kueue_tpu_torch.tas.assigner import apply_tas_pass
+
         cq = snapshot.cluster_queue(wl.cluster_queue)
         oracle = Oracle(self.preemptor, snapshot, now)
 
@@ -231,7 +242,7 @@ class SchedulerCycle:
                 enable_fair_sharing=self.enable_fair_sharing, oracle=oracle,
                 preempt_workload_slice=old_info)
             full = assigner.assign()
-            _no_tas(wl, cq)
+            apply_tas_pass(full, wl, cq, previous_slice=old_info)
         finally:
             if revert_slice is not None:
                 revert_slice()
@@ -245,6 +256,8 @@ class SchedulerCycle:
         if wl.obj.can_be_partially_admitted():
             def try_counts(counts):
                 assignment = assigner.assign(counts)
+                apply_tas_pass(assignment, wl, cq,
+                               previous_slice=old_info)
                 m = assignment.representative_mode()
                 if m == Mode.FIT:
                     return (assignment, []), True
@@ -310,9 +323,12 @@ class SchedulerCycle:
                 result.stats.preemption_skips.get(cq.name, 0) + 1
             return
 
+        from kueue_tpu_torch.tas.assigner import tas_usage_of_assignment
+
         usage = e.assignment_usage()
+        tas_usage = tas_usage_of_assignment(e.assignment, e.info, cq)
         if not self._fits(snapshot, cq, usage, preempted_workloads,
-                          e.preemption_targets):
+                          e.preemption_targets, tas_usage):
             e.status = EntryStatus.SKIPPED
             e.inadmissible_msg = (
                 "Workload no longer fits after processing another workload")
@@ -324,6 +340,8 @@ class SchedulerCycle:
         for t in e.preemption_targets:
             preempted_workloads[t.workload.key] = t.workload
         cq.add_usage(usage)
+        for flavor, values, single, count in tas_usage:
+            cq.tas_flavors[flavor].add_usage(values, single, count)
 
         if mode == Mode.PREEMPT:
             e.status = EntryStatus.PREEMPTING
@@ -337,13 +355,20 @@ class SchedulerCycle:
     def _fits(snapshot: Snapshot, cq: ClusterQueueSnapshot,
               usage: dict[FlavorResource, int],
               preempted_workloads: dict[str, WorkloadInfo],
-              targets: list[Target]) -> bool:
-        """scheduler.go:680 (fits)."""
+              targets: list[Target], tas_usage=()) -> bool:
+        """scheduler.go:680 (fits), incl. the TAS domain capacity check
+        (clusterqueue_snapshot.go:143-150)."""
         to_remove = list(preempted_workloads.values()) + [
             t.workload for t in targets]
         revert = snapshot.simulate_workload_removal(to_remove)
         try:
-            return cq.fits(usage)
+            if not cq.fits(usage):
+                return False
+            for flavor, values, single, count in tas_usage:
+                if not cq.tas_flavors[flavor].fits([(values, single,
+                                                     count)]):
+                    return False
+            return True
         finally:
             revert()
 
@@ -366,15 +391,6 @@ class SchedulerCycle:
                 reserved[fr] = max(0, min(usage,
                                           sat_sub(quota.nominal, cq_usage)))
         return reserved
-
-
-def _no_tas(wl: WorkloadInfo, cq: ClusterQueueSnapshot) -> None:
-    """The port's host cycle has no topology pass: a workload that would
-    take one raises instead of being decided without it."""
-    if cq.tas_flavors or any(ps.topology_request is not None
-                             for ps in wl.obj.pod_sets):
-        raise NotImplementedError(
-            "topology-aware scheduling in the engine is not ported")
 
 
 def _classical_key(e: Entry):

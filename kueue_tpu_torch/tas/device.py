@@ -1,24 +1,28 @@
 """Device TAS: the serving-path adapter for ``ops/tas.tas_place``.
 
 The port of ``kueue_tpu/tas/device.py``.
-``TASFlavorSnapshot.find_topology_assignments`` dispatches here. The
-adapter:
+``TASFlavorSnapshot.find_topology_assignments`` dispatches here when
+``worth_offloading`` says so; the sequential host descent in
+``tas/snapshot.py`` places otherwise. The adapter:
 
   * encodes the topology forest once per structure change (slots sorted
     by values per level, parent pointers, value ranks), cached on the
-    snapshot keyed by its structure version;
+    snapshot keyed by its structure version; a fork
+    (``TASFlavorSnapshot.fork``) remaps its prototype's encoding instead
+    of rebuilding it;
   * gathers the per-call leaf capacity state (free / TAS usage / assumed
     usage), the pod set's resource vectors, and the selector /
     replacement-domain leaf mask;
   * runs the placement program on the snapshot's device and renders the
-    reference's failure strings from its status codes.
+    reference's failure strings from its status codes;
+  * computes the host descent's leaderless phase 1 as numpy reductions
+    over the same leaf matrices (``fill_in_counts_np``).
 
-Corners the program does not take raise ``NotImplementedError``: leader
-co-placement, elastic delta placement, balanced placement (preferred
-mode under the TASBalancedPlacement gate), multi-layer slices,
-BestFit-unconstrained (TASProfileMixed off) and level-less topologies.
-The JAX package handles those on its sequential host path, which the
-port does not have.
+``try_find`` returns ``NotImplemented`` on the corners the program does
+not take, as the reference does, and the host descent places them:
+leader co-placement, elastic delta placement, balanced placement,
+multi-layer slices, BestFit-unconstrained (TASProfileMixed off) and
+level-less topologies.
 """
 
 from __future__ import annotations
@@ -31,12 +35,63 @@ from kueue_tpu_torch.config import features
 _VRANK_PAD = 1 << 40
 
 
+def worth_offloading(snap) -> bool:
+    """True when per-placement device offload is enabled for this
+    forest. KUEUE_TPU_DEVICE_TAS_MIN, when set, is an explicit leaf
+    threshold (0 = always offload); otherwise the decision comes from
+    the persisted crossover calibration, and with no calibration the
+    host path wins (the pre-measurement default). Memoized per
+    (structure version, env override) — the batched planner asks once
+    per placement group per cycle."""
+    import os
+
+    from kueue_tpu_torch.tas import calibration
+
+    if not snap.level_keys:
+        return False
+    override = os.environ.get("KUEUE_TPU_DEVICE_TAS_MIN")
+    key = (snap._version, override, calibration.generation)
+    cached = snap._worth_memo
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    nl = len(snap.level_keys)
+    if override is not None:
+        try:
+            threshold = int(override)
+        except ValueError:
+            snap._worth_memo = (key, False)
+            return False
+        out = len(snap.domains_per_level[nl - 1]) >= threshold
+        snap._worth_memo = (key, out)
+        return out
+    out = calibration.device_placement_wins(snap)
+    snap._worth_memo = (key, out)
+    return out
+
+
 def _structure(snap):
     """Padded per-level slot arrays for the snapshot's forest, cached by
     the snapshot's structure version."""
     cached = snap._device_struct
-    if cached is not None and cached["version"] == snap._version:
+    version = snap._version
+    if cached is not None and cached["version"] == version:
         return cached
+    # Forked snapshots (TASFlavorSnapshot.fork) share the prototype's
+    # structure: remap the domain-object lists onto the fork's clones
+    # and reuse every array and device tensor (same shapes, same slot
+    # order). The struct is built on the prototype, so every later fork
+    # shares it instead of re-encoding and re-uploading the forest.
+    donor = snap._struct_donor
+    if donor is not None:
+        donor_struct = _structure(donor)
+        if donor_struct["version"] == version:
+            level_domains = [[snap.domains[d.values] for d in doms]
+                             for doms in donor_struct["level_domains"]]
+            cached = dict(donor_struct, level_domains=level_domains,
+                          leaves=(level_domains[-1] if level_domains
+                                  else []))
+            snap._device_struct = cached
+            return cached
     nl = len(snap.level_keys)
     level_domains = [
         sorted(snap.domains_per_level[lvl].values(),
@@ -61,7 +116,7 @@ def _structure(snap):
     has_pods_cap = np.zeros(mp, bool)
     for i, leaf in enumerate(leaves):
         has_pods_cap[i] = "pods" in leaf.free_capacity
-    cached = dict(version=snap._version, nl=nl, m=mp,
+    cached = dict(version=version, nl=nl, m=mp,
                   level_domains=level_domains, leaves=leaves,
                   slot_of_leaf_values={d.values: i
                                        for i, d in enumerate(leaves)},
@@ -142,6 +197,115 @@ def _usage_matrix(snap, struct, cols: list[str]) -> np.ndarray:
     return usage
 
 
+def fill_in_counts_np(snap, pod_set, per_pod: dict, slice_size: int,
+                      slice_level_idx: int, simulate_empty: bool,
+                      assumed_usage: dict,
+                      required_replacement_domain: tuple,
+                      excluded: dict = None,
+                      slice_size_at_level: dict = None) -> bool:
+    """Vectorized phase-1 (fillInCounts, tas_flavor_snapshot.go:1750)
+    for the NO-LEADER case: compute per-domain fit counts as numpy
+    reductions over the cached leaf matrices and write them back into
+    the domain objects the host phase-2 descent reads. Runs on the host
+    CPU — at small forest sizes dispatching a device program per
+    placement costs more than the whole computation, but the dense
+    encoding still beats the per-leaf dict walk by ~10x. Returns False
+    when the world is unsupported (leaders are bubbled with min-diff
+    tracking on the Python path; multi-layer inner slice rounding
+    stays on the host bubble)."""
+    if not snap.level_keys:
+        return False
+    if slice_size_at_level:
+        return False
+    struct = _structure(snap)
+    nl = struct["nl"]
+    mp = struct["m"]
+    leaves = struct["leaves"]
+    if not leaves:
+        return False
+    cols = _cols_for(struct, per_pod, {})
+    col_of = {res: i for i, res in enumerate(cols)}
+    free = _free_matrix(struct, cols)
+    if simulate_empty:
+        remaining = free.astype(np.int64, copy=True)
+    else:
+        remaining = free - _usage_matrix(snap, struct, cols)
+        if assumed_usage:
+            slot_of_leaf = {leaf.id: i for i, leaf in enumerate(leaves)}
+            for leaf_id, used in assumed_usage.items():
+                i = slot_of_leaf.get(leaf_id)
+                if i is None:
+                    continue
+                for res, v in used.items():
+                    ci = col_of.get(res)
+                    if ci is not None:
+                        remaining[i, ci] -= v
+    remaining = np.maximum(remaining, 0)
+
+    # Per-leaf pod counts: min over requested resources of
+    # remaining // need; "pods" is unconstrained for leaves without
+    # explicit pod capacity (fillLeafCounts :1864).
+    BIG = np.int64(1) << 60
+    counts = np.full(mp, BIG, np.int64)
+    applied = np.zeros(mp, bool)
+    pods_cap = struct["has_pods_cap"]
+    for res, need in per_pod.items():
+        if need <= 0:
+            continue
+        ci = col_of[res]
+        c = remaining[:, ci] // need
+        if res == "pods":
+            c = np.where(pods_cap, c, BIG)
+            applied |= pods_cap
+        else:
+            applied[:] = True
+        counts = np.minimum(counts, c)
+    counts = np.where(applied, counts, 0)
+    counts[~struct["valid"][nl - 1]] = 0
+
+    # matchNode exclusions (taints / selectors / affinity, precomputed
+    # by snapshot._match_excluded) + replacement-domain filtering.
+    rrd = tuple(required_replacement_domain or ())
+    if rrd or excluded:
+        excluded = excluded or {}
+        for i, leaf in enumerate(leaves):
+            if rrd and leaf.values[:len(rrd)] != rrd:
+                counts[i] = 0
+            elif leaf.values in excluded:
+                counts[i] = 0
+
+    # Bottom-up aggregation (fillInCountsHelper :1906, no-leader form:
+    # state_with_leader == state, leader_state == 0 throughout).
+    state = np.zeros((nl, mp), np.int64)
+    state[nl - 1] = counts
+    for lvl in range(nl - 2, -1, -1):
+        child_valid = struct["valid"][lvl + 1]
+        np.add.at(state[lvl], struct["parent"][lvl + 1][child_valid],
+                  state[lvl + 1][child_valid])
+    slices = np.zeros((nl, mp), np.int64)
+    for lvl in range(nl - 1, -1, -1):
+        if lvl == slice_level_idx:
+            slices[lvl] = state[lvl] // slice_size
+        elif lvl < slice_level_idx and lvl < nl - 1:
+            child_valid = struct["valid"][lvl + 1]
+            np.add.at(slices[lvl],
+                      struct["parent"][lvl + 1][child_valid],
+                      slices[lvl + 1][child_valid])
+
+    for lvl, doms in enumerate(struct["level_domains"]):
+        s = state[lvl].tolist()  # bulk int conversion beats per-item
+        sl = slices[lvl].tolist()
+        for i, d in enumerate(doms):
+            si = s[i]
+            sli = sl[i]
+            d.state = si
+            d.slice_state = sli
+            d.state_with_leader = si
+            d.slice_state_with_leader = sli
+            d.leader_state = 0
+    return True
+
+
 def _forest_tensors(snap, struct):
     """(has_pods_cap, valid, vrank, parent) on the snapshot's device,
     moved once per structure version."""
@@ -188,8 +352,9 @@ def _usage_tensor(snap, struct, cols: list[str], usage: np.ndarray):
 def try_find(snap, workers, leader=None, simulate_empty=False,
              assumed_usage=None, required_replacement_domain=()):
     """Device findTopologyAssignment. Returns ({pod_set_name:
-    assignment}, "") or (None, failure_reason); raises
-    NotImplementedError on a corner the device program does not take."""
+    assignment}, "") or (None, failure_reason), or NotImplemented on a
+    corner the device program does not take (the host descent places
+    those)."""
     from kueue_tpu_torch.ops import tas as tops
     from kueue_tpu_torch.tas.snapshot import (
         TopologyAssignment,
@@ -197,11 +362,11 @@ def try_find(snap, workers, leader=None, simulate_empty=False,
     )
 
     if not snap.level_keys:
-        raise NotImplementedError("TAS placement needs topology levels")
+        return NotImplemented
     if getattr(workers, "previous_assignment", None) is not None:
-        raise NotImplementedError("elastic delta placement is not ported")
+        return NotImplemented  # elastic delta placement
     if leader is not None:
-        raise NotImplementedError("leader co-placement is not ported")
+        return NotImplemented  # leader co-placement
     count = workers.count
     state, reason = snap.resolve_request(workers, False)
     if state is None:
@@ -210,13 +375,13 @@ def try_find(snap, workers, leader=None, simulate_empty=False,
     unconstrained = state.unconstrained
     if (features.enabled("TASBalancedPlacement") and not required
             and not unconstrained):
-        raise NotImplementedError("balanced placement is not ported")
+        return NotImplemented  # balanced placement
     if state.slice_size_at_level:
-        raise NotImplementedError("multi-layer slice placement is not "
-                                  "ported")
+        return NotImplemented  # multi-layer slice rounding
     if state.least_free != state.unconstrained:
-        raise NotImplementedError("BestFit-unconstrained placement is not "
-                                  "ported")
+        # TASProfileMixed off: the program's unconstrained branches
+        # encode the LeastFreeCapacity profile.
+        return NotImplemented
     slice_size = state.slice_size
     req_idx = state.requested_level_idx
     slice_idx = state.slice_level_idx
@@ -273,6 +438,7 @@ def try_find(snap, workers, leader=None, simulate_empty=False,
     else:
         t_mask = t_valid[struct["nl"] - 1]
 
+    snap.device_placements += 1
     status, fit_arg, cnt, lead = tops.tas_place(
         _free_tensor(snap, struct, cols), t_usage, t_assumed,
         torch.as_tensor(_req_vector(per_pod, cols), device=dev),

@@ -20,12 +20,16 @@ The live-usage verdict holds only while no TAS usage was removed from
 the forest since the batch ran (``used_valid``); the simulate-empty
 verdict holds whatever the usage.
 
-A failed launch raises: the port has no per-request host path to fall
-back to.
+``precompute`` runs the launches for a scheduling cycle's heads (the
+host cycle's nomination calls it), gated by ``KUEUE_TPU_TAS_FEAS``,
+``KUEUE_TPU_TAS_FEAS_MIN`` and ``KUEUE_TPU_TAS_FEAS_MIN_LEAVES`` as in
+the reference. A failed launch raises out of the cycle: the port does
+not turn it into a silent per-request fallback.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,6 +40,10 @@ from kueue_tpu_torch.config import features
 
 _MODE_NUM = {TopologyMode.REQUIRED: 0, TopologyMode.PREFERRED: 1,
              TopologyMode.UNCONSTRAINED: 2}
+
+
+def enabled() -> bool:
+    return os.environ.get("KUEUE_TPU_TAS_FEAS", "1") != "0"
 
 
 @dataclass(frozen=True)
@@ -84,6 +92,62 @@ def _qualify(snap, pod_set, single, count):
     return (state.slice_level_idx, state.requested_level_idx,
             2 if state.unconstrained else mode, state.slice_size,
             frozenset(excluded))
+
+
+def collect_requests(wl, cq_snapshot):
+    """(snap, sig, pod_set, single, count, params) tuples for every
+    (TAS flavor x pod set) pair of a pending head that the batch can
+    decide. The assigned flavor is not known before flavor assignment,
+    so every candidate TAS flavor of the CQ is covered."""
+    if wl.obj.replaced_workload_slice is not None:
+        return []
+    if getattr(wl.obj.status, "unhealthy_nodes", ()):
+        return []
+    out = []
+    # Identity dedup in tas_flavors insertion order: several flavor
+    # names can share a forest, and set() iteration order would vary
+    # run to run (launch order feeds the decision stream).
+    for snap in {id(s): s for s in
+                 cq_snapshot.tas_flavors.values()}.values():
+        for i, ps in enumerate(wl.obj.pod_sets):
+            single = wl.total_requests[i].single_pod_requests()
+            params = _qualify(snap, ps, single, ps.count)
+            if params is None:
+                continue
+            sig = request_signature(ps, single, ps.count)
+            out.append((snap, sig, ps, single, ps.count, params))
+    return out
+
+
+def precompute(heads, snapshot) -> None:
+    """Run one feasibility launch per flavor forest for the cycle's
+    pending heads and park the verdicts on each snap (``_feas`` /
+    ``_feas_removals``). Below ``KUEUE_TPU_TAS_FEAS_MIN`` (default 12)
+    qualifying head requests, or ``KUEUE_TPU_TAS_FEAS_MIN_LEAVES``
+    (default 2048) leaves, a forest gets no launch: the instance count
+    counts request instances, not distinct signatures, because the
+    savings scale with the retries. A failed launch raises."""
+    if not enabled():
+        return
+    min_batch = int(os.environ.get("KUEUE_TPU_TAS_FEAS_MIN", "12"))
+    min_leaves = int(os.environ.get("KUEUE_TPU_TAS_FEAS_MIN_LEAVES",
+                                    "2048"))
+    by_snap: dict[int, tuple[object, dict, list[int]]] = {}
+    for w in heads:
+        cqs = snapshot.cluster_queue(w.cluster_queue)
+        if cqs is None or not cqs.tas_flavors:
+            continue
+        for snap, sig, ps, single, count, params in \
+                collect_requests(w, cqs):
+            if len(snap.leaves) < min_leaves:
+                continue
+            _, reqs, n = by_snap.setdefault(id(snap), (snap, {}, [0]))
+            reqs.setdefault(sig, (single, count, params))
+            n[0] += 1
+    for snap, reqs, n in by_snap.values():
+        snap._feas = None
+        if n[0] >= min_batch:
+            park(snap, reqs)
 
 
 def _launch(snap, reqs: dict) -> dict:

@@ -1,14 +1,25 @@
-"""Topology-aware scheduling (TAS): the flavor's topology forest.
+"""Topology-aware scheduling (TAS): the flavor's topology forest and
+the placement descent.
 
-A trimmed copy of ``kueue_tpu/tas/snapshot.py`` (the reference's
-pkg/cache/scheduler/tas_flavor_snapshot.go): the forest of topology
-domains with per-leaf capacity and TAS usage, request resolution, node
-matching (taints, selectors, affinity) and the not-fit messages. The
-placement itself runs on the device (``tas/device.try_find`` ->
-``ops/tas.tas_place``); the sequential host descent stays in the JAX
-package as the oracle and is not copied. Requests the device program does
-not take (leaders, elastic slices, balanced placement, multi-layer
-slices, BestFit-unconstrained) raise ``NotImplementedError``.
+The port of ``kueue_tpu/tas/snapshot.py`` (the reference's
+pkg/cache/scheduler/tas_flavor_snapshot.go, KEP 2724): the forest of
+topology domains with per-leaf capacity and TAS usage, request
+resolution, node matching (taints, selectors, affinity), the sequential
+host descent (phase 1 fill counts, phase 2 level descent, leaders and
+multi-layer slices included) and the forest's per-cycle lifecycle (undo
+scope, write-through commits, the phase-1 memo, forks).
+
+``find_topology_assignments`` takes the device program
+(``tas/device.try_find`` -> ``ops/tas.tas_place``) only when
+``tas/device.worth_offloading`` says so (``KUEUE_TPU_DEVICE_TAS_MIN`` or
+the port's crossover record, ``tas/calibration.py``), and the host
+descent otherwise and on the corners the device program does not take.
+Host work is Python/numpy; the device tensors live on ``device`` (CUDA
+unless the caller asks for the CPU).
+
+Left out, each raising ``NotImplementedError``: balanced placement (the
+TASBalancedPlacement gate is off in the port), elastic workload slices
+and unhealthy-node replacement.
 """
 
 from __future__ import annotations
@@ -28,18 +39,21 @@ from kueue_tpu_torch.device import resolve_device
 
 HOSTNAME_LABEL = "kubernetes.io/hostname"
 
+_INF = 1 << 60
+
 
 @dataclass
 class Node:
-    """A capacity-bearing leaf. ``capacity`` is per-resource
-    milli-units."""
+    """A capacity-bearing leaf (the reference uses corev1.Node; we are
+    standalone). ``capacity`` is per-resource milli-units."""
 
     name: str
     labels: dict[str, str] = field(default_factory=dict)
     capacity: dict[str, int] = field(default_factory=dict)
     taints: tuple[Taint, ...] = ()
     ready: bool = True
-    # Cordoned nodes are left out of the forest like not-ready ones.
+    # corev1.NodeSpec.Unschedulable (kubectl cordon): excluded from the
+    # forest like not-ready nodes (tas_nodes_cache.go node filtering).
     unschedulable: bool = False
 
 
@@ -56,27 +70,37 @@ class TopologyAssignment:
 
 
 class _Domain:
-    __slots__ = ("id", "values", "parent", "children", "free_capacity",
-                 "tas_usage", "node_name", "node_labels", "node_taints")
+    __slots__ = ("id", "values", "parent", "children", "state",
+                 "slice_state", "state_with_leader",
+                 "slice_state_with_leader", "leader_state",
+                 "free_capacity", "tas_usage", "node_name",
+                 "node_labels", "node_taints")
 
     def __init__(self, domain_id, values):
         self.id = domain_id
         self.values = values
         self.parent: Optional[_Domain] = None
         self.children: list[_Domain] = []
+        self.state = 0  # pods that fit (phase-1), then assigned count
+        self.slice_state = 0
+        self.state_with_leader = 0
+        self.slice_state_with_leader = 0
+        self.leader_state = 0
         self.free_capacity: dict[str, int] = {}
         self.tas_usage: dict[str, int] = {}
         self.node_name: Optional[str] = None
-        # Leaf-only node metadata for matchNode: taints and the full
-        # label set for selectors and affinity.
+        # Leaf-only node metadata for matchNode (tas_flavor_snapshot.go
+        # :1830 — taints, full label set for selectors/affinity).
         self.node_labels: dict[str, str] = {}
         self.node_taints: tuple = ()
 
 
 def slice_topology_constraints(tr) -> tuple:
-    """Normalize the multi-layer list and the single-layer fields to
-    ((level_label_or_None, size), ...), outermost first. A ``None`` level
-    means the topology's lowest level."""
+    """util/tas/tas.go:116 (PodSetSliceRequiredTopologyConstraints):
+    normalize the multi-layer list and the legacy single-layer fields to
+    ((level_label_or_None, size), ...), outermost first. A ``None``
+    level means the topology's lowest level (our historical API allowed
+    ``slice_size`` alone; the resolver substitutes the leaf level)."""
     if tr is None:
         return ()
     extra = tuple(getattr(tr, "slice_constraints", ()) or ())
@@ -88,7 +112,7 @@ def slice_topology_constraints(tr) -> tuple:
 
 
 def _taint_to_string(t) -> str:
-    """corev1.Taint.ToString."""
+    """corev1.Taint.ToString (k8s.io/api/core/v1/taint.go:28)."""
     if not t.effect:
         return t.key if not t.value else f"{t.key}={t.value}:"
     if not t.value:
@@ -97,9 +121,11 @@ def _taint_to_string(t) -> str:
 
 
 def _node_affinity_term_matches(term, labels: dict) -> bool:
-    """One required node-selector term against a node's full label set;
-    ``term`` is ((key, op, values), ...) and every expression must
-    match. Absent keys fail In/Exists."""
+    """One requiredDuringScheduling nodeSelectorTerm against a node's
+    FULL label set (component-helpers nodeaffinity.NodeSelector.Match —
+    unlike the flavor-restricted matcher in scheduler/flavorassigner.py,
+    absent keys fail In/Exists here). ``term`` is ((key, op, values),...);
+    all expressions must match."""
     for key, op, values in term:
         val = labels.get(key)
         if op == "In":
@@ -130,8 +156,8 @@ def _node_affinity_term_matches(term, labels: dict) -> bool:
 
 
 class ExclusionStats:
-    """Why nodes were excluded during placement, rendered into the
-    not-fit message's tail."""
+    """tas_flavor_snapshot.go:496 (ExclusionStats): why nodes were
+    excluded during placement, rendered into the notFitMessage tail."""
 
     __slots__ = ("taints", "node_selector", "affinity", "topology_domain",
                  "resources", "total_nodes")
@@ -150,7 +176,7 @@ class ExclusionStats:
                 or bool(self.resources))
 
     def format_reasons(self) -> str:
-        """Entries string-sorted after rendering."""
+        """formatReasons :551 — entries string-sorted after rendering."""
         reasons = []
         if self.node_selector > 0:
             reasons.append(f"nodeSelector: {self.node_selector}")
@@ -170,14 +196,15 @@ class TASPodSetRequest:
     pod_set: PodSet
     single_pod_requests: dict[str, int]
     count: int
-    # Elastic workload slices: the admitted predecessor's assignment.
-    # The port does not place such requests.
-    previous_assignment: Optional[TopologyAssignment] = None
+    # Elastic workload slices: the admitted predecessor's assignment —
+    # scale-up places only the delta, scale-down truncates
+    # (tas_elastic_workloads.go:35 handleElasticWorkload).
+    previous_assignment: Optional["TopologyAssignment"] = None
 
 
 @dataclass
 class _AssignState:
-    """A resolved request: slice geometry, levels and mode flags."""
+    """findTopologyAssignmentState (the per-call scratch)."""
     count: int
     slice_size: int
     requested_level_idx: int
@@ -185,17 +212,95 @@ class _AssignState:
     required: bool
     unconstrained: bool
     leader_count: int = 0
-    # unconstrained under the TASProfileMixed gate: LeastFreeCapacity
-    # ordering.
+    # unconstrained under the TASProfileMixed gate → LeastFreeCapacity
+    # ordering (tas_flavor_snapshot.go:1498 useLeastFreeCapacityAlgorithm)
     least_free: bool = False
-    # level idx -> inner slice size of the multi-layer constraints
+    # level idx -> inner slice size (buildSliceSizeAtLevel :1174)
     slice_size_at_level: dict = field(default_factory=dict)
+    # the normalized constraint list when multi-layer is active (drives
+    # multiLayerNotFitMessage :2004)
     multi_layer: tuple = ()
+    # lazy ExclusionStats builder, memoized per call
+    stats_fn: Optional[object] = None
+    _stats_memo: Optional[object] = None
+
+    def stats(self):
+        if self._stats_memo is None and self.stats_fn is not None:
+            self._stats_memo = self.stats_fn()
+        return self._stats_memo
+
+
+class _Phase1Memo:
+    """Phase-1 fill + per-level sort order, shared across the heads of
+    one cycle. The fillInCounts pass depends on the request's per-pod
+    shape, slice geometry, and exclusions — but NOT on its count or
+    requested level — so the nominate loop's (typically homogeneous)
+    heads can share one fill and one sort per level. Between placements
+    only the previous head's descent mutations are reverted: phase 2
+    touches nothing outside the per-level candidate lists (selection
+    is pure, _update_counts_to_minimum and the descent loops clamp only
+    domains handed to them), so the undo log is candidate-list-sized.
+
+    The memo survives usage mutations: every write to a leaf's
+    tas_usage while a memo is live lands the leaf in ``stale``
+    (_apply_deltas / commit_usage), and the next hit repairs exactly
+    those leaves' counts plus their ancestor sums (_p1_repair) instead
+    of refilling the forest. That lets the hybrid device cycle — which
+    never opens an undo scope on the prototype — reuse one fill across
+    cycles, paying only for the handful of leaves each cycle's
+    admissions touched.
+
+    Leaderless only: with no leader, state_with_leader ≡ state and
+    slice_state_with_leader ≡ slice_state at every domain (fillLeafCounts
+    sets them equal at leaves and the bubble's min-diff term is zero),
+    which also makes _sorted_with_leader order coincide with _sorted —
+    the cached per-level sort serves both call sites."""
+
+    __slots__ = ("key", "undo", "sorts", "stale", "_seen")
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.undo: list = []
+        self.sorts: dict = {}
+        self.stale: set = set()
+        self._seen: set = set()
+
+    def restore(self) -> None:
+        undo = self.undo
+        if not undo:
+            return
+        for d, state, slice_state, slice_swl, leader_state in undo:
+            d.state = state
+            d.slice_state = slice_state
+            d.slice_state_with_leader = slice_swl
+            d.leader_state = leader_state
+        undo.clear()
+        self._seen.clear()
+
+    def save_list(self, domains: list) -> None:
+        """Log the pre-descent state of every domain the next descent
+        step may write: _update_counts_to_minimum mutates only members
+        of the list handed to it (commit / leader_state clears /
+        best-fit swaps all pick from that list), and the slice re-anchor
+        loop writes only the current fit set's children — so logging
+        each level's candidate list is exact, where the old
+        whole-subtree save paid for every descendant of the fit domains
+        (~10x the touched set on block-level fits). Deduped per scope:
+        a domain surviving several levels keeps its FIRST (pre-descent)
+        state."""
+        seen = self._seen
+        save = self.undo.append
+        for d in domains:
+            i = id(d)
+            if i not in seen:
+                seen.add(i)
+                save((d, d.state, d.slice_state,
+                      d.slice_state_with_leader, d.leader_state))
 
 
 class TASFlavorSnapshot:
-    """One flavor's topology forest. Its device tensors live on
-    ``device`` (CUDA unless the caller asks for the CPU)."""
+    """tas_flavor_snapshot.go:115. Its device tensors live on ``device``
+    (CUDA unless the caller asks for the CPU)."""
 
     def __init__(self, topology: Topology,
                  flavor_tolerations: tuple[Toleration, ...] = (),
@@ -211,6 +316,10 @@ class TASFlavorSnapshot:
         self.roots: dict[tuple, _Domain] = {}
         self.domains_per_level: list[dict[tuple, _Domain]] = [
             {} for _ in self.level_keys]
+        self._init_state()
+
+    def _init_state(self) -> None:
+        """The versions, memos and caches every snapshot starts with."""
         # Structure version: bumped whenever the forest or capacities
         # change; keys the device encoding (tas/device._structure).
         self._version = 0
@@ -220,8 +329,8 @@ class TASFlavorSnapshot:
         # Usage removals: the feasibility batch's live verdicts hold only
         # while usage has not shrunk since the batch ran.
         self._usage_removals = 0
-        # Parked feasibility verdicts (tas/feasibility.park) and the
-        # removal count they hold for.
+        # Parked feasibility verdicts (tas/feasibility.precompute) and
+        # the removal count they hold for.
         self._feas = None
         self._feas_removals = 0
         self._used_leaves: Optional[set] = None
@@ -230,12 +339,173 @@ class TASFlavorSnapshot:
         self._place_memo = None
         self._stats_memo = None
         self._device_struct = None
-        # Calls that reached the device program (memo hits do not).
-        self.device_placements = 0
+        # A fork's prototype: its device encoding is remapped, not
+        # rebuilt (tas/device._structure).
+        self._struct_donor = None
+        self._worth_memo = None
         self._usage_matrix_cache: Optional[dict] = None
         self._usage_tensor_cache = None
+        # The open undo scope (begin_cycle) and the phase-1 memo.
+        self._txn = None
+        self._txn_dirty = False
+        self._txn_base_version = 0
+        self._txn_base_removals = 0
+        self._p1 = None
+        # Calls that reached the device program (memo hits do not).
+        self.device_placements = 0
 
-    # -- construction --
+
+        self._version = 0
+
+    # -- per-cycle undo scope (the zero-copy snapshot share) --
+    #
+    # Round 4 forked the whole forest per scheduling cycle (fork(), ~6 ms
+    # at 640 leaves / ~16 ms at 5,120) and re-installed every live usage
+    # aggregate on the copy. Round 5 replaces that with the reference's
+    # own revert-closure pattern (snapshot.go:77 SimulateWorkloadRemoval):
+    # the live prototype carries the admitted usage, a cycle opens an
+    # undo scope, every in-cycle mutation logs its DELTA, and closing the
+    # scope reverts in O(touched leaves). Cache write-through commits
+    # (admissions applied after the cycle) bypass the log via
+    # commit_usage().
+
+    def begin_cycle(self) -> None:
+        """Open an undo scope. A dangling scope (a reader snapshot that
+        never closed) is force-closed first — its log is empty, so the
+        force-close is free and self-healing."""
+        if self._txn is not None:
+            self.end_cycle()
+        self._txn = []
+        self._txn_dirty = False
+        self._txn_base_version = self._usage_version
+        self._txn_base_removals = self._usage_removals
+
+    def end_cycle(self) -> None:
+        """Revert the scope's delta log (reverse order) and restore the
+        usage-version bookkeeping so pre-cycle encodes stay valid. If a
+        commit interleaved (``_txn_dirty``), versions move forward
+        instead and the matrix caches are dropped — going backward would
+        alias a stale cache entry onto restored-but-different state."""
+        txn = self._txn
+        if txn is None:
+            return
+        for leaf, deltas in reversed(txn):
+            usage = leaf.tas_usage
+            for res, d in deltas.items():
+                left = usage.get(res, 0) - d
+                if left:
+                    usage[res] = left
+                else:
+                    usage.pop(res, None)
+        if self._txn_dirty:
+            self._usage_version = self._usage_version + 1
+            self._usage_removals = self._usage_removals + 1
+            self._usage_matrix_cache = None
+            self._usage_tensor_cache = None
+        elif txn:
+            base = self._txn_base_version
+            mc = self._usage_matrix_cache
+            if mc:
+                for k in [k for k in mc if k[0] != base]:
+                    mc.pop(k)
+            jc = self._usage_tensor_cache
+            if jc is not None and jc[0][0] != base:
+                self._usage_tensor_cache = None
+            self._usage_version = base
+            self._usage_removals = self._txn_base_removals
+        self._txn = None
+        self._feas = None
+        self._place_memo = None
+        self._stats_memo = None
+        self._p1 = None
+
+    def commit_usage(self, values: tuple, deltas: dict[str, int]) -> None:
+        """Write-through from the live cache's admitted-side accounting
+        (scheduler_cache._account_tas): NOT delta-logged, so the change
+        survives end_cycle(). ``deltas`` are pre-aggregated (pod slots
+        included), negative for removals."""
+        leaf = self.leaves.get(tuple(values))
+        if leaf is None:
+            return
+        self._usage_version = self._usage_version + 1
+        if any(v < 0 for v in deltas.values()):
+            self._usage_removals = self._usage_removals + 1
+        if self._txn is not None:
+            self._txn_dirty = True
+        p1 = self._p1
+        if p1 is not None:
+            p1.stale.add(leaf)
+        self._touch_used(leaf)
+        usage = leaf.tas_usage
+        for res, d in deltas.items():
+            left = usage.get(res, 0) + d
+            if left:
+                usage[res] = left
+            else:
+                usage.pop(res, None)
+
+    # -- construction (tas_flavor.go / tas_nodes_cache.go) --
+
+    def fork(self) -> "TASFlavorSnapshot":
+        """Full per-call copy of the forest (structure shared, usage
+        copied): used by what-if probes that outlive a cycle scope
+        (bench crossover measurement, tests). The serving path no longer
+        forks per cycle — see begin_cycle()."""
+        new = TASFlavorSnapshot.__new__(TASFlavorSnapshot)
+        new._init_state()
+        new.device = self.device
+        new.topology_name = self.topology_name
+        new.level_keys = self.level_keys
+        new.flavor_tolerations = self.flavor_tolerations
+        new.is_lowest_level_node = self.is_lowest_level_node
+        new._version = self._version
+        new.domains = {}
+        new.leaves = {}
+        new.roots = {}
+        new.domains_per_level = [{} for _ in self.level_keys]
+
+        # Iterative, level by level (parents first — _ensure_domain
+        # inserts children before parents, so plain insertion order
+        # won't do); direct slot assignment skips __init__ overhead.
+        domains = new.domains
+        mk = _Domain.__new__
+        for level_table in self.domains_per_level:
+            for values, d in level_table.items():
+                c = mk(_Domain)
+                c.id = d.id
+                c.values = values
+                c.state = 0
+                c.slice_state = 0
+                c.state_with_leader = 0
+                c.slice_state_with_leader = 0
+                c.leader_state = 0
+                c.free_capacity = d.free_capacity  # shared, read-only
+                c.tas_usage = dict(d.tas_usage) if d.tas_usage else {}
+                c.node_name = d.node_name
+                c.node_labels = d.node_labels  # shared, read-only
+                c.node_taints = d.node_taints
+                c.children = []
+                parent = d.parent
+                if parent is None:
+                    c.parent = None
+                else:
+                    c.parent = domains[parent.values]
+                    c.parent.children.append(c)
+                domains[values] = c
+                new.domains_per_level[len(values) - 1][values] = c
+                if not d.children:
+                    new.leaves[values] = c
+        for values in self.roots:
+            new.roots[values] = domains[values]
+        used = self._used_leaves
+        if used:
+            new._used_leaves = set(used)
+        new._usage_version = self._usage_version
+        new._any_taints = self._any_taints
+        # The device encoding (tas/device.py _structure) can remap its
+        # cached arrays through the prototype instead of re-deriving.
+        new._struct_donor = self
+        return new
 
     def add_node(self, node: Node,
                  non_tas_usage: Optional[dict[str, int]] = None) -> None:
@@ -276,18 +546,28 @@ class TASFlavorSnapshot:
             parent.children.append(domain)
         return domain
 
-    # -- usage accounting --
+    # -- usage accounting (updateTASUsage) --
 
     def _touch_used(self, leaf) -> None:
-        """Track leaves carrying TAS usage so dense encoders iterate the
-        used subset, not the whole forest."""
-        if self._used_leaves is None:
-            self._used_leaves = set()
-        self._used_leaves.add(leaf.values)
+        """Track leaves carrying TAS usage so dense encoders iterate
+        the used subset, not the whole (possibly pod-slice-scale)
+        forest."""
+        used = self._used_leaves
+        if used is None:
+            used = self._used_leaves = set()
+        used.add(leaf.values)
 
     def _apply_deltas(self, leaf, deltas: dict[str, int]) -> None:
-        self._usage_version += 1
+        """Apply a usage delta to one leaf, logging it for revert when a
+        cycle's undo scope is open (begin_cycle)."""
+        self._usage_version = self._usage_version + 1
+        p1 = self._p1
+        if p1 is not None:
+            p1.stale.add(leaf)
         self._touch_used(leaf)
+        txn = self._txn
+        if txn is not None:
+            txn.append((leaf, deltas))
         usage = leaf.tas_usage
         for res, d in deltas.items():
             usage[res] = usage.get(res, 0) + d
@@ -298,7 +578,9 @@ class TASFlavorSnapshot:
         if leaf is None:
             return
         deltas = {res: per_pod * count for res, per_pod in requests.items()}
-        # Each placed pod occupies a pod slot whatever its requests.
+        # Each placed pod occupies a pod slot regardless of its resource
+        # requests (tas_flavor_snapshot.go:321 updateTASUsage adds
+        # ResourcePods: count on top of the scaled requests).
         deltas["pods"] = deltas.get("pods", 0) + count
         self._apply_deltas(leaf, deltas)
 
@@ -307,12 +589,86 @@ class TASFlavorSnapshot:
         leaf = self.leaves.get(tuple(values))
         if leaf is None:
             return
-        self._usage_removals += 1
+        # Removals can make stale "doesn't fit" conclusions wrong; the
+        # feasibility pre-pass keys its live-usage verdicts on this.
+        self._usage_removals = self._usage_removals + 1
         deltas = {res: -per_pod * count for res, per_pod in requests.items()}
         deltas["pods"] = deltas.get("pods", 0) - count
         self._apply_deltas(leaf, deltas)
 
-    # -- placement --
+    def install_usage(self, values: tuple, usage: dict[str, int]) -> None:
+        """Add PRE-AGGREGATED usage (already scaled by pod counts, pods
+        slots included) to a leaf — the one-pass form the live cache's
+        incremental aggregates feed through build_snapshot."""
+        leaf = self.leaves.get(tuple(values))
+        if leaf is None:
+            return
+        self._apply_deltas(leaf, dict(usage))
+
+    def fits(self, domain_requests) -> bool:
+        """clusterqueue_snapshot.go:137 TAS part: every requested domain has
+        the free capacity."""
+        for values, requests, count in domain_requests:
+            leaf = self.leaves.get(tuple(values))
+            if leaf is None:
+                return False
+            for res, per_pod in requests.items():
+                free = leaf.free_capacity.get(res, 0) - \
+                    leaf.tas_usage.get(res, 0)
+                if per_pod * count > free:
+                    return False
+        return True
+
+    # -- the placement entry points --
+
+    # -- the placement entry points --
+
+    def find_topology_assignments_for_flavor(
+        self,
+        requests: list[TASPodSetRequest],
+        workload=None,
+        simulate_empty: bool = False,
+        assumed_usage: Optional[dict[tuple, dict[str, int]]] = None,
+    ) -> tuple[dict[str, TopologyAssignment], str]:
+        """FindTopologyAssignmentsForFlavor (tas_flavor_snapshot.go:642):
+        group pod sets by topology group, pick leader+workers per group
+        (findLeaderAndWorkers :729). Returns ({name: assignment},
+        failure_reason); partial results on failure. Workloads reporting
+        unhealthy nodes (replacement) and elastic slices raise
+        NotImplementedError."""
+        assumed = assumed_usage if assumed_usage is not None else {}
+        groups: dict[str, list[TASPodSetRequest]] = {}
+        order: list[str] = []
+        for idx, tr in enumerate(requests):
+            key = (tr.pod_set.topology_request.pod_set_group_name
+                   if tr.pod_set.topology_request else None) or str(idx)
+            if key not in groups:
+                order.append(key)
+            groups.setdefault(key, []).append(tr)
+
+        if getattr(getattr(workload, "status", None), "unhealthy_nodes",
+                   ()):
+            raise NotImplementedError(
+                "unhealthy-node replacement is not ported")
+
+        results: dict[str, TopologyAssignment] = {}
+        for key in order:
+            trs = groups[key]
+            leader, workers = _find_leader_and_workers(trs)
+            if workers.previous_assignment is not None:
+                raise NotImplementedError(
+                    "elastic workload slices are not ported")
+            assignments, reason = self.find_topology_assignments(
+                workers, leader, simulate_empty=simulate_empty,
+                assumed_usage=assumed)
+            if reason:
+                return results, reason
+            for tr in trs:
+                ta = assignments.get(tr.pod_set.name)
+                if ta is not None:
+                    results[tr.pod_set.name] = ta
+                    _add_assumed(assumed, ta, tr)
+        return results, ""
 
     def find_topology_assignments(
         self,
@@ -322,11 +678,22 @@ class TASFlavorSnapshot:
         assumed_usage: Optional[dict[tuple, dict[str, int]]] = None,
         required_replacement_domain: tuple = (),
     ) -> tuple[Optional[dict[str, TopologyAssignment]], str]:
-        """findTopologyAssignment on the device. Returns
-        ({pod_set_name: assignment}, "") or (None, failure_reason)."""
-        # Within-usage-version memo: the outcome is a pure function of
-        # (request, usage state), so repeats are dict hits. Only
-        # leaderless, unaccumulated calls qualify.
+        """tas_flavor_snapshot.go:946 (findTopologyAssignment). Returns
+        ({pod_set_name: assignment}, failure_reason).
+
+        The device program (tas/device.try_find -> ops/tas.tas_place)
+        places only when tas/device.worth_offloading says so (the
+        KUEUE_TPU_DEVICE_TAS_MIN leaf threshold, else the port's
+        crossover record in tas/calibration.py); otherwise, and on the
+        corners try_find returns NotImplemented for, the sequential
+        host descent below places."""
+        # Within-usage-version memo: an oversubscribed cycle retries
+        # many heads with identical (signature, selector) requests — the
+        # placement outcome is a pure function of (request, usage state),
+        # so repeats are dict hits instead of phase-1 + descent reruns.
+        # Only leaderless, ungrouped, unaccumulated calls qualify (the
+        # assumed-usage dict threads state between a workload's pod
+        # sets). Keyed on _usage_version: any usage mutation invalidates.
         memo_key = None
         if (leader is None and not assumed_usage
                 and not required_replacement_domain
@@ -346,30 +713,41 @@ class TASFlavorSnapshot:
             hit = memo[1].get(memo_key)
             if hit is not None:
                 return hit
-        if not features.enabled("DeviceTAS"):
-            raise NotImplementedError(
-                "DeviceTAS is off and the port has no host TAS path")
-        from kueue_tpu_torch.tas import device
-        self.device_placements += 1
-        out = device.try_find(self, workers, leader, simulate_empty,
-                              assumed_usage, required_replacement_domain)
+        out = None
+        if features.enabled("DeviceTAS"):
+            from kueue_tpu_torch.tas import device
+            if device.worth_offloading(self):
+                out = device.try_find(
+                    self, workers, leader, simulate_empty, assumed_usage,
+                    required_replacement_domain)
+                if out is NotImplemented:
+                    out = None
+        if out is None:
+            out = self.find_topology_assignments_host(
+                workers, leader, simulate_empty, assumed_usage,
+                required_replacement_domain)
         if memo_key is not None:
             memo[1][memo_key] = out
         return out
 
     def resolve_request(self, workers: TASPodSetRequest,
                         has_leader: bool) -> tuple:
-        """Request resolution (findTopologyAssignment): slice size,
-        requested/slice level indices, mode flags, the multi-layer
-        slice-size map. Returns (state, reason); state is an
-        _AssignState on success."""
+        """Shared request resolution (findTopologyAssignment :978-1032):
+        slice size, requested/slice level indices, mode flags, the
+        multi-layer slice-size map. Returns (state, reason) — state is an
+        _AssignState on success. Used by the host path, the device
+        adapter, and the feasibility batch so the three can never
+        disagree on what a request means."""
         tr = workers.pod_set.topology_request
         count = workers.count
 
         constraints = slice_topology_constraints(tr)
         if len(constraints) > 1 and not features.enabled(
                 "TASMultiLayerTopology"):
+            # Gate off: additional layers ignored (the annotation parser
+            # only emits the list under the gate, jobframework/tas.go:91).
             constraints = constraints[:1]
+        # getSliceSizeWithSinglePodAsDefault :1310.
         if constraints:
             slice_size = constraints[0][1]
             if slice_size <= 0:
@@ -389,8 +767,9 @@ class TASFlavorSnapshot:
         unconstrained = (mode == TopologyMode.UNCONSTRAINED or implied
                          or slice_only)
 
-        # Required/preferred name a level; slice-only anchors at the
-        # highest level; unconstrained (implied too) at the lowest.
+        # levelKey :1273 + levelKeyWithImpliedFallback :1263: required/
+        # preferred name a level; slice-only anchors at the HIGHEST
+        # level; unconstrained (incl. implied) at the LOWEST.
         if required or preferred:
             if tr.level is None or tr.level not in self.level_keys:
                 return None, f"no requested topology level: {tr.level}"
@@ -402,7 +781,8 @@ class TASFlavorSnapshot:
         else:
             return None, "topology level not specified"
 
-        # The outermost constraint's level, defaulting to the lowest.
+        # sliceLevelKeyWithDefault :1248 — the OUTERMOST constraint's
+        # level, defaulting to the lowest level.
         slice_level_key = (constraints[0][0] if constraints
                            and constraints[0][0] is not None
                            else self.level_keys[-1])
@@ -417,7 +797,7 @@ class TASFlavorSnapshot:
                 f"podset slice topology {slice_level_key} is above the "
                 f"podset topology {named}")
 
-        # Inner layers of a multi-layer request.
+        # buildSliceSizeAtLevel :1174 — inner layers.
         slice_size_at_level: dict[int, int] = {}
         prev_size, prev_idx = slice_size, slice_level_idx
         for layer_key, layer_size in constraints[1:]:
@@ -449,12 +829,14 @@ class TASFlavorSnapshot:
             multi_layer=constraints if slice_size_at_level else ())
         return state, ""
 
+
     def _match_excluded(self, pod_set) -> dict:
-        """matchNode over every leaf: {leaf values: reason} where reason
-        is ("taint", taint_string) | ("selector",) | ("affinity",). Only
-        hostname-lowest topologies match nodes; the taint check folds in
-        the flavor's tolerations. Memoized per (structure version,
-        selector, tolerations, affinity)."""
+        """matchNode (:1830) over every leaf: {leaf values: reason}
+        where reason is ("taint", taint_string) | ("selector",) |
+        ("affinity",). Only hostname-lowest topologies match nodes; the
+        taint check folds in the flavor's tolerations. Memoized per
+        (structure version, selector, tolerations, affinity) — the
+        matchingLeavesCache / TASCacheNodeMatchResults analog."""
         if not self.is_lowest_level_node:
             return {}
         selector = pod_set.node_selector or {}
@@ -462,7 +844,8 @@ class TASFlavorSnapshot:
             self.flavor_tolerations)
         affinity = tuple(tuple(term) for term in
                          (pod_set.node_affinity or ()))
-        if not selector and not affinity and not self._any_taints:
+        if not selector and not affinity \
+                and not self._any_taints:
             return {}
         key = (tuple(sorted(selector.items())), tolerations, affinity)
         cache = self._match_cache
@@ -499,15 +882,24 @@ class TASFlavorSnapshot:
                          simulate_empty: bool, assumed_usage: dict,
                          required_replacement_domain: tuple
                          ) -> ExclusionStats:
-        """The failure message's ExclusionStats, a pure function of
-        (request, forest state), built at failure time. Memoized per
-        (request fingerprint, structure and usage version) for the
-        unaccumulated call shape."""
+        """Build the failure-path ExclusionStats lazily — a pure function
+        of (request, forest state), so EVERY decision path (host walk,
+        numpy phase-1, device kernel, feasibility batch) renders the
+        identical message by calling this at failure time instead of
+        collecting counters inline.
+
+        The walk is O(leaves); a churn cycle renders failure messages
+        for MANY homogeneous rejected heads (30 heads x 5,120 leaves
+        regressed the device churn path 50x before the memo), so
+        results are memoized per (request fingerprint, usage/structure
+        version) for the common unaccumulated call shape."""
         key = None
         memo = None
         if not assumed_usage and not required_replacement_domain:
-            # One version key for both usage variants, so alternating
-            # live and simulate-empty renders share the memo.
+            # ONE version key for both usage variants: simulate-empty
+            # stats don't depend on usage, but alternating live/empty
+            # renders with differing memo versions would thrash the
+            # single-slot memo (they interleave per head).
             ver = (self._version, self._usage_version)
             memo = self._stats_memo
             if memo is None or memo[0] != ver or len(memo[1]) > 1024:
@@ -537,7 +929,7 @@ class TASFlavorSnapshot:
         if (len(self.leaves) >= 256 and not assumed_usage
                 and self._np_resource_exclusions(
                     res_order, simulate_empty, excluded, rrd, stats)):
-            pass  # the vectorized path filled the resource counts
+            pass  # vectorized path filled the resource counts
         else:
             for values, leaf in self.leaves.items():
                 if values in excluded:
@@ -564,7 +956,7 @@ class TASFlavorSnapshot:
                         best = cnt
                         limiting = res
                     if best == 0:
-                        break  # sorted order: the first zero wins
+                        break  # sorted order: first zero IS the winner
                 if best == 0 and limiting:
                     stats.resources[limiting] = \
                         stats.resources.get(limiting, 0) + 1
@@ -575,9 +967,13 @@ class TASFlavorSnapshot:
     def _np_resource_exclusions(self, res_order, simulate_empty: bool,
                                 excluded: dict, rrd: tuple,
                                 stats: ExclusionStats) -> bool:
-        """Resource-exclusion counting over the cached leaf matrices.
-        Fills ``stats.resources``/``topology_domain``; returns False when
-        the dense path cannot serve (unknown columns)."""
+        """Vectorized resource-exclusion counting over the cached leaf
+        matrices (device._free_matrix/_usage_matrix) — the per-leaf dict
+        walk was the pod-slice-scale message-render bottleneck. Fills
+        ``stats.resources``/``topology_domain``; returns False when the
+        dense path can't serve (unknown columns)."""
+        import numpy as np
+
         from kueue_tpu_torch.tas import device
 
         struct = device._structure(self)
@@ -601,8 +997,9 @@ class TASFlavorSnapshot:
                 elif rrd and leaf.values[:len(rrd)] != rrd:
                     alive[i] = False
                     stats.topology_domain += 1
-        # The first zero-count resource in sorted order per leaf: zero is
-        # the global minimum and the first in sorted order wins ties.
+        # First zero-count resource in sorted order per leaf (the
+        # CountInWithLimitingResource min+lexicographic tie rule: zero
+        # is the global minimum, first-in-sorted-order wins ties).
         undecided = alive.copy()
         pods_cap = struct["has_pods_cap"]
         for res, need in res_order:
@@ -617,10 +1014,635 @@ class TASFlavorSnapshot:
                 undecided = undecided & ~hit
         return True
 
+    def find_topology_assignments_host(
+        self,
+        workers: TASPodSetRequest,
+        leader: Optional[TASPodSetRequest] = None,
+        simulate_empty: bool = False,
+        assumed_usage: Optional[dict[tuple, dict[str, int]]] = None,
+        required_replacement_domain: tuple = (),
+    ) -> tuple[Optional[dict[str, TopologyAssignment]], str]:
+        """The sequential oracle path of find_topology_assignments."""
+        state, reason = self.resolve_request(workers, leader is not None)
+        if reason:
+            return None, reason
+        count = workers.count
+
+        per_pod = dict(workers.single_pod_requests)
+        per_pod["pods"] = per_pod.get("pods", 0) + 1
+        leader_per_pod = None
+        if leader is not None:
+            leader_per_pod = dict(leader.single_pod_requests)
+            leader_per_pod["pods"] = leader_per_pod.get("pods", 0) + 1
+
+        assumed = assumed_usage or {}
+        state.stats_fn = lambda: self._exclusion_stats(
+            workers.pod_set, per_pod, simulate_empty, assumed,
+            required_replacement_domain)
+
+        # Balanced placement (preferred mode under the
+        # TASBalancedPlacement gate) is not ported.
+        if (features.enabled("TASBalancedPlacement")
+                and not state.required and not state.unconstrained):
+            raise NotImplementedError("balanced placement is not ported")
+
+        # Phase 1: per-domain fit counts — memoized across the heads of
+        # a cycle (_Phase1Memo).
+        p1 = None
+        if (leader is None and not assumed
+                and not required_replacement_domain):
+            excluded = self._match_excluded(workers.pod_set)
+            p1_key = (
+                self._version, bool(simulate_empty),
+                tuple(sorted(per_pod.items())),
+                state.slice_size, state.slice_level_idx,
+                tuple(sorted(state.slice_size_at_level.items())),
+                id(excluded) if excluded else 0)
+            p1 = self._p1
+            hit = p1 is not None and p1.key == p1_key
+            if hit:
+                p1.restore()
+                if p1.stale:
+                    # Simulate-empty counts ignore usage entirely; live
+                    # counts get the touched leaves recomputed in place.
+                    hit = simulate_empty or self._p1_repair(
+                        p1, per_pod, excluded, state)
+                    p1.stale.clear()
+            if not hit:
+                self._fill_in_counts(workers.pod_set, per_pod, None,
+                                     state, simulate_empty, assumed,
+                                     required_replacement_domain)
+                p1 = _Phase1Memo(p1_key)
+            self._p1 = p1
+        else:
+            self._fill_in_counts(workers.pod_set, per_pod, leader_per_pod,
+                                 state, simulate_empty, assumed,
+                                 required_replacement_domain)
+
+        slice_size = state.slice_size
+        slice_level_idx = state.slice_level_idx
+        unconstrained = state.unconstrained
+        slice_count = count // slice_size
+
+        # Phase 2a: find the level with fitting domains
+        # (tas_flavor_snapshot.go:1060-1087).
+        fit_level_idx, fit_domains, reason = self._find_level_with_fit(
+            state.requested_level_idx, slice_count, state,
+            sort_cache=p1.sorts if p1 is not None else None)
+        if reason:
+            return None, reason
+
+        # Phase 2b: minimize the chosen domains, then descend
+        # (tas_flavor_snapshot.go:1085-1130). The descent always orders
+        # children with sortedDomains — leader consumption happens inside
+        # the consume walk, not via the with-leader sort (that one is
+        # selection-level only, :1387).
+        if p1 is not None:
+            p1.save_list(fit_domains)
+        fit_domains = self._update_counts_to_minimum(
+            fit_domains, count, state.leader_count, slice_size,
+            state.least_free, use_slices=True)
+        if fit_domains is None:
+            return None, "internal: assignment accounting underflow"
+        level = fit_level_idx
+        while level < min(len(self.level_keys) - 1, slice_level_idx):
+            children = [c for d in fit_domains for c in d.children]
+            if p1 is not None:
+                p1.save_list(children)
+            lower = self._sorted(children, state.least_free)
+            fit_domains = self._update_counts_to_minimum(
+                lower, count, state.leader_count, slice_size,
+                state.least_free, use_slices=True)
+            if fit_domains is None:
+                return None, "internal: assignment accounting underflow"
+            level += 1
+        while level < len(self.level_keys) - 1:
+            # At/below the slice level, pods are distributed per parent domain
+            # (tas_flavor_snapshot.go:1095-1130); inner multi-layer
+            # constraints re-anchor the slice size per level.
+            if level >= slice_level_idx:
+                slice_on_level = state.slice_size_at_level.get(level + 1, 1)
+            else:
+                slice_on_level = slice_size
+            new_fit = []
+            for d in fit_domains:
+                lower = self._sorted(d.children, state.least_free)
+                if p1 is not None:
+                    p1.save_list(lower)
+                if slice_on_level > 1:
+                    for c in lower:
+                        c.slice_state = c.state // slice_on_level
+                        c.slice_state_with_leader = \
+                            c.state_with_leader // slice_on_level
+                out = self._update_counts_to_minimum(
+                    lower, d.state, d.leader_state, slice_on_level,
+                    state.least_free, use_slices=slice_on_level > 1)
+                if out is None:
+                    return None, "internal: assignment accounting underflow"
+                new_fit.extend(out)
+            fit_domains = new_fit
+            level += 1
+
+        # Leader/worker split (tas_flavor_snapshot.go:1134-1157): leaders
+        # land in the chosen domains that reserved leader capacity.
+        assignments: dict[str, TopologyAssignment] = {}
+        if leader is not None:
+            leader_domains = []
+            worker_domains = []
+            for d in fit_domains:
+                if d.leader_state > 0:
+                    leader_domains.append(
+                        TopologyDomainAssignment(d.values, d.leader_state))
+                if d.state > 0:
+                    worker_domains.append(d)
+            assignments[leader.pod_set.name] = TopologyAssignment(
+                tuple(self.level_keys),
+                tuple(sorted(leader_domains, key=lambda a: a.values)))
+            fit_domains = worker_domains
+
+        domains = sorted(
+            (TopologyDomainAssignment(d.values, d.state)
+             for d in fit_domains if d.state > 0),
+            key=lambda a: a.values)
+        assignments[workers.pod_set.name] = TopologyAssignment(
+            tuple(self.level_keys), tuple(domains))
+        return assignments, ""
+
+    # -- unhealthy-node replacement (tas_flavor_snapshot.go:747) --
+
+    def _leaf_fits(self, pod_set: PodSet, per_pod: dict[str, int],
+                   leader_per_pod: Optional[dict[str, int]],
+                   leaf: _Domain, simulate_empty: bool,
+                   assumed_usage: dict,
+                   required_replacement_domain: tuple,
+                   excluded: dict) -> None:
+        """fillLeafCounts :1864 — pods that fit, plus leader variants.
+        ``excluded`` is the matchNode verdict map (_match_excluded):
+        taints / full-label selectors / required node affinity."""
+        leaf.state = 0
+        leaf.leader_state = 0
+        leaf.state_with_leader = 0
+        if required_replacement_domain and \
+                leaf.values[:len(required_replacement_domain)] != \
+                required_replacement_domain:
+            return
+        if leaf.values in excluded:
+            return
+
+        remaining = dict(leaf.free_capacity)
+        if not simulate_empty:
+            for res, used in leaf.tas_usage.items():
+                remaining[res] = remaining.get(res, 0) - used
+            for res, used in assumed_usage.get(leaf.id, {}).items():
+                remaining[res] = remaining.get(res, 0) - used
+
+        def count_in(requests: dict[str, int]) -> int:
+            counts = []
+            for res, need in requests.items():
+                if need == 0:
+                    continue
+                if res == "pods" and res not in leaf.free_capacity:
+                    continue  # no explicit pod capacity: unlimited
+                counts.append(max(0, remaining.get(res, 0)) // need)
+            return min(counts) if counts else 0
+
+        leaf.state = count_in(per_pod)
+        if leader_per_pod is not None and count_in(leader_per_pod) > 0:
+            leaf.leader_state = 1
+            for res, need in leader_per_pod.items():
+                remaining[res] = remaining.get(res, 0) - need
+        # stateWithLeader is CountIn(remaining) UNCONDITIONALLY
+        # (fillLeafCounts :1897): when the leader doesn't fit here it
+        # equals state — the descent consume walk takes full worker
+        # capacity from leaderless domains instead of wasting them.
+        leaf.state_with_leader = count_in(per_pod)
+
+    def _p1_repair(self, p1, per_pod: dict[str, int], excluded: dict,
+                   state: _AssignState) -> bool:
+        """Refresh phase-1 counts for the leaves whose tas_usage changed
+        while the memo was live, plus their ancestor sums — the
+        incremental form of fill_in_counts_np for the leaderless,
+        no-assumed-usage, single-slice-size case (the memo's
+        eligibility gate). Mirrors the vectorized leaf formula exactly:
+        per-resource clamped floor-division, "pods" unconstrained for
+        leaves without explicit pod capacity, matchNode exclusions
+        zeroing the leaf. Returns False when the drift is too large to
+        beat a refill or the geometry is out of scope."""
+        if state.slice_size_at_level:
+            return False
+        if len(p1.stale) > 64:
+            return False
+        nl = len(self.level_keys)
+        slice_size = state.slice_size
+        slice_idx = state.slice_level_idx
+        leaf_level = nl - 1
+        changed: list = []
+        parents: dict[int, _Domain] = {}
+        for leaf in sorted(p1.stale, key=lambda d: d.values):
+            if leaf.values not in self.leaves:
+                continue  # removed node: _version bump misses the key
+            if excluded and leaf.values in excluded:
+                cnt = 0
+            else:
+                free = leaf.free_capacity
+                usage = leaf.tas_usage
+                cnt = _INF
+                applied = False
+                for res, need in per_pod.items():
+                    if need <= 0:
+                        continue
+                    c = max(0, free.get(res, 0)
+                            - usage.get(res, 0)) // need
+                    if res == "pods":
+                        if "pods" not in free:
+                            continue  # unconstrained (fillLeafCounts)
+                    applied = True
+                    if c < cnt:
+                        cnt = c
+                if not applied:
+                    cnt = 0
+            leaf.state = cnt
+            leaf.state_with_leader = cnt
+            leaf.leader_state = 0
+            sl = cnt // slice_size if leaf_level == slice_idx else 0
+            leaf.slice_state = sl
+            leaf.slice_state_with_leader = sl
+            changed.append(leaf)
+            d = leaf.parent
+            while d is not None and id(d) not in parents:
+                parents[id(d)] = d
+                d = d.parent
+        # Ancestors bottom-up (deepest level first): each sum reads the
+        # children's already-current counts.
+        for d in sorted(parents.values(), key=lambda a: -len(a.values)):
+            st = 0
+            for c in d.children:
+                st += c.state
+            lvl = len(d.values) - 1
+            if lvl == slice_idx:
+                sl = st // slice_size
+            elif lvl < slice_idx:
+                sl = 0
+                for c in d.children:
+                    sl += c.slice_state
+            else:
+                sl = 0
+            d.state = st
+            d.state_with_leader = st
+            d.leader_state = 0
+            d.slice_state = sl
+            d.slice_state_with_leader = sl
+            changed.append(d)
+        if p1.sorts and changed:
+            from bisect import insort
+            by_level: dict[int, list] = {}
+            for d in changed:
+                by_level.setdefault(len(d.values) - 1, []).append(d)
+            for (lvl, least_free), lst in p1.sorts.items():
+                ch = by_level.get(lvl)
+                if not ch:
+                    continue
+                if least_free:
+                    def keyf(x):
+                        return (-x.leader_state,
+                                x.slice_state_with_leader,
+                                x.state_with_leader, x.values)
+                else:
+                    def keyf(x):
+                        return (-x.leader_state,
+                                -x.slice_state_with_leader,
+                                x.state_with_leader, x.values)
+                try:
+                    for d in ch:
+                        lst.remove(d)  # identity (_Domain has no __eq__)
+                except ValueError:
+                    # A changed domain missing from a cached level order
+                    # means the memo predates a structure change the key
+                    # should have caught — discard it (the caller refills
+                    # and builds a fresh memo).
+                    return False
+                for d in ch:
+                    insort(lst, d, key=keyf)
+        return True
+
+    def _fill_in_counts(self, pod_set: PodSet, per_pod: dict[str, int],
+                        leader_per_pod: Optional[dict[str, int]],
+                        state: _AssignState, simulate_empty: bool,
+                        assumed_usage: dict,
+                        required_replacement_domain: tuple = ()) -> None:
+        """fillInCounts :1750. The no-leader case runs as numpy
+        reductions over the cached leaf matrices (tas/device.py
+        fill_in_counts_np — ~10x the per-leaf dict walk); leader
+        co-placement keeps the object walk (min-diff bubbling)."""
+        # Any fill stomps every domain's count fields: whoever called —
+        # including balanced pruning via bubble_up after this returns —
+        # owns them now. The memoized host path re-installs its memo
+        # right after this call; every other caller leaves it dead.
+        self._p1 = None
+        excluded = self._match_excluded(pod_set)
+        if leader_per_pod is None:
+            from kueue_tpu_torch.tas import device
+            if device.fill_in_counts_np(
+                    self, pod_set, per_pod, state.slice_size,
+                    state.slice_level_idx, simulate_empty,
+                    assumed_usage or {}, required_replacement_domain,
+                    excluded, state.slice_size_at_level):
+                return
+        for d in self.domains.values():
+            d.state = 0
+            d.slice_state = 0
+            d.state_with_leader = 0
+            d.slice_state_with_leader = 0
+            d.leader_state = 0
+        for leaf in self.leaves.values():
+            self._leaf_fits(pod_set, per_pod, leader_per_pod, leaf,
+                            simulate_empty, assumed_usage,
+                            required_replacement_domain, excluded)
+        for root in self.roots.values():
+            self.bubble_up(root, state.slice_size, state.slice_level_idx,
+                           0, leader_required=state.leader_count > 0,
+                           slice_size_at_level=state.slice_size_at_level)
+
+    def bubble_up(self, domain: _Domain, slice_size: int,
+                  slice_level_idx: int, level: int,
+                  leader_required: bool,
+                  slice_size_at_level: Optional[dict] = None) -> None:
+        """fillInCountsHelper :1906 — roll child capacities up one subtree.
+        Also used by balanced-placement pruning to re-aggregate clones.
+        With multi-layer constraints, children at a constrained level
+        contribute pods rounded down to multiples of the inner slice
+        size (:1925-1930)."""
+        if not domain.children:
+            if level == slice_level_idx:
+                domain.slice_state = domain.state // slice_size
+                domain.slice_state_with_leader = \
+                    domain.state_with_leader // slice_size
+            return
+        children_capacity = 0
+        slice_capacity = 0
+        has_leader_contributor = False
+        min_state_diff = _INF
+        min_slice_diff = _INF
+        leader_state = 0
+        inner = (slice_size_at_level or {}).get(level + 1)
+        for child in domain.children:
+            self.bubble_up(child, slice_size, slice_level_idx, level + 1,
+                           leader_required,
+                           slice_size_at_level=slice_size_at_level)
+            child_state = child.state
+            child_swl = child.state_with_leader
+            if inner:
+                child_state = (child_state // inner) * inner
+                child_swl = (child_swl // inner) * inner
+            children_capacity += child_state
+            slice_capacity += child.slice_state
+            if not leader_required or child.leader_state > 0:
+                has_leader_contributor = True
+                min_state_diff = min(min_state_diff,
+                                     child_state - child_swl)
+                min_slice_diff = min(
+                    min_slice_diff,
+                    child.slice_state - child.slice_state_with_leader)
+            leader_state = max(leader_state, child.leader_state)
+        domain.state = children_capacity
+        slice_with_leader = 0
+        if has_leader_contributor:
+            domain.state_with_leader = children_capacity - min_state_diff
+            slice_with_leader = slice_capacity - min_slice_diff
+        else:
+            domain.state_with_leader = 0
+        domain.leader_state = leader_state
+        if level == slice_level_idx:
+            slice_capacity = domain.state // slice_size
+            slice_with_leader = domain.state_with_leader // slice_size
+        domain.slice_state = slice_capacity
+        domain.slice_state_with_leader = slice_with_leader
+
+    def _sorted(self, domains: list, least_free: bool) -> list:
+        """sortedDomains :1721 — BestFit order (sliceState desc, state asc,
+        values asc), or LeastFreeCapacity ascending under the
+        TASProfileMixed unconstrained profile."""
+        if least_free:
+            return sorted(domains,
+                          key=lambda d: (d.slice_state, d.state, d.values))
+        return sorted(domains,
+                      key=lambda d: (-d.slice_state, d.state, d.values))
+
+    def _sorted_with_leader(self, domains: list,
+                            least_free: bool) -> list:
+        """sortedDomainsWithLeader :1683 — leader capacity first."""
+        if least_free:
+            return sorted(domains, key=lambda d: (
+                -d.leader_state, d.slice_state_with_leader,
+                d.state_with_leader, d.values))
+        return sorted(domains, key=lambda d: (
+            -d.leader_state, -d.slice_state_with_leader,
+            d.state_with_leader, d.values))
+
+    def _find_level_with_fit(self, level_idx: int, slice_count: int,
+                             state: _AssignState, sort_cache=None):
+        """findLevelWithFitDomains :1377. ``sort_cache`` (a _Phase1Memo
+        sorts dict, leaderless callers only) shares the per-level sorted
+        order across the heads of a cycle: selection never mutates
+        counts, and the memo's restore() reverts descent mutations
+        before the next head sorts, so the cached order stays exact."""
+        sorted_domains = None
+        cache_key = (level_idx, state.least_free)
+        if sort_cache is not None:
+            sorted_domains = sort_cache.get(cache_key)
+        if sorted_domains is None:
+            domains = list(self.domains_per_level[level_idx].values()) \
+                if self.level_keys else []
+            if not domains:
+                level_name = (self.level_keys[level_idx]
+                              if self.level_keys else "")
+                return 0, [], f"no topology domains at level: {level_name}"
+            sorted_domains = self._sorted_with_leader(domains,
+                                                     state.least_free)
+            if sort_cache is not None:
+                sort_cache[cache_key] = sorted_domains
+        top = sorted_domains[0]
+        if not state.least_free \
+                and top.slice_state_with_leader >= slice_count \
+                and top.leader_state >= state.leader_count:
+            # optimize the potentially last domain
+            top = _best_fit_for_slices(sorted_domains, slice_count,
+                                       state.leader_count)
+        if state.least_free:
+            # LeastFreeCapacity: the fullest single domain that fits.
+            # Deliberate deviation: when a leader must co-place, the
+            # single-domain scan also requires leader capacity — the
+            # reference checks only sliceState (:1402) and then emits an
+            # empty assignment when the chosen domain can't host the
+            # leader; requiring it here lets such groups fall through to
+            # the multi-domain greedy and place correctly.
+            for d in sorted_domains:
+                if d.slice_state >= slice_count and (
+                        state.leader_count == 0
+                        or (d.slice_state_with_leader >= slice_count
+                            and d.leader_state >= state.leader_count)):
+                    return level_idx, [d], ""
+        if top.slice_state_with_leader < slice_count or \
+                top.leader_state < state.leader_count:
+            if state.required:
+                return 0, [], self._not_fit(state, top.slice_state,
+                                            slice_count, level_idx)
+            if level_idx > 0 and not state.unconstrained:
+                return self._find_level_with_fit(level_idx - 1, slice_count,
+                                                 state,
+                                                 sort_cache=sort_cache)
+            # Multi-domain greedy (:1430-1469): leaders first, then the
+            # remaining domains re-sorted by worker capacity.
+            results = []
+            remaining = slice_count
+            remaining_leaders = state.leader_count
+            idx = 0
+            while remaining_leaders > 0 and idx < len(sorted_domains) \
+                    and sorted_domains[idx].leader_state > 0:
+                d = sorted_domains[idx]
+                if not state.least_free and \
+                        d.slice_state_with_leader >= remaining:
+                    d = _best_fit_for_slices(sorted_domains[idx:], remaining,
+                                             remaining_leaders)
+                results.append(d)
+                remaining_leaders -= d.leader_state
+                remaining -= d.slice_state_with_leader
+                idx += 1
+            if remaining_leaders > 0:
+                return 0, [], self._not_fit(
+                    state, state.leader_count - remaining_leaders,
+                    slice_count, level_idx)
+            # Leaderless (sort_cache) with no leader loop entered: the
+            # with-leader order degenerates to the plain order (every
+            # leader_state is 0 and *_with_leader ≡ the plain counts),
+            # so the cached list IS the re-sort — skip it.
+            if sort_cache is not None and idx == 0:
+                rest = sorted_domains
+            else:
+                rest = self._sorted(sorted_domains[idx:], state.least_free)
+            for i, d in enumerate(rest):
+                if remaining <= 0:
+                    break
+                if d.slice_state <= 0:
+                    # Zero-capacity domains contribute nothing and are
+                    # filtered at assignment build; under LeastFreeCapacity
+                    # ordering they sort FIRST, and the reference appends
+                    # them all (thousands of zero-take domains threaded
+                    # through the descent on a full cluster) — skip.
+                    continue
+                if not state.least_free and d.slice_state >= remaining:
+                    d = _best_fit_for_slices(rest[i:], remaining, 0)
+                results.append(d)
+                remaining -= d.slice_state
+            if remaining > 0:
+                return 0, [], self._not_fit(
+                    state, slice_count - remaining, slice_count, level_idx)
+            return level_idx, results, ""
+        return level_idx, [top], ""
+
+    def _update_counts_to_minimum(self, sorted_domains: list, count: int,
+                                  leader_count: int, slice_size: int,
+                                  least_free: bool,
+                                  use_slices: bool) -> Optional[list]:
+        """updateCountsToMinimumGeneric :1575 + consumeWithLeadersGeneric
+        :1518: distribute ``count`` pods (and the leader) over a minimal
+        prefix of the sorted domains, clamping each domain's state to
+        its assigned amount.
+
+        Deliberate deviation in the multi-domain leader walk: the
+        reference consumes the leader at the FIRST capable domain in
+        worker-sort order, while the phase-1 bubbling that admitted this
+        placement promised the MIN-DIFF placement (fillInCountsHelper
+        :1930 takes min(state - stateWithLeader) over capable children)
+        — so the reference's own walk can fall short of its selection
+        and abort with errCodeAssumptionsViolated on feasible worlds.
+        Here the leader (when no single domain completes the whole
+        request) lands at the capable domain minimizing lost worker
+        capacity, honoring the selection's arithmetic; the
+        single-domain tight-fit completion path is unchanged."""
+        results = []
+        rem = [count // slice_size if use_slices else count, leader_count]
+
+        def primary(d):
+            return d.slice_state if use_slices else d.state
+
+        def primary_wl(d):
+            return d.slice_state_with_leader if use_slices \
+                else d.state_with_leader
+
+        def commit(d, take, leaders):
+            d.leader_state = leaders
+            if use_slices:
+                d.slice_state = take
+                d.state = take * slice_size
+            else:
+                d.state = take
+            rem[0] -= take
+            rem[1] -= leaders
+
+        for i, dom in enumerate(sorted_domains):
+            if rem[0] <= 0 and rem[1] <= 0:
+                break
+            if rem[1] > 0:
+                # Single-domain completion (with the leader-filtered
+                # best-fit swap): the whole remainder + leader in one
+                # tight domain.
+                d = dom
+                if not least_free and primary_wl(dom) >= rem[0] \
+                        and dom.leader_state >= rem[1]:
+                    d = (_best_fit_for_slices if use_slices
+                         else _best_fit_for_pods)(
+                        sorted_domains[i:], rem[0], rem[1])
+                if primary_wl(d) >= rem[0] and d.leader_state >= rem[1]:
+                    commit(d, rem[0] + 0, rem[1])
+                    results.append(d)
+                    return results
+                # No completion here: the leader goes to the min-diff
+                # capable domain among the remainder; everything else
+                # contributes full worker capacity.
+                capable = [d2 for d2 in sorted_domains[i:]
+                           if d2.leader_state >= rem[1]]
+                if not capable:
+                    return None
+                min_dom = min(capable,
+                              key=lambda d2: primary(d2) - primary_wl(d2))
+                if dom is min_dom:
+                    commit(dom, min(primary_wl(dom), rem[0]), rem[1])
+                else:
+                    commit(dom, min(primary(dom), rem[0]), 0)
+                if dom.state > 0 or dom.leader_state > 0:
+                    results.append(dom)
+                continue
+            # No leaders remaining: tail without leaders.
+            if not least_free and primary(dom) >= rem[0]:
+                dom = (_best_fit_for_slices if use_slices
+                       else _best_fit_for_pods)(sorted_domains[i:],
+                                                rem[0], 0)
+            dom.leader_state = 0
+            if primary(dom) >= rem[0]:
+                commit(dom, rem[0] + 0, 0)
+                results.append(dom)
+                return results
+            commit(dom, primary(dom), 0)
+            if dom.state > 0:
+                results.append(dom)
+        if rem[0] > 0 or rem[1] > 0:
+            return None  # accounting violated upstream
+        return results
+
+    def _not_fit(self, state: _AssignState, fit: int, want: int,
+                 level_idx: int) -> str:
+        """notFitReason closure of findLevelWithFitDomains :1394."""
+        if state.multi_layer:
+            return self._multi_layer_not_fit_message(
+                level_idx, state.count, state.multi_layer, state.stats())
+        return self._not_fit_message(fit, want, state.slice_size,
+                                     state.stats())
+
     def _not_fit_message(self, fit: int, want: int, slice_size: int = 1,
                          stats: Optional[ExclusionStats] = None) -> str:
-        """notFitMessage: quantities in slice units when slices are
-        requested, with the exclusion-stats tail."""
+        """notFitMessage :1971 — quantities in slice units when slices
+        are requested, with the exclusion-stats tail."""
         unit = "pod" if slice_size == 1 else "slice"
         if fit == 0:
             msg = (f'topology "{self.topology_name}" doesn\'t allow to fit '
@@ -632,3 +1654,107 @@ class TASFlavorSnapshot:
             msg += (f". Total nodes: {stats.total_nodes}; "
                     f"excluded: {stats.format_reasons()}")
         return msg
+
+    def _multi_layer_not_fit_message(self, level_idx: int, count: int,
+                                     constraints: tuple,
+                                     stats: Optional[ExclusionStats]
+                                     ) -> str:
+        """multiLayerNotFitMessage :2004: per-layer best-case fit counts
+        from the best domain at the required level."""
+        msg = f'topology "{self.topology_name}" doesn\'t allow to fit'
+        best = None
+        for d in self.domains_per_level[level_idx].values():
+            if best is None or d.slice_state > best.slice_state or (
+                    d.slice_state == best.slice_state and d.id < best.id):
+                best = d
+        if best is None:
+            return msg
+        for layer_key, layer_size in constraints:
+            if layer_key not in self.level_keys:
+                continue
+            target_idx = self.level_keys.index(layer_key)
+            needed = count // layer_size
+            fit = _count_slices_in_subtree(best, level_idx, target_idx,
+                                           layer_size)
+            msg += f"; {fit}/{needed} slice(s) fit on level {layer_key}"
+        if stats is not None and stats.has_exclusions():
+            msg += (f". Total nodes: {stats.total_nodes}; "
+                    f"excluded: {stats.format_reasons()}")
+        return msg
+
+
+def _count_slices_in_subtree(d, current_level: int, target_level: int,
+                             slice_size: int) -> int:
+    """countSlicesInSubtree :1993."""
+    if current_level == target_level:
+        return d.state // slice_size
+    return sum(_count_slices_in_subtree(c, current_level + 1, target_level,
+                                        slice_size) for c in d.children)
+
+
+def _best_fit_by(sorted_domains: list, needed: int, cap, ok=None):
+    """findBestFitDomainBy :1355: the FIRST domain with the lowest
+    capacity >= needed; the first (most-capacity) domain if none fit.
+    ``ok`` is an extra candidacy filter (see the deviation below)."""
+    best = sorted_domains[0]
+    best_cap = cap(best)
+    for d in sorted_domains:
+        c = cap(d)
+        if c >= needed and c < best_cap and (ok is None or ok(d)):
+            best = d
+            best_cap = c
+    return best
+
+
+def _best_fit_for_slices(sorted_domains: list, slice_count: int,
+                         leader_count: int):
+    """findBestFitDomainForSlices :1342. Deliberate deviation: when a
+    leader must co-place, only leader-capable domains are best-fit
+    candidates — the reference filters on sliceStateWithLeader alone,
+    and (since stateWithLeader == state for leaderless domains,
+    fillLeafCounts :1897) can swap in a smaller domain that cannot host
+    the leader and then fail a placement that fits (review repro:
+    2 hosts, the leader-infeasible one barely covers the workers)."""
+    if leader_count > 0:
+        return _best_fit_by(
+            sorted_domains, slice_count,
+            lambda d: d.slice_state_with_leader,
+            ok=lambda d: d.leader_state >= leader_count)
+    return _best_fit_by(sorted_domains, slice_count,
+                        lambda d: d.slice_state)
+
+
+def _best_fit_for_pods(sorted_domains: list, count: int, leader_count: int):
+    """findBestFitDomain :1326 — pod-count flavor of the above, same
+    leader-capability deviation."""
+    if leader_count > 0:
+        return _best_fit_by(sorted_domains, count,
+                            lambda d: d.state_with_leader,
+                            ok=lambda d: d.leader_state >= leader_count)
+    return _best_fit_by(sorted_domains, count, lambda d: d.state)
+
+
+
+def _find_leader_and_workers(trs: list[TASPodSetRequest]):
+    """findLeaderAndWorkers :729 — in a 2-pod-set group the smaller-count
+    pod set is the leader."""
+    workers = trs[0]
+    leader = None
+    if len(trs) > 1:
+        leader = trs[1]
+        if leader.count > workers.count:
+            leader, workers = workers, leader
+    return leader, workers
+
+
+
+def _add_assumed(assumed: dict, assignment: TopologyAssignment,
+                 tr: TASPodSetRequest) -> None:
+    """addAssumedUsage :799."""
+    if assignment is None:
+        return
+    for dom in assignment.domains:
+        bucket = assumed.setdefault(tuple(dom.values), {})
+        for res, per_pod in tr.single_pod_requests.items():
+            bucket[res] = bucket.get(res, 0) + per_pod * dom.count
+        bucket["pods"] = bucket.get("pods", 0) + dom.count

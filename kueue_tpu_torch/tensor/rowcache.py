@@ -25,8 +25,8 @@ The cache is advisory: the engine bridge uses it when present, and the
 from-scratch encoder (tensor/schema.encode_workloads) remains both the
 fallback and the differential oracle (tests/test_rowcache.py).
 
-Copied from ``kueue_tpu/tensor/rowcache.py`` without the per-row TAS
-request signatures (TAS inside the engine is not ported).
+Copied from ``kueue_tpu/tensor/rowcache.py`` without the admission
+fair-sharing sort key and the perf spans.
 """
 
 from __future__ import annotations
@@ -86,6 +86,11 @@ class WorkloadRowCache:
         self._free: list[int] = list(range(self._cap - 1, -1, -1))
         self.info_of: list[Optional[WorkloadInfo]] = [None] * self._cap
         self._hash_tuple: list = [None] * self._cap
+        # Per-row TAS request signatures (tas/feasibility.request_
+        # signature per pod set), computed lazily by tas_requests() and
+        # carried across cycles like _hash_tuple — the batched TAS
+        # planner re-reads only rows that re-encoded.
+        self._tas_req: list = [None] * self._cap
         self._dirty: set[int] = set()
         self._hashes = _HashRegistry()
         # Monotone mutation counter: bumped on every structural change
@@ -117,6 +122,10 @@ class WorkloadRowCache:
         # [cap, NF]: per-flavor eligibility (taints/selectors/affinity),
         # sized at bind_world.
         self.flavor_ok = None
+        # Stable digest of the row's TAS request signatures (0 = not
+        # computed / no pod sets): a cheap cross-cycle change marker
+        # for diagnostics; decisions read the _tas_req tuples.
+        self.tas_sig = np.zeros(self._cap, np.int64)
 
     # -- queue transition hooks (O(1) amortized) --
 
@@ -193,6 +202,8 @@ class WorkloadRowCache:
         if h is not None:
             self._hashes.release(h)
             self._hash_tuple[i] = None
+        self._tas_req[i] = None
+        self.tas_sig[i] = 0
         self.key_seq[i] = np.int64(1) << 60
         self.requeue_at[i] = -_INF_TS
         self._dirty.discard(i)
@@ -211,6 +222,7 @@ class WorkloadRowCache:
         row_pop = self._row_of.pop
         info_of = self.info_of
         hash_tuple = self._hash_tuple
+        tas_req = self._tas_req
         dirty_discard = self._dirty.discard
         free_append = self._free.append
         append = rows.append
@@ -241,12 +253,14 @@ class WorkloadRowCache:
                     else:
                         count[hid] = c
                 hash_tuple[i] = None
+            tas_req[i] = None
             dirty_discard(i)
             free_append(i)
         if not rows:
             return
         idx = np.asarray(rows, np.int64)
         self.active[idx] = False
+        self.tas_sig[idx] = 0
         self.key_seq[idx] = np.int64(1) << 60
         self.requeue_at[idx] = -_INF_TS
 
@@ -262,7 +276,7 @@ class WorkloadRowCache:
         self._cap = new_cap
         for name in ("priority", "timestamp", "has_qr", "requeue_at",
                      "active", "key_negpri", "key_ts",
-                     "key_seq", "cq", "eligible", "hash_id"):
+                     "key_seq", "cq", "eligible", "hash_id", "tas_sig"):
             arr = getattr(self, name)
             fill = {"requeue_at": -_INF_TS, "cq": -1,
                     "key_seq": np.int64(1) << 60}.get(name, 0)
@@ -278,6 +292,7 @@ class WorkloadRowCache:
             self.flavor_ok = fo
         self.info_of.extend([None] * (new_cap - old))
         self._hash_tuple.extend([None] * (new_cap - old))
+        self._tas_req.extend([None] * (new_cap - old))
         self._free.extend(range(new_cap - 1, old - 1, -1))
 
     def maybe_compact(self) -> None:
@@ -292,7 +307,7 @@ class WorkloadRowCache:
         remap = {old: new for new, old in enumerate(keep)}
         for name in ("priority", "timestamp", "has_qr", "requeue_at",
                      "active", "key_negpri", "key_ts",
-                     "key_seq", "cq", "eligible", "hash_id"):
+                     "key_seq", "cq", "eligible", "hash_id", "tas_sig"):
             arr = getattr(self, name)
             fill = {"requeue_at": -_INF_TS, "cq": -1,
                     "key_seq": np.int64(1) << 60}.get(name, 0)
@@ -312,6 +327,8 @@ class WorkloadRowCache:
         self.info_of = [self.info_of[i] for i in keep] + \
             [None] * (new_cap - used)
         self._hash_tuple = [self._hash_tuple[i] for i in keep] + \
+            [None] * (new_cap - used)
+        self._tas_req = [self._tas_req[i] for i in keep] + \
             [None] * (new_cap - used)
         self._row_of = {k: remap[i] for k, i in self._row_of.items()}
         self._dirty = {remap[i] for i in self._dirty if i in remap}
@@ -369,6 +386,10 @@ class WorkloadRowCache:
                 self._hashes.release(old_h)
             self.hash_id[i] = self._hashes.acquire(h)
             self._hash_tuple[i] = h
+        # A re-encode means the info (and so its pod-set requests) may
+        # have changed; the TAS side table recomputes on next use.
+        self._tas_req[i] = None
+        self.tas_sig[i] = 0
         ci = cq_idx.get(info.cluster_queue, -1)
         self.cq[i] = ci
         self.requests[i] = 0
@@ -379,7 +400,9 @@ class WorkloadRowCache:
         )
         # Serving rows use the RELAXED predicate: node filters become a
         # per-flavor mask consumed by the cycle kernel instead of
-        # demoting the row (round-4 verdict ask #4: head-ineligible).
+        # demoting the row (round-4 verdict ask #4: head-ineligible),
+        # and topology requests stay on device when the batched TAS
+        # planner is on (it nominates placements pre-kernel).
         eligible = ci >= 0 and serving_shape_eligible(info)
         if eligible and self.flavor_ok is not None:
             mask = flavor_eligibility_mask(info, world)
@@ -414,6 +437,37 @@ class WorkloadRowCache:
             if self.info_of[i] is not None:
                 self._encode_row(i, world, cq_idx, s_idx)
         self._dirty.clear()
+
+    def tas_requests(self, i: int) -> tuple:
+        """Per-podset TAS request tuples for a row — (pod_set_name,
+        request_signature, single_pod_requests, count, group_name) per
+        pod set — computed once and carried across cycles with the row
+        (invalidated by _encode_row / on_remove, remapped on compact).
+        The batched TAS planner's collect phase becomes incremental:
+        unchanged retried heads cost a list lookup, not a signature
+        rebuild."""
+        ent = self._tas_req[i]
+        if ent is None:
+            info = self.info_of[i]
+            if info is None:
+                return ()
+            from kueue_tpu_torch.tas.feasibility import request_signature
+            out = []
+            for p, psr in enumerate(info.total_requests):
+                ps = info.obj.pod_sets[p]
+                single = psr.single_pod_requests()
+                tr = ps.topology_request
+                out.append((ps.name,
+                            request_signature(ps, single, psr.count),
+                            single, psr.count,
+                            tr.pod_set_group_name if tr is not None
+                            else None))
+            ent = tuple(out)
+            self._tas_req[i] = ent
+            import zlib
+            self.tas_sig[i] = zlib.crc32(repr(
+                [(e[0], e[1], e[4]) for e in ent]).encode())
+        return ent
 
     def refresh_held(self, now: float) -> None:
         """Re-read requeue-at for rows currently held back: eviction

@@ -576,15 +576,24 @@ def _dense_shape_eligible_impl(info) -> bool:
 
 def serving_shape_eligible(info) -> bool:
     """Shape eligibility for SERVING rows (tensor/rowcache.py). Same as
-    _dense_shape_eligible, except a topology request does not demote the
-    row (the JAX package's batched TAS planner nominates its placement;
-    the port's engine refuses topology requests at submit). Memoized
-    per info."""
+    _dense_shape_eligible, except a topology request no longer demotes
+    the row when the batched TAS planner (tas/batched.py) is on: the
+    planner nominates a placement per head before the cycle kernel and
+    demotes — per head, with a reason — only what it cannot express.
+    Whole-drain encoders keep the strict predicate: they don't run the
+    planner, so a topology row there would admit without a placement.
+    Memoized per (info, planner-enabled) — KUEUE_TPU_TAS_BATCH toggles
+    between engine builds in tests."""
+    from kueue_tpu_torch.tas.batched import enabled
+    flag = enabled()
     cached = getattr(info, "_serving_shape_elig", None)
-    if cached is not None:
-        return cached
-    out = _serving_shape_eligible_impl(info)
-    info._serving_shape_elig = out
+    if cached is not None and cached[0] == flag:
+        return cached[1]
+    if not flag:
+        out = _dense_shape_eligible(info)
+    else:
+        out = _serving_shape_eligible_impl(info)
+    info._serving_shape_elig = (flag, out)
     return out
 
 

@@ -3,12 +3,13 @@ its OracleBridge over a TorchExecutor on the CPU) against the JAX
 package's engine, cycle by cycle.
 
 ``MirroredEngine`` is the JAX engine with a port engine beside it: every
-create_*, submit, finish, tick, attach_oracle and clock change a test
-makes is made on both (API objects carried across with their uid), and
-every schedule_once runs both and asserts, in order, equal decision
-streams (admitted entries with their flavors, preempted keys, stats),
-the same path (device, hybrid or sequential) and equal bridge counters
-and reasons. Patched in as the reference tests' ``Engine``, it runs
+create_*, delete_node, submit, finish, tick, attach_oracle and clock
+change a test makes is made on both (API objects carried across with
+their uid), and every schedule_once runs both and asserts, in order,
+equal decision streams (admitted entries with their flavors and
+topology placements, preempted keys, stats), the same path (device,
+hybrid or sequential) and equal bridge counters, reasons and TAS
+planner stats. Patched in as the reference tests' ``Engine``, it runs
 their own worlds and call sequences; when the test ends, every workload's
 outcome and the event streams must be equal too. Exact throughout."""
 
@@ -26,10 +27,15 @@ from kueue_tpu.controllers.engine import Engine as JEngine
 from kueue_tpu.ops import assign as jassign
 from kueue_tpu_torch import carry
 from kueue_tpu_torch.bench.engine_worlds import decision_stream
+from kueue_tpu_torch.bench.tas_engine_worlds import placement_stream
 from kueue_tpu_torch.controllers.engine import Engine as PEngine
 from kueue_tpu_torch.ops import assign as tassign
 
 _ENGINES: list = []
+
+
+_TAS_STATS = ("plan_cycles", "heads_planned", "placed_device",
+              "placed_host", "memo_hits", "commit_drops")
 
 
 def _bridge_state(eng):
@@ -37,7 +43,17 @@ def _bridge_state(eng):
     if b is None:
         return None
     return (b.cycles_on_device, b.cycles_hybrid, b.cycles_fallback,
-            dict(b.fallback_reasons), dict(b.host_root_reasons))
+            dict(b.fallback_reasons), dict(b.host_root_reasons),
+            {k: b.tas_stats[k] for k in _TAS_STATS},
+            dict(b.tas_heads_per_launch))
+
+
+def _topology(psa):
+    ta = psa.topology_assignment
+    if ta is None:
+        return None
+    return tuple(ta.levels), tuple((tuple(d.values), d.count)
+                                   for d in ta.domains)
 
 
 def outcome(wl):
@@ -45,7 +61,8 @@ def outcome(wl):
     return (wl.is_admitted, wl.is_finished, wl.is_evicted,
             wl.status.requeue_count, dict(wl.status.eviction_counts),
             None if adm is None else (adm.cluster_queue, tuple(
-                (psa.name, psa.count, tuple(sorted(psa.flavors.items())))
+                (psa.name, psa.count, tuple(sorted(psa.flavors.items())),
+                 _topology(psa))
                 for psa in adm.pod_set_assignments)),
             tuple(sorted((c.value, cond.status, cond.reason)
                          for c, cond in wl.status.conditions.items())))
@@ -55,7 +72,8 @@ class MirroredEngine(JEngine):
     """The JAX engine driving a port engine through the same calls."""
 
     def __init__(self, enable_fair_sharing=False, **kw):
-        self.port = PEngine(enable_fair_sharing=enable_fair_sharing)
+        self.port = PEngine(enable_fair_sharing=enable_fair_sharing,
+                            device="cpu")
         self.cycles = 0
         super().__init__(enable_fair_sharing=enable_fair_sharing, **kw)
         _ENGINES.append(self)
@@ -85,6 +103,18 @@ class MirroredEngine(JEngine):
         super().create_local_queue(lq)
         self.port.create_local_queue(carry.api_object(lq))
 
+    def create_topology(self, topology):
+        super().create_topology(topology)
+        self.port.create_topology(carry.api_object(topology))
+
+    def create_node(self, node):
+        super().create_node(node)
+        self.port.create_node(carry.api_object(node))
+
+    def delete_node(self, name):
+        super().delete_node(name)
+        self.port.delete_node(name)
+
     def submit(self, wl):
         pw = carry.api_object(wl)
         assert pw.uid == wl.uid
@@ -113,6 +143,7 @@ class MirroredEngine(JEngine):
         self.cycles += 1
         where = f"cycle {self.cycles}"
         assert decision_stream(got) == decision_stream(want), where
+        assert placement_stream(got) == placement_stream(want), where
         assert ([[t.workload.key for t in e.preemption_targets]
                  for e in (got.entries if got else ())]
                 == [[t.workload.key for t in e.preemption_targets]
@@ -399,23 +430,47 @@ def test_executor_error_propagates():
 
 
 def test_topologies_are_refused():
+    """Topologies, TAS flavors, nodes and topology requests are taken;
+    what the port leaves out of TAS (non-TAS pod usage, node failure and
+    replacement, elastic slices, balanced placement) raises."""
     from kueue_tpu_torch.api.types import (
         PodSet,
         PodSetTopologyRequest,
         ResourceFlavor,
+        Topology,
+        TopologyLevel,
         Workload,
     )
+    from kueue_tpu_torch.tas.snapshot import (
+        HOSTNAME_LABEL,
+        Node,
+        TASFlavorSnapshot,
+        TASPodSetRequest,
+        TopologyAssignment,
+    )
 
-    eng = PEngine()
+    eng = PEngine(device="cpu")
+    eng.create_topology(Topology("topo", (TopologyLevel(HOSTNAME_LABEL),)))
+    eng.create_resource_flavor(ResourceFlavor("tas", topology_name="topo"))
+    eng.create_node(Node("n0", labels={HOSTNAME_LABEL: "n0"},
+                         capacity={"cpu": 4}))
+    eng.submit(Workload(name="t", pod_sets=(PodSet(
+        "main", 1, {"cpu": 1},
+        topology_request=PodSetTopologyRequest()),)))
+    assert "default/t" in eng.workloads
+    eng.delete_node("n0")
+    assert "n0" not in eng.cache.nodes
     with pytest.raises(NotImplementedError):
-        eng.create_topology(object())
+        eng.observe_pod(object())
     with pytest.raises(NotImplementedError):
-        eng.create_resource_flavor(ResourceFlavor("tas",
-                                                  topology_name="topo"))
+        eng.mark_node_unhealthy("n0")
+    snap = TASFlavorSnapshot(Topology("topo", (
+        TopologyLevel(HOSTNAME_LABEL),)), device="cpu")
+    elastic = TASPodSetRequest(
+        PodSet("main", 1, {"cpu": 1}), {"cpu": 1}, 1,
+        previous_assignment=TopologyAssignment((HOSTNAME_LABEL,), ()))
     with pytest.raises(NotImplementedError):
-        eng.submit(Workload(name="t", pod_sets=(PodSet(
-            "main", 1, {"cpu": 1},
-            topology_request=PodSetTopologyRequest()),)))
+        snap.find_topology_assignments_for_flavor([elastic])
 
 
 def test_admission_fair_sharing_is_refused():

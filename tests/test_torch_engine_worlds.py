@@ -19,6 +19,7 @@ from kueue_tpu.api import types as jtypes
 from kueue_tpu.bench import scenario as jscenario
 from kueue_tpu.controllers.engine import Engine as JEngine
 from kueue_tpu_torch.bench import engine_worlds as ew
+from kueue_tpu_torch.bench import tas_engine_worlds as tw
 
 QUARTER_EXPECT = {
     "cycle_latency": dict(
@@ -65,26 +66,37 @@ def test_quarter_runs_match_jax(jax_kit, name):
 _PORT_RUNS = """
 import json
 from kueue_tpu_torch.bench import engine_worlds as ew
-print(json.dumps({n: {k: ew.run(ew.QUARTER[n], kit=ew.port_kit("cpu"))[k]
-                      for k in ew.PINNED}
-                  for n in ("preempt_churn", "multiflavor")}))
+from kueue_tpu_torch.bench import tas_engine_worlds as tw
+out = {n: {k: ew.run(ew.QUARTER[n], kit=ew.port_kit("cpu"))[k]
+           for k in ew.PINNED}
+       for n in ("preempt_churn", "multiflavor")}
+out["tas_churn"] = tw.pinned_numbers(tw.run(
+    tw.QUARTER["tas_churn"], "device", kit=ew.port_kit("cpu")))
+print(json.dumps(out))
 """
 
 
 @pytest.mark.parametrize("hash_seed", ["0", "1", "4242"])
-def test_port_runs_ignore_hash_seed(hash_seed):
+def test_port_runs_ignore_hash_seed(hash_seed, tmp_path):
     """The admitted rows that order victims are numbered in the
     iteration order of a set of strings, which follows the process's
-    hash seed: the preempting runs give the pinned numbers in a process
-    of any seed."""
+    hash seed, and TAS requests are keyed by signatures holding
+    frozensets: the preempting runs and the quarter-size TAS churn (its
+    feasibility launches, planner batches and hybrid cycles) give the
+    pinned numbers in a process of any seed."""
+    from test_torch_tas_engine_worlds import QUARTER_EXPECT as TAS_EXPECT
+
     root = pathlib.Path(__file__).resolve().parents[1]
-    env = dict(os.environ, PYTHONHASHSEED=hash_seed, PYTHONPATH=str(root))
+    env = dict(os.environ, PYTHONHASHSEED=hash_seed, PYTHONPATH=str(root),
+               KUEUE_TPU_TORCH_TAS_CALIBRATION=str(tmp_path / "port.json"))
     out = subprocess.run([sys.executable, "-c", _PORT_RUNS], cwd=root,
                          env=env, capture_output=True, text=True,
                          timeout=300, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {n: QUARTER_EXPECT[n]
-                   for n in ("preempt_churn", "multiflavor")}
+    assert got == {**{n: QUARTER_EXPECT[n]
+                      for n in ("preempt_churn", "multiflavor")},
+                   "tas_churn": tw.arm_expect(TAS_EXPECT["tas_churn"],
+                                              "device")}
 
 
 @pytest.mark.slow

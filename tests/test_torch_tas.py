@@ -127,6 +127,15 @@ def _port_phase1_args(w):
             t["valid"], t["parent"])
 
 
+def _port_phase1(free, usage, assumed, per_pod, leader, mask, *rest,
+                 slice_size, **kw):
+    """The port's batched phase 1 on one row, as [NL, M] arrays."""
+    out = ttas._phase1(free, usage, assumed, per_pod[None], leader[None],
+                       mask[None], *rest,
+                       torch.tensor([slice_size], dtype=torch.int64), **kw)
+    return tuple(x[:, 0] for x in out)
+
+
 @pytest.mark.parametrize("seed", range(12))
 @pytest.mark.parametrize("has_leader", [False, True],
                          ids=["no_leader", "leader"])
@@ -141,7 +150,7 @@ def test_phase1_matches(seed, has_leader):
               has_leader=has_leader)
     want = jtas._phase1(*map(jnp.asarray, _phase1_args(w)), slice_size,
                         **kw)
-    got = ttas._phase1(*_port_phase1_args(w), slice_size, **kw)
+    got = _port_phase1(*_port_phase1_args(w), slice_size=slice_size, **kw)
     _same(got, want)
 
 
@@ -222,8 +231,8 @@ def test_rank_of_multi_key_ties(n_keys):
     keys = [rng.integers(-2, 2, M).astype(np.int64) for _ in range(n_keys)]
     keys[-1][::3] = 7  # a last key tied across a third of the slots
     want = jtas._rank_of(tuple(map(jnp.asarray, keys)), M)
-    got = ttas._rank_of(tuple(map(_t, keys)), M)
-    _same(got, want)
+    got = ttas._rank_of(tuple(_t(k)[None] for k in keys))
+    _same(tuple(x[0] for x in got), want)
 
 
 def _empty_segment_forest():
@@ -265,9 +274,9 @@ def test_empty_segments_keep_int64_extremes(has_leader):
     want = jtas._phase1(*map(jnp.asarray, (
         f["free"], f["usage"], zeros, per_pod, leader, mask,
         f["has_pods_cap"], f["valid"], f["parent"])), 1, **kw)
-    got = ttas._phase1(t["free"], t["usage"], _t(zeros), _t(per_pod),
+    got = _port_phase1(t["free"], t["usage"], _t(zeros), _t(per_pod),
                        _t(leader), _t(mask), t["has_pods_cap"], t["valid"],
-                       t["parent"], 1, **kw)
+                       t["parent"], slice_size=1, **kw)
     _same(got, want)
     if has_leader:
         assert int(got[4][0, 1]) == -(1 << 63)
@@ -276,6 +285,14 @@ def test_empty_segments_keep_int64_extremes(has_leader):
         [3, (1 << 63) - 1, 1]
     assert ttas._segment_max(torch.tensor([5, 3, 1]), seg, 3).tolist() == \
         [5, -(1 << 63), 1]
+    # Over a batch axis, row b's segments are b * nseg + seg: a row's
+    # empty segment keeps the identity whatever the other rows hold.
+    bseg = torch.tensor([[0, 0, 2], [1, 1, 1]])
+    bdata = torch.tensor([[5, 3, 1], [4, 6, 2]])
+    assert ttas._bseg_min(bdata, bseg, 3).tolist() == \
+        [[3, (1 << 63) - 1, 1], [(1 << 63) - 1, 2, (1 << 63) - 1]]
+    assert ttas._bseg_max(bdata, bseg, 3).tolist() == \
+        [[5, -(1 << 63), 1], [-(1 << 63), 6, -(1 << 63)]]
     for mode in ("required", "preferred", "unconstrained"):
         pk = dict(num_levels=2, max_domains=8, pods_col=1,
                   req_level=0 if mode != "unconstrained" else 1,

@@ -5,7 +5,10 @@ directly as tests/test_tas_device.py's assert_same calls it, on the CPU.
 The worlds and requests are the reference suite's own (random_world,
 random_request), built with the JAX package and copied into the port's
 snapshot leaf by leaf. Exact: the same assignments (leaf values and pod
-counts) and the same failure strings, character for character."""
+counts) and the same failure strings, character for character. Every
+test pins the port's placements to the device program
+(KUEUE_TPU_DEVICE_TAS_MIN=0); the host descent's parity is
+tests/test_torch_tas_host.py's."""
 
 import random
 
@@ -23,6 +26,12 @@ from kueue_tpu_torch.cache.queues import scheduling_hash
 from kueue_tpu_torch.tas import snapshot as psnapshot
 from kueue_tpu_torch.tensor import schema
 from kueue_tpu_torch.workload_info import WorkloadInfo
+
+
+@pytest.fixture(autouse=True)
+def device_path(monkeypatch):
+    """The port's find_topology_assignments takes the device program."""
+    monkeypatch.setenv("KUEUE_TPU_DEVICE_TAS_MIN", "0")
 
 
 def port_snapshot(jsnap):
@@ -180,6 +189,11 @@ def test_usage_changes_are_seen():
 
 @pytest.mark.parametrize("seed", range(4))
 def test_leader_requests_raise(seed):
+    """The device program takes no leader: the port's try_find returns
+    NotImplemented as the JAX package's does, and the placement falls to
+    the host descent, which gives the JAX package's host result."""
+    from kueue_tpu_torch.tas import device as pdevice
+
     rng = random.Random(1000 + seed)
     jsnap = ref.random_world(rng, ref.TOPOLOGY3)
     jreq = ref.random_request(rng, jsnap, name="workers")
@@ -188,29 +202,37 @@ def test_leader_requests_raise(seed):
     jleader = jsnapshot.TASPodSetRequest(leader_ps, {"cpu": 100}, 1)
     assert jdevice.try_find(jsnap, jreq, jleader) is NotImplemented
     psnap = port_snapshot(jsnap)
-    with pytest.raises(NotImplementedError):
-        psnap.find_topology_assignments(port_request(jreq),
-                                        port_request(jleader))
+    assert pdevice.try_find(psnap, port_request(jreq),
+                            port_request(jleader)) is NotImplemented
+    before = psnap.device_placements
+    got = psnap.find_topology_assignments(port_request(jreq),
+                                          port_request(jleader))
+    assert psnap.device_placements == before
+    assert plain(got) == plain(jsnap.find_topology_assignments_host(
+        jreq, jleader))
 
 
 def test_unported_corners_raise():
+    """Multi-layer slices take the host descent (the JAX package's
+    result); elastic slices and balanced placement are left out and
+    raise."""
     jsnap = ref.random_world(random.Random(5), ref.TOPOLOGY3)
     psnap = port_snapshot(jsnap)
-    multi = ptypes.PodSet("main", 8, {"cpu": 100},
-                          topology_request=ptypes.PodSetTopologyRequest(
-                              mode=ptypes.TopologyMode.REQUIRED,
-                              level="block",
-                              slice_constraints=(("rack", 4),
-                                                 (jsnapshot.HOSTNAME_LABEL,
-                                                  2))))
-    with pytest.raises(NotImplementedError):
-        psnap.find_topology_assignments(
-            psnapshot.TASPodSetRequest(multi, {"cpu": 100}, 8))
+    jmulti = jtypes.PodSet("main", 8, {"cpu": 100},
+                           topology_request=jtypes.PodSetTopologyRequest(
+                               mode=jtypes.TopologyMode.REQUIRED,
+                               level="block",
+                               slice_constraints=(("rack", 4),
+                                                  (jsnapshot.HOSTNAME_LABEL,
+                                                   2))))
+    jreq = jsnapshot.TASPodSetRequest(jmulti, {"cpu": 100}, 8)
+    assert plain(psnap.find_topology_assignments(port_request(jreq))) \
+        == plain(jsnap.find_topology_assignments_host(jreq))
     elastic = psnapshot.TASPodSetRequest(
         ptypes.PodSet("main", 2, {"cpu": 100}), {"cpu": 100}, 2,
         previous_assignment=psnapshot.TopologyAssignment((), ()))
     with pytest.raises(NotImplementedError):
-        psnap.find_topology_assignments(elastic)
+        psnap.find_topology_assignments_for_flavor([elastic])
 
 
 def test_resolution_failures_match():
