@@ -69,12 +69,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      and p95 s/cycle, the planner's encode, place and decode seconds,
      tas_place_batch calls and heads per call, and the crossover probe
      (one host descent against one device placement on the world's
-     forest).
+     forest);
+ 17-18. the mixed serving worlds (kueue_tpu_torch/bench/mixed_worlds.py
+     FULL): bench.py's bench_mixed (30 roots x 4 ClusterQueues, plain,
+     multi-flavor and TAS roots in one engine, 10,000 workloads) drained
+     once, and afs_serving (the cycle_latency world under admission fair
+     sharing with 4 tenant LocalQueues per ClusterQueue, priority
+     classes and a provisioning admission check on half the queues, 1 +
+     8 cycles with check outcomes, finishes and arrivals between them);
+     each against the JAX engine's cycles, reservations, evictions,
+     finishes, decision-stream and placement crc32, device / hybrid /
+     fallback cycles, slot-override cycles, reasons and final
+     LocalQueue usage, with the heads kernel launched once per device
+     cycle and held against its plain version on the run's first-cycle
+     inputs; each prints p50 and p95 s/cycle and the mean encode / sim /
+     device / apply / finalize phases.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
 tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
-tests/test_torch_engine_worlds.py and
-tests/test_torch_tas_engine_worlds.py recompute them). The last two lines are a JSON summary of the kernels
+tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py
+and tests/test_torch_mixed_worlds.py recompute them). The last two lines are a JSON summary of the kernels
 and the result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -165,6 +179,22 @@ TAS_ENGINE_EXPECT = {
         placements=0xd60b382d, on_device=13, hybrid=13, fallback=33,
         host_root_reasons={"tas-commit-conflict": 13, "tas-no-fit": 32},
         placed=154, memo_hits=0, commit_drops=0, batch_calls=70),
+}
+# The mixed serving worlds (kueue_tpu_torch/bench/mixed_worlds.py FULL):
+# the JAX engine's numbers on the same worlds and calls, with its serial
+# cycle loop (tests/test_torch_mixed_worlds.py recomputes them).
+MIXED_EXPECT = {
+    "mixed_world": dict(
+        cycles=101, admitted=7041, preempting=0, evicted=0, finished=0,
+        checksum=0xf5d45a83, placements=0x0396321a, on_device=101,
+        hybrid=82, fallback=1, overridden=98,
+        host_root_reasons={"sim-multi-podset": 57, "tas-preemption": 504},
+        fallback_reasons={"idle-inadmissible": 1}, afs_usage=0),
+    "afs_serving": dict(
+        cycles=9, admitted=9000, preempting=0, evicted=400, finished=7600,
+        checksum=0x0c8d9fbc, placements=0x7498a0d8, on_device=9,
+        hybrid=0, fallback=0, overridden=0, host_root_reasons={},
+        fallback_reasons={}, afs_usage=0xdd3128cf),
 }
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
@@ -659,6 +689,47 @@ def phase_tas_engine(name, heads, pk, card, sms):
     return launches
 
 
+def phase_mixed(name, heads, pk, card, sms):
+    """One run of kueue_tpu_torch/bench/mixed_worlds.py through
+    Engine.schedule_once against the JAX engine's pinned numbers, with
+    the heads kernel launched once per device cycle and held against its
+    plain version on the run's first-cycle inputs. Returns its heads
+    launches."""
+    from kueue_tpu_torch.bench import mixed_worlds as mw
+
+    box = {}
+    heads.launches = 0
+    t0 = time.perf_counter()
+    eff_t, cq_t, C = pk.first_heads_inputs(
+        lambda: box.update(r=mw.run(mw.FULL[name])))
+    total_s = time.perf_counter() - t0
+    launches = heads.launches
+    r = box["r"]
+    got = {k: r[k] for k in mw.PINNED}
+    print("  " + " ".join(
+        f"{k}=0x{v:08x}" if k in ("checksum", "placements", "afs_usage")
+        else f"{k}={v}" for k, v in got.items()))
+    if got != MIXED_EXPECT[name]:
+        raise AssertionError(f"{name}: got {got}, want {MIXED_EXPECT[name]}")
+    if launches != r["on_device"]:
+        raise AssertionError(f"{name}: heads kernel launched {launches} "
+                             f"times in {r['on_device']} device cycles")
+    check_heads(heads, f"{name} first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+    times = sorted(r["cycle_seconds"])
+    p50 = times[len(times) // 2]
+    p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
+    mean = {ph: sum(p.get(ph, 0.0) for p in r["phases"]) / len(r["phases"])
+            * 1e3 for ph in ("encode", "sim", "device", "apply", "finalize",
+                             "tas_place")}
+    print(f"  timed_cycles={len(times)} p50_s={p50:.4f} "
+          f"p95_s={p95:.4f} mean_phases_ms="
+          + ",".join(f"{k}:{v:.3f}" for k, v in mean.items())
+          + f" outcomes={r['outcomes']} run_s={total_s:.2f} "
+          f"heads_launches={launches} | {card}")
+    return launches
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -772,6 +843,9 @@ def main() -> int:
         print(f"[{i}] serving engine, TAS: {name}")
         by_path[f"{name}_engine"] = phase_tas_engine(name, heads, pk, card,
                                                      sms)
+    for i, name in enumerate(("mixed_world", "afs_serving"), start=17):
+        print(f"[{i}] serving engine, mixed: {name}")
+        by_path[name] = phase_mixed(name, heads, pk, card, sms)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="heads_segment_min", route="cuda",

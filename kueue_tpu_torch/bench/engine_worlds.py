@@ -28,14 +28,18 @@ from typing import Callable
 class Kit:
     """What a world is built with: ``types`` (the API types module),
     ``scenario`` (the scenario generators module), ``engine(fair)`` a
-    new engine, ``attach(engine)`` attaching its oracle and ``tas`` the
-    TAS snapshot module (its ``Node`` and ``HOSTNAME_LABEL``)."""
+    new engine, ``attach(engine)`` attaching its oracle, ``tas`` the
+    TAS snapshot module (its ``Node`` and ``HOSTNAME_LABEL``), ``afs``
+    the admission-fair-sharing module (``AfsManager``, ``_LqUsage``) and
+    ``admissionchecks`` the admission-checks module."""
 
     types: ModuleType
     scenario: ModuleType
     engine: Callable
     attach: Callable
     tas: ModuleType = None
+    afs: ModuleType = None
+    admissionchecks: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
@@ -43,13 +47,15 @@ def port_kit(device=None) -> Kit:
     oracle on ``device`` (CUDA unless the caller asks for the CPU)."""
     from kueue_tpu_torch.api import types
     from kueue_tpu_torch.bench import scenario
+    from kueue_tpu_torch.controllers import admissionchecks, afs
     from kueue_tpu_torch.controllers.engine import Engine
     from kueue_tpu_torch.tas import snapshot
 
     return Kit(types, scenario,
                lambda fair=False: Engine(enable_fair_sharing=fair,
                                          device=device),
-               lambda eng: eng.attach_oracle(device=device), snapshot)
+               lambda eng: eng.attach_oracle(device=device), snapshot,
+               afs, admissionchecks)
 
 
 def build_cycle_engine(scen, fair=False, kit=None):

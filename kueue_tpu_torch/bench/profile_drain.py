@@ -3,7 +3,7 @@
     python -m kueue_tpu_torch.bench.profile_drain \
         [--scenario baseline|hier_fair|preempt_world|cycle_latency|
                     fair_cycle_latency|preempt_churn|multiflavor|
-                    tas|tas_large|tas_churn]
+                    tas|tas_large|tas_churn|mixed_world|afs_serving]
         [--path device|host] [--out FILE]
 
 Scenarios, all at full width:
@@ -31,7 +31,11 @@ Scenarios, all at full width:
     placements pinned to ``--path`` (the device program by default),
     counted like the engine runs above; they also report the
     tas_place_batch calls and the planner's encode / place / decode
-    seconds.
+    seconds;
+  * ``mixed_world``, ``afs_serving``: the runs of
+    ``bench/mixed_worlds.py`` (FULL; ``mixed_world`` cut to its first 40
+    of 102 calls, for the same reason), counted like the engine runs;
+    their phases include ``sim``, the sim nomination's device calls.
 
 Runs one untimed run to warm up, one timed run, and one run under
 torch.profiler. Prints, and writes as JSON to ``--out``: the timed
@@ -60,8 +64,24 @@ ENGINE_SCENARIOS = ("cycle_latency", "fair_cycle_latency", "preempt_churn",
 MULTIFLAVOR_PROFILED = dict(kind="multiflavor", preempt_seeds=2,
                             try_next_seeds=1)
 TAS_SCENARIOS = ("tas", "tas_large", "tas_churn")
+MIXED_SCENARIOS = ("mixed_world", "afs_serving")
 SCENARIOS = ("baseline", "hier_fair", "preempt_world") + ENGINE_SCENARIOS \
-    + TAS_SCENARIOS
+    + TAS_SCENARIOS + MIXED_SCENARIOS
+
+
+def _mixed_run(name):
+    """One mixed-world run, counted like _engine_run's."""
+    from kueue_tpu_torch.bench import mixed_worlds as mw
+
+    config = mw.FULL[name]
+    if name == "mixed_world":
+        config = dict(config, max_cycles=40)
+    r = mw.run(config)
+    r["decided_cycles"] = r["cycles"]
+    r["cycles"] = r["calls"]
+    r["wall_s"] = r["engine_s"]
+    del r["engine"]
+    return r
 
 
 def _tas_run(name, path):
@@ -157,8 +177,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    engine = args.scenario in ENGINE_SCENARIOS + TAS_SCENARIOS
-    if args.scenario in TAS_SCENARIOS:
+    engine = args.scenario in (ENGINE_SCENARIOS + TAS_SCENARIOS
+                               + MIXED_SCENARIOS)
+    if args.scenario in MIXED_SCENARIOS:
+        def run():
+            return _mixed_run(args.scenario)
+        described = {}
+    elif args.scenario in TAS_SCENARIOS:
         def run():
             return _tas_run(args.scenario, args.path)
         described = dict(path=args.path)
@@ -242,7 +267,8 @@ def main(argv=None) -> int:
             mean_phases_s={
                 ph: sum(p.get(ph, 0.0) for p in stats["phases"])
                 / max(len(stats["phases"]), 1)
-                for ph in ("encode", "device", "apply", "finalize")})
+                for ph in ("encode", "sim", "device", "apply", "finalize",
+                           "tas_place")})
     if args.scenario in TAS_SCENARIOS:
         result.update(batch_calls=stats["batch_calls"],
                       batch_heads=stats["batch_heads"],

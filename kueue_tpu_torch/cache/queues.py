@@ -2,8 +2,9 @@
 inadmissible bookkeeping with backoff.
 
 Reference: pkg/cache/queue/{manager.go,cluster_queue.go}.
-  * heap order: higher effective priority first, then earlier queue-order
-    timestamp (cluster_queue.go heap less).
+  * heap order: lower LocalQueue usage first on an admission-fair-sharing
+    ClusterQueue (frozen at push), then higher effective priority, then
+    earlier queue-order timestamp (cluster_queue.go heap less).
   * StrictFIFO keeps a sticky head and does not surface deeper workloads;
     BestEffortFIFO pops past inadmissible heads (cluster_queue.go:124+).
   * NoFit requeues park the workload in an ``inadmissible`` side map until a
@@ -42,9 +43,9 @@ class PyIndexedHeap:
         self._heap: list = []
         self._live: dict[int, tuple] = {}
 
-    def push(self, id_: int, neg_priority: int, ts: float,
+    def push(self, id_: int, usage: float, neg_priority: int, ts: float,
              seq: int) -> None:
-        key = (neg_priority, ts, seq)
+        key = (usage, neg_priority, ts, seq)
         self._live[id_] = key
         heapq.heappush(self._heap, (key, id_))
 
@@ -123,9 +124,20 @@ class PendingClusterQueue:
 
     def _key(self, info: WorkloadInfo) -> tuple:
         wl = info.obj
+        # AFS ordering: lower LocalQueue decayed usage first
+        # (cluster_queue.go:208 AFS hooks). Reading the usage decays it,
+        # so it is read here, at push, and nowhere else on this path.
+        usage = 0.0
+        if (self.manager is not None
+                and self.manager.lq_usage_fn is not None
+                and self.spec.admission_scope
+                == "UsageBasedAdmissionFairSharing"):
+            usage = self.manager.lq_usage_fn(
+                f"{wl.namespace}/{wl.queue_name}")
+            info.local_queue_fs_usage = usage
         # FIFO position honors the eviction-aware queue-order timestamp
         # (workload.go:1087), not raw creation time.
-        return (-wl.effective_priority, queue_order_timestamp(wl),
+        return (usage, -wl.effective_priority, queue_order_timestamp(wl),
                 next(_seq))
 
     def _heap_push(self, info: WorkloadInfo,
@@ -136,13 +148,15 @@ class PendingClusterQueue:
             id_ = next(_seq)
             self._id_of[info.key] = id_
         self._entry_of[id_] = (info, sort_key)
-        self._hp.push(id_, sort_key[0], sort_key[1], sort_key[2])
+        self._hp.push(id_, sort_key[0], sort_key[1], sort_key[2],
+                      sort_key[3])
         if self.manager is not None:
             self.manager.rows.on_push(info, sort_key)
 
     def sort_key_of(self, key: str) -> Optional[tuple]:
         """The stored heap sort key for a pending workload — the exact
-        ordering the next pop() honors. The device bridge ranks with these
+        ordering the next pop() honors (AFS usage is FROZEN at push
+        time, cluster_queue.go:208). The device bridge ranks with these
         so device and host head order can never diverge."""
         id_ = self._id_of.get(key)
         if id_ is None:
@@ -253,13 +267,16 @@ class PendingClusterQueue:
         re-activation (dirty-skipped when the shape is unchanged) — no
         key recompute, no native push. Requires the
         SAME info object still backing the live node (a re-submission
-        would strand the new object)."""
+        would strand the new object) and a non-AFS queue (AFS keys
+        freeze LocalQueue usage at push time, so a re-push must
+        re-read it)."""
         moved = bool(self.inadmissible)
+        afs = self.spec.admission_scope == "UsageBasedAdmissionFairSharing"
         for info in self.inadmissible.values():
             key = info.key
             self.items[key] = info
             id_ = self._id_of.get(key)
-            if id_ is not None:
+            if not afs and id_ is not None:
                 entry = self._entry_of.get(id_)
                 if entry is not None and entry[0] is info:
                     if self.manager is not None:
@@ -313,6 +330,9 @@ class QueueManager:
 
         self.cluster_queues: dict[str, PendingClusterQueue] = {}
         self.local_queues: dict[str, LocalQueue] = {}
+        # AFS hook: lq key -> decayed usage (manager.go:68), set by
+        # controllers/afs.AfsManager.
+        self.lq_usage_fn = None
         # Incremental tensor rows over the pending world (the oracle
         # bridge's per-cycle encoding, tensor/rowcache.py).
         self.rows = WorkloadRowCache()

@@ -3,8 +3,8 @@ snapshots each cycle.
 
 Reference: pkg/cache/scheduler/cache.go:129 (Cache) — CQ/cohort/flavor
 registries, admitted-workload usage, assume/forget, snapshotting.
-Copied from ``kueue_tpu/cache/scheduler_cache.py`` without admission
-checks and resource transformations; non-TAS pod usage is an empty
+Copied from ``kueue_tpu/cache/scheduler_cache.py`` without resource
+transformations; non-TAS pod usage is an empty
 per-node table (its controller is not ported). TAS forests are built on
 ``tas_device`` (CUDA unless the engine asks for the CPU).
 """
@@ -60,6 +60,9 @@ class Cache:
         self.tas_usage_agg: dict[str, dict[tuple, dict[str, int]]] = {}
         self._wl_usage: dict[str, tuple] = {}  # key -> (cq, usage dict)
         self._wl_tas: dict[str, list] = {}  # key -> tas_domains tuples
+        # Hook returning the set of defined AdmissionCheck names
+        # (installed by AdmissionCheckManager); None = no check registry.
+        self.admission_check_names = None
         # Cached TAS forest prototypes (see tas_prototypes()), and the
         # device their tensors live on.
         self._tas_protos = None
@@ -333,9 +336,8 @@ class Cache:
         """clusterqueue.go:300 (inactiveReason): why this CQ can't admit.
         The single source of truth shared by scheduling (CQs with any
         reason are excluded from the snapshot) and the status controller
-        (the Active condition). Admission checks are not ported: with no
-        check registry, as in an engine without one, a CQ's checks make
-        it neither inactive nor slower to admit."""
+        (the Active condition). ``admission_check_names`` is a hook set
+        by the AdmissionCheckManager."""
         reasons: list[tuple[str, str]] = []
         if cq.stop_policy != StopPolicy.NONE:
             reasons.append(("Stopped", "is stopped"))
@@ -355,6 +357,15 @@ class Cache:
                         "TopologyNotFound",
                         f"there is no Topology {topo!r} for TAS flavor "
                         f"{fq.name!r}"))
+        if self.admission_check_names is not None and cq.admission_checks:
+            known = self.admission_check_names()
+            missing_checks = [c for c in cq.admission_checks
+                              if c not in known]
+            if missing_checks:
+                reasons.append((
+                    "AdmissionCheckNotFound",
+                    f"references missing AdmissionCheck(s): "
+                    f"{missing_checks}"))
         return reasons
 
     def inactive_cluster_queues(self) -> set[str]:

@@ -8,11 +8,16 @@ oracle (``attach_oracle``, an ``oracle/engine_bridge.OracleBridge`` over
 a ``TorchExecutor``) or the sequential host cycle, topology-aware
 scheduling included (``create_topology`` / ``create_node`` /
 ``delete_node``, topology requests placed by the host descent or, in a
-device cycle, by the batched TAS planner). Decisions are the JAX
-package's engine's, cycle by cycle. Left out: the journal, tracing, the
-metrics registry and SLOs, admission checks, pods-ready, MultiKueue,
-admission fair sharing, holds, LimitRanges and RuntimeClasses (pod
-templates), columnar apply, and of TAS non-TAS pod usage
+device cycle, by the batched TAS planner), WorkloadPriorityClasses,
+admission fair sharing (``controllers/afs.AfsManager`` attaches itself
+and orders AFS-scoped ClusterQueues by LocalQueue usage) and admission
+checks (``controllers/admissionchecks.AdmissionCheckManager``: quota is
+reserved, and Admitted follows once every check is Ready;
+``reconcile_workload`` evicts on Retry and Rejected). Decisions are the
+JAX package's engine's, cycle by cycle. Left out: the journal, tracing,
+the metrics registry and SLOs (with them the unadmitted-workload
+gauges), pods-ready, MultiKueue, holds, LimitRanges and RuntimeClasses
+(pod templates), columnar apply, and of TAS non-TAS pod usage
 (``observe_pod``), node failure and replacement
 (``mark_node_unhealthy``), balanced placement and elastic slices, each
 raising NotImplementedError.
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 from kueue_tpu_torch.api.types import (
     ClusterQueue,
@@ -125,6 +130,14 @@ class Engine:
         self.last_cycle_phases: dict[str, float] = {}
         self.last_cycle_mode: str = ""
         self.workloads: dict[str, Workload] = {}
+        # hook: called with (workload, admission) after each admission.
+        self.on_admit: Optional[Callable] = None
+        # AdmissionCheckManager attaches itself here (two-phase admission).
+        self.admission_checks = None
+        # AfsManager attaches itself here (admission fair sharing).
+        self.afs = None
+        # WorkloadPriorityClass registry (workloadpriorityclass_types.go).
+        self.workload_priority_classes: dict[str, int] = {}
         # OracleBridge (batched device path), via attach_oracle().
         self.oracle = None
         # Namespace labels for CQ namespace-selector admissibility (none
@@ -135,9 +148,6 @@ class Engine:
     # -- object admin --
 
     def create_cluster_queue(self, cq: ClusterQueue) -> None:
-        if cq.admission_scope == "UsageBasedAdmissionFairSharing":
-            raise NotImplementedError(
-                "admission fair sharing is not ported")
         self.cache.add_or_update_cluster_queue(cq)
         self.queues.add_cluster_queue(cq)
 
@@ -175,6 +185,9 @@ class Engine:
 
     # -- workload lifecycle --
 
+    def create_workload_priority_class(self, name: str, value: int) -> None:
+        self.workload_priority_classes[name] = value
+
     def submit(self, wl: Workload) -> bool:
         if not wl.creation_time:
             wl.creation_time = self.clock
@@ -183,6 +196,12 @@ class Engine:
                 raise NotImplementedError(
                     "pod templates (LimitRanges, RuntimeClass overheads) "
                     "are not ported")
+        # Resolve priorityClassRef (pkg/util/priority). An explicitly
+        # named class always resolves — this is not gated.
+        if (wl.priority_class_name
+                and wl.priority_class_name in self.workload_priority_classes):
+            wl.priority = self.workload_priority_classes[
+                wl.priority_class_name]
         self.workloads[wl.key] = wl
         info = self.queues.add_or_update_workload(wl)
         if info is None:
@@ -357,12 +376,14 @@ class Engine:
         """In-cycle half of a device cycle's admitted batch: remove the
         workloads from the pending world and assume them in the cache
         (scheduler.go:920 assumeWorkload). Returns the (entry, admission)
-        pairs for bulk_finalize_batch. Entries with reclaimable pods or
-        preemption targets take the exact per-entry _admit path."""
+        pairs for bulk_finalize_batch. Entries with reclaimable pods,
+        preemption targets or configured admission checks take the exact
+        per-entry _admit path."""
         if not entries:
             return []
         cache = self.cache
         queues = self.queues
+        checks = self.admission_checks
         tas_names = cache._tas_flavor_names()
         workloads_reg = cache.workloads
         wl_usage = cache._wl_usage
@@ -384,6 +405,7 @@ class Engine:
             info = entry.info
             wl = info.obj
             if (wl.status.reclaimable_pods or entry.preemption_targets
+                    or checks is not None
                     or wl.status.admission_check_states):
                 slow.append(entry)
                 continue
@@ -456,6 +478,7 @@ class Engine:
         now = self.clock
         QR = WorkloadConditionType.QUOTA_RESERVED
         ADM = WorkloadConditionType.ADMITTED
+        on_admit = self.on_admit
         n_admitted = 0
         for entry, admission in pairs:
             info = entry.info
@@ -478,11 +501,14 @@ class Engine:
             conds[ADM] = bulk.adm_cond
             n_admitted += 1
             self._record(EngineEvent(now, "Admitted", key, cq_name))
+            if on_admit is not None:
+                on_admit(wl, admission)
         self.metrics.admissions_total += n_admitted
 
     def _admit(self, entry, bulk: Optional[_BulkAdmitCtx] = None) -> None:
-        """scheduler.go:856 (admit): reserve quota, assume in cache, then
-        the Admitted condition."""
+        """scheduler.go:856 (admit): reserve quota, assume in cache; the
+        Admitted condition follows only when all AdmissionChecks are Ready
+        (prepareWorkload :912)."""
         wl = entry.obj
         if bulk is not None:
             akey = (entry.info.cluster_queue, id(entry.assignment))
@@ -521,6 +547,8 @@ class Engine:
         self.queues.rows.on_remove(wl.key)
         cq_name = entry.info.cluster_queue
         self._event("QuotaReserved", wl.key, cluster_queue=cq_name)
+        if self.admission_checks is not None:
+            self.admission_checks.sync_states(wl, cq_name)
         self._sync_admitted(wl, cq_name, bulk=bulk)
         # Replace-old-slice after successful admission
         # (scheduler.go:558 replaceOldWorkloadSlice).
@@ -530,8 +558,19 @@ class Engine:
 
     def _sync_admitted(self, wl: Workload, cq_name: str,
                        bulk: Optional[_BulkAdmitCtx] = None) -> None:
-        """workload.SyncAdmittedCondition (no admission checks)."""
+        """workload.SyncAdmittedCondition."""
         if wl.is_admitted:
+            return
+        # EVERY check state present in status must be Ready — including
+        # states injected by external controllers for checks the CQ
+        # doesn't configure (workload/admissionchecks.go:130
+        # HasAllChecksReady iterates status, not the CQ's list).
+        from kueue_tpu_torch.controllers.admissionchecks import CheckState
+        if any(s != CheckState.READY
+               for s in wl.status.admission_check_states.values()):
+            return
+        if (self.admission_checks is not None
+                and not self.admission_checks.all_ready(wl, cq_name)):
             return
         self.metrics.admissions_total += 1
         if bulk is not None:
@@ -541,6 +580,35 @@ class Engine:
             wl.set_condition(WorkloadConditionType.ADMITTED, True,
                              reason="Admitted", now=self.clock)
         self._event("Admitted", wl.key, cluster_queue=cq_name)
+        if self.on_admit is not None:
+            self.on_admit(wl, wl.status.admission)
+
+    def reconcile_workload(self, wl: Workload) -> None:
+        """The workload-controller pass (core/workload_controller.go:257):
+        check-based eviction (:901) and admitted-condition sync."""
+        if wl.is_finished or wl.status.admission is None:
+            return
+        cq_name = wl.status.admission.cluster_queue
+        from kueue_tpu_torch.controllers.admissionchecks import CheckState
+        states = wl.status.admission_check_states
+        required = (self.admission_checks.required_for(cq_name, wl)
+                    if self.admission_checks else ())
+        if any(states.get(c) == CheckState.REJECTED for c in required):
+            wl.active = False
+            self.evict(wl, "AdmissionCheckRejected", requeue=False)
+            return
+        if any(states.get(c) == CheckState.RETRY for c in required):
+            # Honor the check's requeue backoff
+            # (UpdateAdmissionCheckRequeueState, provisioning
+            # controller.go:576): the next attempt waits out the delay.
+            backoff = wl.status.check_retry_after_seconds
+            wl.status.check_retry_after_seconds = 0.0
+            self.evict(wl, "AdmissionCheckRetry", backoff_seconds=backoff)
+            for c in required:
+                if states.get(c) == CheckState.RETRY:
+                    states[c] = CheckState.PENDING
+            return
+        self._sync_admitted(wl, cq_name)
 
     def evict(self, wl: Workload, reason: str, requeue: bool = True,
               backoff_seconds: float = 0.0, bulk=None) -> None:

@@ -28,6 +28,15 @@ device admits carrying one are re-checked in commit order
 (``tas/batched.commit_plan``); ``KUEUE_TPU_TAS_BATCH=0`` hands every
 root with a TAS flavor to the host instead.
 
+Admission fair sharing and WorkloadPriorityClasses change only the rank
+the heads kernel reduces: the row cache ranks on each workload's heap
+sort key (LocalQueue usage frozen at push, then priority, timestamp and
+sequence), so device and host head order agree by construction.
+Admission checks change only the apply: with a check manager attached,
+every admitted entry takes the engine's per-entry ``_admit``, which
+reserves quota and holds Admitted until its checks are Ready. Neither
+demotes a root.
+
 Differences from the JAX package's bridge: the cycle loop is serial (no
 speculative encode of the next cycle, which the JAX package holds
 decision-identical) and there is no supervisor: an executor error (or a
@@ -272,6 +281,8 @@ class OracleBridge:
             "placed_host": 0, "memo_hits": 0, "commit_drops": 0,
             "encode_s": 0.0, "place_s": 0.0, "decode_s": 0.0}
         self.tas_heads_per_launch: dict[int, int] = {}
+        # Wall seconds of the last sim nomination's device calls.
+        self.sim_seconds = 0.0
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a),
@@ -495,7 +506,10 @@ class OracleBridge:
         for the cycle.
 
         Returns (override, borrows_override, flavor_override, victims
-        (row, vals, ids) or None, targets_by_slot, demote_cq bool[C])."""
+        (row, vals, ids) or None, targets_by_slot, demote_cq bool[C]).
+        The wall seconds of its two device calls (the flavor grid and the
+        batched cell simulations, host copies included) are left in
+        ``self.sim_seconds``."""
         C, S = w.num_cqs, w.num_resources
         G, F = w.group_flavors.shape[1], w.group_flavors.shape[2]
         demote_cq = np.zeros(C, bool)
@@ -513,6 +527,7 @@ class OracleBridge:
         # heads on sim-needing CQs): pod set 0 carries the request.
         h_req[slots] = wls.requests[h, 0]
 
+        t_grid = time.perf_counter()
         dw = self._device_world_args(w)
         derived = qops.derive_world(
             dw["nominal"], dw["lend_limit"], dw["borrow_limit"], usage,
@@ -525,6 +540,7 @@ class OracleBridge:
         g_pmode = g_pmode.cpu().numpy()
         g_borrow = g_borrow.cpu().numpy()
         g_sim = g_sim.cpu().numpy()
+        self.sim_seconds = time.perf_counter() - t_grid
         g_sim[~sim_slots] = False
 
         # Batched per-cell sims: every (slot, group, flavor, resource)
@@ -564,11 +580,13 @@ class OracleBridge:
                 r_ts[r] = head_ts[ci]
                 r_fr[r, s] = w.group_flavors[ci, g, f] * S + s
                 r_req[r, s] = h_req[ci, s]
+            t_cells = time.perf_counter()
             found_r, overflow_r, mask_r, _variant_r, borrow_r = \
                 self._classical_call(
                     w, adm, pcfg, usage, r_need, r_pri, r_ts,
                     r_fr, r_req, v_cap=v_cap, derived=derived,
                     slot_cq=r_cq)
+            self.sim_seconds += time.perf_counter() - t_cells
             for r, (ci, cell) in enumerate(zip(row_ci, row_cell)):
                 f_arr, victims, b_arr = sim_out[cell]
                 if overflow_r[r]:
@@ -947,6 +965,7 @@ class OracleBridge:
                 sim_cq = sim_cq & cq_on_device
         pre = None
         pcfg = adm = admitted = None
+        t_sim = 0.0
         if sim_cq.any():
             if eng.cycle.enable_fair_sharing:
                 # Fair-sharing preemption stays host-side; so do heads
@@ -960,6 +979,7 @@ class OracleBridge:
                  demote_cq) = self._sim_nomination(
                     w, wl, self._tensor(w.usage), head_wid,
                     sim_cq, adm, admitted, pcfg)
+                t_sim = self.sim_seconds
                 if demote_cq.any():
                     demote(demote_cq, "sim-overflow")
                     cq_on_device = ~host_root[root_of_cq]
@@ -1060,7 +1080,7 @@ class OracleBridge:
             cq_on_device=cq_on_device, host_root=host_root,
             root_of_cq=root_of_cq, has_head=has_head, fused=fused,
             admitted=admitted, preempt_targets=preempt_targets,
-            tas_plan=tas_plan, t_tas=t_tas)
+            tas_plan=tas_plan, t_tas=t_tas, t_sim=t_sim)
 
     def _commit_cycle(self, enc, t0: float,
                       t_encode: float) -> Optional[CycleResult]:
@@ -1184,11 +1204,14 @@ class OracleBridge:
         t_apply = time.perf_counter()
         finalize()
         # Phase accounting: encode (snapshot + tensorize + the sim
-        # nomination) / device (the cycle's executor call, transfers
-        # included) / apply (decode + cache assume) / finalize (status).
+        # nomination's host fold; TAS planning included, also reported
+        # as tas_place) / sim (the sim nomination's two device calls) /
+        # device (the cycle's executor call, transfers included) / apply
+        # (decode + cache assume) / finalize (status).
         t_final = time.perf_counter()
         eng.last_cycle_phases = {
-            "encode": t_encode - t0, "device": t_device - t_encode,
+            "encode": t_encode - t0 - enc.t_sim, "sim": enc.t_sim,
+            "device": t_device - t_encode,
             "apply": t_apply - t_device, "finalize": t_final - t_apply,
             "tas_place": enc.t_tas}
 

@@ -12,7 +12,8 @@ in O(1), and a cycle only pays for rows that changed since the last one.
 Layout: one row per known pending workload (active in the heap, parked
 inadmissible, or popped in-flight). Rows hold
   * world-independent fields captured at push time: priority, queue-order
-    timestamp, the exact heap sort key, requeue-at, quota-reservation flag;
+    timestamp, the exact heap sort key (AFS usage frozen at push,
+    cluster_queue.go:208), requeue-at, quota-reservation flag;
   * world-dependent fields (CQ index, request columns, fast-path
     eligibility, scheduling-equivalence hash id) recomputed lazily for
     dirty rows against the currently-bound world signature.
@@ -25,8 +26,7 @@ The cache is advisory: the engine bridge uses it when present, and the
 from-scratch encoder (tensor/schema.encode_workloads) remains both the
 fallback and the differential oracle (tests/test_rowcache.py).
 
-Copied from ``kueue_tpu/tensor/rowcache.py`` without the admission
-fair-sharing sort key and the perf spans.
+Copied from ``kueue_tpu/tensor/rowcache.py`` without the perf spans.
 """
 
 from __future__ import annotations
@@ -105,7 +105,8 @@ class WorkloadRowCache:
         self.has_qr = np.zeros(self._cap, bool)
         self.requeue_at = np.full(self._cap, -_INF_TS, np.float64)
         self.active = np.zeros(self._cap, bool)
-        # heap sort key (-priority, ts, seq) frozen at push
+        # heap sort key (afs usage, -priority, ts, seq) frozen at push
+        self.key_afs = np.zeros(self._cap, np.float64)
         self.key_negpri = np.zeros(self._cap, np.int64)
         self.key_ts = np.zeros(self._cap, np.float64)
         self.key_seq = np.full(self._cap, np.int64(1) << 60, np.int64)
@@ -161,7 +162,7 @@ class WorkloadRowCache:
         self.has_qr[i] = wl.has_quota_reservation
         ra = wl.status.requeue_at
         self.requeue_at[i] = -_INF_TS if ra is None else ra
-        negpri, kts, kseq = sort_key
+        self.key_afs[i], negpri, kts, kseq = sort_key
         self.key_negpri[i] = negpri
         self.key_ts[i] = kts
         self.key_seq[i] = kseq
@@ -275,7 +276,7 @@ class WorkloadRowCache:
         old = self._cap
         self._cap = new_cap
         for name in ("priority", "timestamp", "has_qr", "requeue_at",
-                     "active", "key_negpri", "key_ts",
+                     "active", "key_afs", "key_negpri", "key_ts",
                      "key_seq", "cq", "eligible", "hash_id", "tas_sig"):
             arr = getattr(self, name)
             fill = {"requeue_at": -_INF_TS, "cq": -1,
@@ -306,7 +307,7 @@ class WorkloadRowCache:
                       .bit_length())
         remap = {old: new for new, old in enumerate(keep)}
         for name in ("priority", "timestamp", "has_qr", "requeue_at",
-                     "active", "key_negpri", "key_ts",
+                     "active", "key_afs", "key_negpri", "key_ts",
                      "key_seq", "cq", "eligible", "hash_id", "tas_sig"):
             arr = getattr(self, name)
             fill = {"requeue_at": -_INF_TS, "cq": -1,
@@ -511,8 +512,9 @@ class WorkloadRowCache:
 
     def head_ranks(self) -> np.ndarray:
         """Global rank by the stored heap sort keys — by construction the
-        order the host heaps pop."""
-        order = np.lexsort((self.key_seq, self.key_ts, self.key_negpri))
+        order the host heaps pop (AFS usage included)."""
+        order = np.lexsort((self.key_seq, self.key_ts, self.key_negpri,
+                            self.key_afs))
         rank = np.empty(self._cap, np.int64)
         rank[order] = np.arange(self._cap)
         return rank

@@ -92,6 +92,8 @@ class WorkloadInfo:
     # Flavor-assignment resume state (reference: AssignmentClusterQueueState).
     last_assignment_flavor_idx: Optional[list[dict[str, int]]] = None
     last_assignment_generation: int = -1
+    # AdmissionFairSharing: LocalQueue's historical usage, if AFS is on.
+    local_queue_fs_usage: Optional[float] = None
 
     @classmethod
     def from_workload(cls, wl: Workload,

@@ -11,7 +11,19 @@ topology placements, preempted keys, stats), the same path (device,
 hybrid or sequential) and equal bridge counters, reasons and TAS
 planner stats. Patched in as the reference tests' ``Engine``, it runs
 their own worlds and call sequences; when the test ends, every workload's
-outcome and the event streams must be equal too. Exact throughout."""
+outcome (check states and backoff included), the event streams and the
+admission-fair-sharing usage must be equal too. Exact throughout.
+
+``MirroredAfsManager``, ``MirroredCheckManager`` and
+``MirroredProvisioningController`` do the same for the managers that
+attach themselves to an engine: each builds its port twin on the port
+engine and repeats every call a test makes on it (usage seeded into
+``usage``, check definitions, check verdicts, provisioning outcomes).
+Calls the JAX package makes internally are not repeated: the port twin
+makes its own."""
+
+import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -23,11 +35,16 @@ import test_multiflavor_preempt_device as tmf
 import test_oracle_engine
 import test_preempt_churn
 from kueue_tpu.api.types import WorkloadConditionType as JWCT
+from kueue_tpu.controllers import admissionchecks as jchecks
+from kueue_tpu.controllers import afs as jafs
 from kueue_tpu.controllers.engine import Engine as JEngine
 from kueue_tpu.ops import assign as jassign
 from kueue_tpu_torch import carry
 from kueue_tpu_torch.bench.engine_worlds import decision_stream
 from kueue_tpu_torch.bench.tas_engine_worlds import placement_stream
+from kueue_tpu_torch.config.api import AdmissionFairSharingConfig
+from kueue_tpu_torch.controllers import admissionchecks as pchecks
+from kueue_tpu_torch.controllers import afs as pafs
 from kueue_tpu_torch.controllers.engine import Engine as PEngine
 from kueue_tpu_torch.ops import assign as tassign
 
@@ -58,8 +75,11 @@ def _topology(psa):
 
 def outcome(wl):
     adm = wl.status.admission
-    return (wl.is_admitted, wl.is_finished, wl.is_evicted,
-            wl.status.requeue_count, dict(wl.status.eviction_counts),
+    return (wl.is_admitted, wl.is_finished, wl.is_evicted, wl.active,
+            wl.priority, wl.status.requeue_count, wl.status.requeue_at,
+            dict(wl.status.eviction_counts),
+            sorted(wl.status.admission_check_states.items()),
+            wl.status.check_retry_after_seconds,
             None if adm is None else (adm.cluster_queue, tuple(
                 (psa.name, psa.count, tuple(sorted(psa.flavors.items())),
                  _topology(psa))
@@ -115,6 +135,22 @@ class MirroredEngine(JEngine):
         super().delete_node(name)
         self.port.delete_node(name)
 
+    def create_workload_priority_class(self, name, value):
+        super().create_workload_priority_class(name, value)
+        self.port.create_workload_priority_class(name, value)
+
+    def evict(self, wl, reason, requeue=True, backoff_seconds=0.0,
+              bulk=None):
+        """A test's own eviction is made on both engines; the JAX
+        engine's evictions from inside its package are its own."""
+        super().evict(wl, reason, requeue=requeue,
+                      backoff_seconds=backoff_seconds, bulk=bulk)
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        if not caller.startswith("kueue_tpu."):
+            self.port.evict(self.port.workloads[wl.key], reason,
+                            requeue=requeue,
+                            backoff_seconds=backoff_seconds)
+
     def submit(self, wl):
         pw = carry.api_object(wl)
         assert pw.uid == wl.uid
@@ -162,6 +198,115 @@ class MirroredEngine(JEngine):
             (e.time, e.kind, e.workload, e.cluster_queue, e.detail)
             for e in self.events
             if e.kind not in ("Inadmissible", "OnHold", "HoldCleared")]
+        if self.afs is not None:
+            assert {k: (u.value, u.last_update)
+                    for k, u in self.port.afs.usage.items()} == {
+                k: (u.value, u.last_update)
+                for k, u in self.afs.usage.items()}
+
+
+class OracleMirroredEngine(MirroredEngine):
+    """A MirroredEngine with the oracle attached from the start, for the
+    reference tests that build a sequential engine."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.attach_oracle()
+
+
+def _port_copy(obj, cls):
+    """The port dataclass ``cls`` with the field values of ``obj`` (a
+    JAX-package config dataclass; nested ones converted by name)."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            v = _port_copy(v, getattr(pchecks, type(v).__name__))
+        elif isinstance(v, dict):
+            v = dict(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+class _MirroredUsage(dict):
+    """The JAX AfsManager's usage map: an entry a test sets is set on the
+    port twin too (the managers' own updates are their own)."""
+
+    def __init__(self, port_usage):
+        super().__init__()
+        self.port_usage = port_usage
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.port_usage[key] = pafs._LqUsage(value=value.value,
+                                             last_update=value.last_update)
+
+
+class MirroredAfsManager(jafs.AfsManager):
+    def __init__(self, engine, config=None):
+        super().__init__(engine, config)
+        self.port = pafs.AfsManager(engine.port, _port_copy(
+            self.config, AdmissionFairSharingConfig))
+        self.usage = _MirroredUsage(self.port.usage)
+
+
+class MirroredCheckManager(jchecks.AdmissionCheckManager):
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.port = pchecks.AdmissionCheckManager(engine.port)
+        self.quiet = 0  # >0 while a mirrored controller runs
+
+    def create_admission_check(self, check):
+        super().create_admission_check(check)
+        self.port.create_admission_check(_port_copy(
+            check, pchecks.AdmissionCheck))
+
+    def delete_admission_check(self, name):
+        super().delete_admission_check(name)
+        self.port.delete_admission_check(name)
+
+    def set_state(self, wl_key, check, state):
+        super().set_state(wl_key, check, state)
+        if not self.quiet:
+            self.port.set_state(wl_key, check,
+                                pchecks.CheckState(state.value))
+
+
+class MirroredProvisioningController(jchecks.ProvisioningController):
+    """Each call runs the JAX controller (its verdicts not repeated on
+    the port engine), then the port twin's same call."""
+
+    def __init__(self, engine, check_name, max_retries=None, config=None):
+        super().__init__(engine, check_name, max_retries=max_retries,
+                         config=config)
+        self.port = pchecks.ProvisioningController(
+            engine.port, check_name, max_retries=max_retries,
+            config=None if config is None else _port_copy(
+                config, pchecks.ProvisioningRequestConfig))
+        self._nested = False
+
+    def _jax(self, fn, *a):
+        acm = self.engine.admission_checks
+        acm.quiet += 1
+        nested, self._nested = self._nested, True
+        try:
+            fn(*a)
+        finally:
+            acm.quiet -= 1
+            self._nested = nested
+
+    def reconcile(self):
+        self._jax(super().reconcile)
+        if not self._nested:
+            self.port.reconcile()
+
+    def mark_provisioned(self, wl_key, details=None):
+        self._jax(super().mark_provisioned, wl_key, details)
+        self.port.mark_provisioned(wl_key, details)
+
+    def mark_failed(self, wl_key):
+        self._jax(super().mark_failed, wl_key)
+        self.port.mark_failed(wl_key)
 
 
 @pytest.fixture
@@ -474,13 +619,19 @@ def test_topologies_are_refused():
 
 
 def test_admission_fair_sharing_is_refused():
-    from kueue_tpu_torch.api.types import ClusterQueue
+    """Admission fair sharing is taken now (tests/test_torch_afs.py holds
+    it against the JAX engine); what the engine still refuses is a pod
+    template, and nothing of it is registered."""
+    from kueue_tpu_torch.api.types import ClusterQueue, PodSet, Workload
 
-    eng = PEngine()
+    eng = PEngine(device="cpu")
+    eng.create_cluster_queue(ClusterQueue(
+        name="cq", admission_scope="UsageBasedAdmissionFairSharing"))
+    assert "cq" in eng.queues.cluster_queues
     with pytest.raises(NotImplementedError):
-        eng.create_cluster_queue(ClusterQueue(
-            name="cq", admission_scope="UsageBasedAdmissionFairSharing"))
-    assert "cq" not in eng.queues.cluster_queues
+        eng.submit(Workload(name="t", pod_sets=(PodSet(
+            "main", 1, {"cpu": 1}, template=object()),)))
+    assert "default/t" not in eng.workloads
 
 
 def test_mirrored_worlds_carry_uids():
