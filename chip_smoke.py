@@ -83,12 +83,51 @@ Phases, in order; any failure raises and the script exits non-zero:
      LocalQueue usage, with the heads kernel launched once per device
      cycle and held against its plain version on the run's first-cycle
      inputs; each prints p50 and p95 s/cycle and the mean encode / sim /
-     device / apply / finalize phases.
+     device / apply / finalize phases;
+ 19. the deployed control plane (kueue_tpu_torch/bench/serve_world.py
+     FULL): the cycle_latency world plus an ``arrivals`` ClusterQueue,
+     seeded into a journal (52,204 records); the oracle sidecar
+     (``python -m kueue_tpu_torch.oracle.service``) on the card and
+     ``python -m kueue_tpu_torch.serve --oracle 127.0.0.1:PORT --device
+     cuda`` rebuilding the journal; 1,000 arrivals POSTed at 200 a
+     second; the loop drained to idle; both processes stopped with
+     SIGTERM (exit 0 each). Gated on the final state's checksum, held
+     quota count and arrivals against the JAX package's, every arrival
+     admitted exactly once (its journal records), no fallback cycle but
+     ``idle-*``, and the sidecar's heads launches and compute replies
+     equal to the device cycles. Prints the restart (journal bytes,
+     records, rebuild and boot seconds), the mean cycle wall time (drain
+     seconds over device cycles), p50 and p95 of the ``lastCyclePhases``
+     each /debug/dump poll sampled (and of each /oracle poll that saw a
+     new device cycle), frame bytes per cycle each way, POST p50 and p95
+     latency, the drain seconds and the serve loop's wall split;
+ 20. crash and restart: the same world with ``--oracle local``, the
+     serve process SIGKILLed after 30 device cycles while the arrivals
+     are POSTed, restarted on the same journal, the arrivals POSTed again
+     (200 deduplicated or 201) and the loop drained. Gated on
+     invariants: the torn tail repaired, every admission the journal
+     held before the kill present after the restart, no key admitted
+     twice, no ClusterQueue's or cohort's usage above its cohort's
+     quota, every arrival admitted, the restarted process's heads
+     launches equal to its device cycles, and the port's rebuild_engine
+     of the final journal (drained to idle on the host) giving the live
+     engine's dump_state. Prints the restart seconds;
+ 21. (beside phase 20: both are gates on processes of their own) the
+     breaker on the card: phase 19 with the sidecar run as
+     ``--fault crash-after:3`` and KUEUE_TPU_ORACLE_BREAKER_COOLDOWN=2;
+     once ``breaker-open`` shows in /oracle the sidecar is restarted on
+     the same port. Gated on ``remote-error`` and ``breaker-open`` host
+     cycles, device cycles again after them (the half-open probe
+     re-promotes), the new sidecar's heads launches equal to the device
+     cycles it served, and phase 19's final-state checksum.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
 tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
-tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py
-and tests/test_torch_mixed_worlds.py recompute them). The last two lines are a JSON summary of the kernels
+tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
+tests/test_torch_mixed_worlds.py and tests/test_torch_serve.py recompute
+them). Phases 19 to 21 read the heads launches of the process that
+launches them (the sidecar, or the restarted serve process), from the
+JSON line it prints when stopped. The last two lines are a JSON summary of the kernels
 and the result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -100,10 +139,14 @@ JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -196,6 +239,13 @@ MIXED_EXPECT = {
         hybrid=0, fallback=0, overridden=0, host_root_reasons={},
         fallback_reasons={}, afs_usage=0xdd3128cf),
 }
+# The deployed control plane's world (kueue_tpu_torch/bench/
+# serve_world.py FULL): the JAX engine's final state after rebuilding the
+# seeded journal and draining it with the 1,000 arrivals
+# (tests/test_torch_serve.py recomputes it): the final-state checksum,
+# the workloads holding quota and of them the arrivals.
+SERVE_EXPECT = dict(checksum=0x41b5f911, admitted=50937,
+                    arrivals_admitted=1000)
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
                   feasibility_empty=0x76cebe8a,
@@ -730,6 +780,345 @@ def phase_mixed(name, heads, pk, card, sms):
     return launches
 
 
+def pct(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(len(v) * q))]
+
+
+def phase_samples_line(samples) -> str:
+    keys = sorted({k for p in samples for k in p})
+    return ",".join(
+        f"{k}:p50={pct([p.get(k, 0.0) for p in samples], 0.5) * 1e3:.3f}"
+        f"/p95={pct([p.get(k, 0.0) for p in samples], 0.95) * 1e3:.3f}"
+        for k in keys)
+
+
+def serve_views(sw, url):
+    return sw.get_json(url, "/workloads"), sw.get_json(url, "/debug/dump")
+
+
+def check_serve_state(sw, views, label, say=print):
+    got = sw.final_state(*views)
+    say(f"  {label}: checksum=0x{got['checksum']:08x} "
+          f"admitted={got['admitted']} "
+          f"arrivals_admitted={got['arrivals_admitted']}")
+    if got != SERVE_EXPECT:
+        raise AssertionError(f"{label}: got {got}, want {SERVE_EXPECT}")
+
+
+def check_arrivals_once(sw, path, label):
+    """Every arrival's journal records went from not admitted to
+    admitted exactly once."""
+    st = sw.journal_state(path)
+    arr = {k: n for k, n in st["transitions"].items()
+           if k.startswith("default/arrival-")}
+    if len(arr) != sw.FULL["arrivals"] or set(arr.values()) != {1}:
+        raise AssertionError(
+            f"{label}: {len(arr)} arrivals admitted, admissions per key "
+            f"{sorted(set(arr.values()))}")
+    return st
+
+
+def stop_all(procs):
+    for p in procs:
+        if p.p.poll() is None:
+            p.p.kill()
+            p.p.wait()
+
+
+def phase_serve(seed, work, bodies, card):
+    """Phase 19: the sidecar on the card behind the serve process.
+    Returns the sidecar's heads launches."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    path = work / "p19.jsonl"
+    shutil.copy(seed, path)
+    procs = []
+    try:
+        side, port = sw.start_sidecar("cuda")
+        procs.append(side)
+        serve, url, boot = sw.start_serve(path, f"127.0.0.1:{port}", "cuda")
+        procs.append(serve)
+        t0 = time.perf_counter()
+        posted = sw.post_arrivals(url, bodies, sw.FULL["rate"])
+        idle = sw.wait_idle(url, 900, dump_every=5.0)
+        drain_s = time.perf_counter() - t0
+        views = serve_views(sw, url)
+        rc, last = serve.stop()
+        side_rc, side_last = side.stop()
+    finally:
+        stop_all(procs)
+    if set(posted["codes"]) != {201}:
+        raise AssertionError(f"POST codes {sorted(set(posted['codes']))}")
+    check_serve_state(sw, views, "final state")
+    check_arrivals_once(sw, path, "arrivals")
+    fb = idle["oracle"]["fallbackReasons"]
+    if any(not k.startswith("idle-") for k in fb):
+        raise AssertionError(f"fallback cycles {fb}")
+    if (rc, side_rc) != (0, 0):
+        raise AssertionError(f"exit codes serve={rc} sidecar={side_rc}")
+    cycles = last["cycles_on_device"]
+    if not (side_last["heads_launches"] == side_last["compute_replies"]
+            == cycles > 0):
+        raise AssertionError(
+            f"sidecar heads launches {side_last['heads_launches']}, "
+            f"replies {side_last['compute_replies']}, device cycles "
+            f"{cycles}")
+    lat = posted["latencies"]
+    print(f"  restart: journal_bytes={boot['bytes']} "
+          f"records={boot['records']} rebuild_s={boot['rebuild_s']:.3f} "
+          f"boot_wall_s={boot['wall_s']:.3f}")
+    print(f"  device_cycles={cycles} fallback={fb} drain_s={drain_s:.3f} "
+          f"mean_cycle_s={drain_s / cycles:.5f} "
+          f"frame_bytes_per_cycle in={side_last['bytes_in'] / cycles:.0f} "
+          f"out={side_last['bytes_out'] / cycles:.0f}")
+    print(f"  POST p50_s={pct(lat, 0.5):.5f} p95_s={pct(lat, 0.95):.5f} "
+          f"post_wall_s={posted['seconds']:.3f}")
+    print("  serve loop s: " + ",".join(
+        f"{k}={v:.3f}" for k, v in last["loop_s"].items()))
+    print(f"  sampled phases ms ({len(idle['phase_samples'])} dumps): "
+          + phase_samples_line(idle["phase_samples"]))
+    print(f"  phases ms of the /oracle polls that saw a new device cycle "
+          f"({len(idle['oracle_samples'])}): "
+          + phase_samples_line(idle["oracle_samples"]))
+    print(f"  heads_launches={side_last['heads_launches']} (sidecar) "
+          f"| {card}")
+    return side_last["heads_launches"]
+
+
+def check_usage(capacity, cohorts):
+    """No ClusterQueue and no cohort uses more than its cohort's
+    quota."""
+    quota = {c["name"]: c["subtreeQuota"] for c in cohorts}
+    for c in cohorts:
+        for k, v in c["usage"].items():
+            if v > c["subtreeQuota"].get(k, 0):
+                raise AssertionError(f"cohort {c['name']} uses {v} of "
+                                     f"{k}, quota {c['subtreeQuota']}")
+    for row in capacity:
+        k = f"{row['flavor']}/{row['resource']}"
+        if row["usage"] > quota[row["cohort"]].get(k, 0):
+            raise AssertionError(f"{row['clusterQueue']} uses "
+                                 f"{row['usage']} of {k}")
+
+
+def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
+    """Phase 20: SIGKILL the serve process (oracle in-process) after
+    ``kill_after`` device cycles, restart it on the same journal, check
+    the invariants. Returns the restarted process's heads launches."""
+    from kueue_tpu_torch.bench import serve_world as sw
+    from kueue_tpu_torch.store.journal import rebuild_engine
+    from kueue_tpu_torch.visibility.server import dump_state
+
+    path = work / "p20.jsonl"
+    shutil.copy(seed, path)
+    procs = []
+    try:
+        serve, url, boot = sw.start_serve(path, "local", "cuda")
+        procs.append(serve)
+        box = {}
+        poster = threading.Thread(target=lambda: box.update(
+            r=sw.post_arrivals(url, bodies, sw.FULL["rate"])))
+        poster.start()
+        deadline = time.monotonic() + 600
+        while sw.get_json(url, "/oracle")["cyclesOnDevice"] < kill_after:
+            if time.monotonic() > deadline:
+                raise TimeoutError("serve loop too slow to kill")
+            time.sleep(0.02)
+        rc, _ = serve.stop(signal.SIGKILL)
+        poster.join()
+        torn = sw.torn_tail(path)
+        before = sw.journal_state(path)
+        serve2, url2, boot2 = sw.start_serve(path, "local", "cuda")
+        procs.append(serve2)
+        reposted = sw.post_arrivals(url2, bodies, sw.FULL["rate"])
+        sw.wait_idle(url2, 900, dump_every=5.0)
+        views = serve_views(sw, url2)
+        capacity = sw.get_json(url2, "/capacity")
+        cohorts = sw.get_json(url2, "/cohorts")
+        rc2, last2 = serve2.stop()
+    finally:
+        stop_all(procs)
+    if rc != -signal.SIGKILL or rc2 != 0:
+        raise AssertionError(f"exit codes {rc}, {rc2}")
+    if set(reposted["codes"]) - {200, 201}:
+        raise AssertionError(f"re-POST codes {sorted(set(reposted['codes']))}")
+    if sw.torn_tail(path):
+        raise AssertionError("the journal's torn tail was not repaired")
+    after = check_arrivals_once(sw, path, "arrivals")
+    lost = before["admitted"] - set(views[1]["admitted"])
+    if lost or not before["admitted"] <= after["admitted"]:
+        raise AssertionError(f"{len(lost)} admissions lost in the restart")
+    if max(after["transitions"].values()) != 1:
+        raise AssertionError("a workload was admitted twice")
+    check_usage(capacity, cohorts)
+    got = sw.final_state(*views)
+    if got["arrivals_admitted"] != sw.FULL["arrivals"]:
+        raise AssertionError(f"arrivals admitted {got}")
+    if last2["heads_launches"] != last2["cycles_on_device"]:
+        raise AssertionError(f"restarted serve: heads launches "
+                             f"{last2['heads_launches']}, device cycles "
+                             f"{last2['cycles_on_device']}")
+    # The port's rebuild of the final journal, drained to idle on the
+    # host (the parked workloads it re-activates park again), gives the
+    # live engine's dump.
+    copy = work / "p20-rebuild.jsonl"
+    shutil.copy(path, copy)
+    t0 = time.perf_counter()
+    eng = rebuild_engine(str(copy), device="cpu")
+    rebuild_s = time.perf_counter() - t0
+    sw.drain_in_process(eng)
+    eng.journal.close()
+    rebuilt = json.loads(json.dumps(dump_state(eng)))
+    live = views[1]
+    for d in (rebuilt, live):
+        d.pop("lastCyclePhases")
+    if rebuilt != live:
+        raise AssertionError("rebuild_engine of the final journal differs "
+                             "from the live engine's dump_state")
+    say(f"  killed after {kill_after} device cycles: torn_tail={torn} "
+          f"admitted_before_kill={len(before['admitted'])} "
+          f"final: checksum=0x{got['checksum']:08x} "
+          f"admitted={got['admitted']}")
+    say(f"  restart: journal_bytes={boot2['bytes']} "
+          f"records={boot2['records']} rebuild_s={boot2['rebuild_s']:.3f} "
+          f"boot_wall_s={boot2['wall_s']:.3f} (first boot "
+          f"{boot['rebuild_s']:.3f} / {boot['wall_s']:.3f}); in-process "
+          f"rebuild_s={rebuild_s:.3f}")
+    say(f"  heads_launches={last2['heads_launches']} (restarted serve, "
+          f"{last2['cycles_on_device']} device cycles) | {card}")
+    return last2["heads_launches"]
+
+
+def phase_breaker(seed, work, bodies, card, say=print):
+    """Phase 21: the sidecar crashes after 3 replies; the breaker opens;
+    the restarted sidecar is re-promoted. Returns its heads launches."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    path = work / "p21.jsonl"
+    shutil.copy(seed, path)
+    env = sw.child_env(KUEUE_TPU_ORACLE_BREAKER_COOLDOWN="2")
+    procs = []
+    try:
+        side, port = sw.start_sidecar("cuda", fault="crash-after:3")
+        procs.append(side)
+        serve, url, _boot = sw.start_serve(path, f"127.0.0.1:{port}",
+                                           "cuda", env=env)
+        procs.append(serve)
+        box = {}
+        poster = threading.Thread(target=lambda: box.update(
+            r=sw.post_arrivals(url, bodies, sw.FULL["rate"])))
+        poster.start()
+        deadline = time.monotonic() + 600
+        while True:
+            st = sw.get_json(url, "/oracle")
+            if st["fallbackReasons"].get("breaker-open"):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the breaker did not open: {st}")
+            time.sleep(0.05)
+        demoted = st
+        side_rc = side.p.wait(60)
+        side2, _ = sw.start_sidecar("cuda", port=port)
+        procs.append(side2)
+        idle = sw.wait_idle(url, 900, dump_every=5.0,
+                            until=lambda s: s["cyclesOnDevice"]
+                            > demoted["cyclesOnDevice"])
+        poster.join()
+        views = serve_views(sw, url)
+        rc, last = serve.stop()
+        rc2, side2_last = side2.stop()
+    finally:
+        stop_all(procs)
+    fb = idle["oracle"]["fallbackReasons"]
+    say(f"  at demotion: cyclesOnDevice={demoted['cyclesOnDevice']} "
+          f"fallbackReasons={demoted['fallbackReasons']}; final: "
+          f"cyclesOnDevice={last['cycles_on_device']} fallbackReasons={fb}")
+    if (side_rc, rc, rc2) != (17, 0, 0):
+        raise AssertionError(f"exit codes sidecar={side_rc} serve={rc} "
+                             f"new sidecar={rc2}")
+    if set(box["r"]["codes"]) != {201}:
+        raise AssertionError(f"POST codes {sorted(set(box['r']['codes']))}")
+    if not (fb.get("remote-error") and fb.get("breaker-open")):
+        raise AssertionError(f"no remote-error and breaker-open: {fb}")
+    served = last["cycles_on_device"] - demoted["cyclesOnDevice"]
+    if not (served > 0 and side2_last["heads_launches"]
+            == side2_last["compute_replies"] == served):
+        raise AssertionError(
+            f"new sidecar: heads launches {side2_last['heads_launches']}, "
+            f"replies {side2_last['compute_replies']}, device cycles "
+            f"after re-promotion {served}")
+    check_serve_state(sw, views, "final state", say)
+    say(f"  heads_launches={side2_last['heads_launches']} (restarted "
+          f"sidecar, {served} device cycles after re-promotion) | {card}")
+    return side2_last["heads_launches"]
+
+
+def check_serve_heads(seed, heads, pk, sms):
+    """The heads kernel against its plain version on the inputs of the
+    first device cycle that the serve process gives the sidecar: the
+    seeded journal rebuilt on the card as the serve process rebuilds
+    it, one schedule_once in-process. Its launches count on no path."""
+    from kueue_tpu_torch.store import journal
+
+    eng = journal.engine_from_records(
+        list(journal.read_records(str(seed))), device="cuda")
+    eng.attach_oracle()
+    eff_t, cq_t, C = pk.first_heads_inputs(eng.schedule_once)
+    check_heads(heads, f"serve_world first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+
+
+def phases_serve(card, by_path, heads, pk, sms):
+    """Phases 19 to 21 on one seeded journal."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
+        "_build" / "serve_world"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    seed = work / "seed.jsonl"
+    seeded = sw.seed_journal(seed, sw.FULL)
+    bodies = sw.arrival_bodies(sw.FULL)
+    print(f"  seeded journal: records={seeded['records']} "
+          f"bytes={seeded['bytes']} in {time.perf_counter() - t0:.2f} s")
+    print("[19] deployed control plane: serve + oracle sidecar on the card")
+    by_path["serve_world"] = phase_serve(seed, work, bodies, card)
+    check_serve_heads(seed, heads, pk, sms)
+    # Phases 20 and 21 are gates on other worlds' processes (their own
+    # journals, sidecar and ports): they run side by side, each printing
+    # its lines when both are done.
+    runs = {"serve_restart": (phase_restart, "[20] crash and restart of "
+                              "the serve process (beside 21)"),
+            "serve_breaker": (phase_breaker, "[21] the breaker: sidecar "
+                              "crash, host cycles, re-promotion (beside 20)")}
+    lines = {name: [] for name in runs}
+    done = {}
+
+    def run(name):
+        try:
+            done[name] = runs[name][0](seed, work, bodies, card,
+                                       say=lines[name].append)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            done[name] = e
+
+    threads = [threading.Thread(target=run, args=(name,)) for name in runs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name, (_fn, title) in runs.items():
+        print(title)
+        for line in lines[name]:
+            print(line)
+    for name in runs:
+        if isinstance(done[name], BaseException):
+            raise done[name]
+        by_path[name] = done[name]
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -846,6 +1235,7 @@ def main() -> int:
     for i, name in enumerate(("mixed_world", "afs_serving"), start=17):
         print(f"[{i}] serving engine, mixed: {name}")
         by_path[name] = phase_mixed(name, heads, pk, card, sms)
+    phases_serve(card, by_path, heads, pk, sms)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="heads_segment_min", route="cuda",

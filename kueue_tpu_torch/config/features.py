@@ -20,6 +20,8 @@ _DEFAULTS: dict[str, bool] = {
     "TASMultiLayerTopology": True,
     # Unconstrained TAS placements use the LeastFreeCapacity ordering.
     "TASProfileMixed": True,
+    # On-demand pending positions (GET .../pendingworkloads).
+    "VisibilityOnDemand": True,
 }
 
 

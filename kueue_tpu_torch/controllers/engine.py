@@ -13,8 +13,15 @@ admission fair sharing (``controllers/afs.AfsManager`` attaches itself
 and orders AFS-scoped ClusterQueues by LocalQueue usage) and admission
 checks (``controllers/admissionchecks.AdmissionCheckManager``: quota is
 reserved, and Admitted follows once every check is Ready;
-``reconcile_workload`` evicts on Retry and Rejected). Decisions are the
-JAX package's engine's, cycle by cycle. Left out: the journal, tracing,
+``reconcile_workload`` evicts on Retry and Rejected), the durable
+journal (``attach_journal``: every object creation and workload
+transition is journaled as the JAX engine journals it, synced at each
+non-idle cycle boundary; ``restore_workload`` is the rebuild path of
+``store/journal.rebuild_engine``) and a remote oracle
+(``attach_oracle(remote_address=...)``: a transport failure becomes a
+``remote-error`` host cycle). Decisions are the JAX package's engine's,
+cycle by cycle. Left out: the journal's disk-budget gate, event
+listeners, the flight recorder, tracing,
 the metrics registry and SLOs (with them the unadmitted-workload
 gauges), pods-ready, MultiKueue, holds, LimitRanges and RuntimeClasses
 (pod templates), columnar apply, and of TAS non-TAS pod usage
@@ -82,10 +89,12 @@ class EngineMetrics:
 
 class _BulkAdmitCtx:
     """Per-cycle state of the batched serving path: the Condition
-    instances every admission of the cycle shares, and the Admission
-    flyweights."""
+    instances every admission of the cycle shares, the Admission
+    flyweights, and the keys whose journal records are written once, by
+    flush_bulk_admit."""
 
-    __slots__ = ("qr_cond", "adm_cond", "reset_conds", "admissions")
+    __slots__ = ("qr_cond", "adm_cond", "reset_conds", "admissions",
+                 "journal_keys")
 
     def __init__(self, now: float):
         self.qr_cond = Condition(
@@ -101,6 +110,7 @@ class _BulkAdmitCtx:
                        WorkloadConditionType.PREEMPTED,
                        WorkloadConditionType.BLOCKED_ON_PREEMPTION_GATES))
         self.admissions: dict = {}  # (cq, assignment-id) -> Admission
+        self.journal_keys: list = []
 
 
 class Engine:
@@ -129,6 +139,10 @@ class Engine:
         # "sequential", "device", or "hybrid" (device roots + host tail).
         self.last_cycle_phases: dict[str, float] = {}
         self.last_cycle_mode: str = ""
+        # Cycles attempted (idle ones included): the supervisor's clock.
+        self.cycle_seq: int = 0
+        # Durable store (store/journal.py), via attach_journal().
+        self.journal = None
         self.workloads: dict[str, Workload] = {}
         # hook: called with (workload, admission) after each admission.
         self.on_admit: Optional[Callable] = None
@@ -145,36 +159,88 @@ class Engine:
         # namespace).
         self.namespace_labels: dict[str, dict[str, str]] = {}
 
+    # -- durability (store/journal.py) --
+
+    def attach_journal(self, journal, record_existing: bool = True) -> None:
+        """Journal every object creation and workload status transition.
+        With ``record_existing``, the engine's current state is written
+        first (a journal introduced after boot)."""
+        self.journal = journal
+        if record_existing:
+            for cohort in self.cache.cohorts.values():
+                journal.apply("cohort", cohort, ts=self.clock)
+            for rf in self.cache.resource_flavors.values():
+                journal.apply("resource_flavor", rf, ts=self.clock)
+            for cq in self.cache.cluster_queues.values():
+                journal.apply("cluster_queue", cq, ts=self.clock)
+            for lq in self.queues.local_queues.values():
+                journal.apply("local_queue", lq, ts=self.clock)
+            for topo in self.cache.topologies.values():
+                journal.apply("topology", topo, ts=self.clock)
+            for node in self.cache.nodes.values():
+                journal.apply("node", node, ts=self.clock)
+            for name, value in self.workload_priority_classes.items():
+                journal.apply("workload_priority_class",
+                              {"name": name, "value": value},
+                              ts=self.clock)
+            for wl in self.workloads.values():
+                journal.apply("workload", wl, ts=self.clock)
+
+    def _journal_obj(self, kind: str, obj) -> None:
+        if self.journal is not None:
+            self.journal.apply(kind, obj, ts=self.clock)
+
+    def restore_workload(self, wl: Workload) -> None:
+        """The rebuild path (restart recovery): re-register a workload
+        from durable state without resetting its status. Admitted
+        workloads re-assume their cache usage, pending active ones
+        re-enter the queues with their requeue backoff intact."""
+        self.workloads[wl.key] = wl
+        if wl.is_finished:
+            return
+        if wl.status.admission is not None:
+            self.cache.add_or_update_workload(wl)
+        elif wl.active:
+            self.queues.add_or_update_workload(wl)
+
     # -- object admin --
 
     def create_cluster_queue(self, cq: ClusterQueue) -> None:
         self.cache.add_or_update_cluster_queue(cq)
         self.queues.add_cluster_queue(cq)
+        self._journal_obj("cluster_queue", cq)
 
     def create_cohort(self, cohort: Cohort) -> None:
         self.cache.add_or_update_cohort(cohort)
+        self._journal_obj("cohort", cohort)
 
     def create_resource_flavor(self, rf: ResourceFlavor) -> None:
         self.cache.add_or_update_resource_flavor(rf)
         # A CQ may have been inactive for referencing this flavor
         # (inactiveReason FlavorNotFound): re-queue parked workloads.
         self.queues.queue_inadmissible_workloads()
+        self._journal_obj("resource_flavor", rf)
 
     def create_local_queue(self, lq: LocalQueue) -> None:
         self.queues.add_local_queue(lq)
+        self._journal_obj("local_queue", lq)
 
     def create_topology(self, topology) -> None:
         self.cache.add_or_update_topology(topology)
         self.queues.queue_inadmissible_workloads()
+        self._journal_obj("topology", topology)
 
     def create_node(self, node) -> None:
         """Node lifecycle (tas/node_controller.go)."""
         self.cache.add_or_update_node(node)
         self.queues.queue_inadmissible_workloads()
+        self._journal_obj("node", node)
 
     def delete_node(self, name: str) -> None:
         self.cache.delete_node(name)
         self.queues.queue_inadmissible_workloads()
+        if self.journal is not None:
+            self.journal.delete("node", name, ts=self.clock)
 
     def observe_pod(self, pod) -> None:
         raise NotImplementedError("non-TAS pod usage is not ported")
@@ -187,6 +253,8 @@ class Engine:
 
     def create_workload_priority_class(self, name: str, value: int) -> None:
         self.workload_priority_classes[name] = value
+        self._journal_obj("workload_priority_class",
+                          {"name": name, "value": value})
 
     def submit(self, wl: Workload) -> bool:
         if not wl.creation_time:
@@ -205,6 +273,9 @@ class Engine:
         self.workloads[wl.key] = wl
         info = self.queues.add_or_update_workload(wl)
         if info is None:
+            # Registered but unqueued (unknown LocalQueue): persist so a
+            # restarted engine carries the same object.
+            self._journal_obj("workload", wl)
             return False
         # status.resourceRequests: the effective totals at consideration
         # time (workload_types.go:886 PodSetRequest).
@@ -236,13 +307,17 @@ class Engine:
         """Advance the clock and enforce maximum execution time
         (workload_controller.go:838 reconcileMaxExecutionTime)."""
         self.clock += dt
-        for info in list(self.cache.workloads.values()):
-            wl = self.workloads.get(info.key)
-            if wl is None or not wl.is_admitted or wl.is_finished:
+        # The budget test first, in one pass: most admitted workloads
+        # carry none, and the condition scans below are the costly part
+        # of a tick over tens of thousands of admitted workloads.
+        budgeted = [wl for wl in map(self.workloads.get,
+                                     list(self.cache.workloads))
+                    if wl is not None
+                    and wl.maximum_execution_time_seconds is not None]
+        for wl in budgeted:
+            if not wl.is_admitted or wl.is_finished:
                 continue
             max_s = wl.maximum_execution_time_seconds
-            if max_s is None:
-                continue
             adm = wl.condition(WorkloadConditionType.ADMITTED)
             spent = wl.status.accumulated_past_execution_time_seconds
             if adm and spent + (self.clock - adm.last_transition_time) \
@@ -251,37 +326,66 @@ class Engine:
                 self.evict(wl, "MaximumExecutionTimeExceeded",
                            requeue=False)
 
-    def attach_oracle(self, max_depth: int = 4, device=None) -> None:
+    def attach_oracle(self, max_depth: int = 4, device=None,
+                      remote_address: Optional[tuple] = None) -> None:
         """Enable the batched device path for scheduling cycles: an
         OracleBridge over a TorchExecutor on ``device`` (the engine's
         device when not given: CUDA unless the caller asks for the CPU;
-        raises when CUDA is absent). The TAS forests move to the same
-        device. An executor error propagates out of schedule_once."""
+        raises when CUDA is absent), or, with ``remote_address`` ((host,
+        port)), over a RemoteExecutor to an oracle sidecar
+        (oracle/service.py); the bridge then encodes on the engine's
+        device. The TAS forests move to the same device. Executor calls
+        go through the bridge's supervisor: a transport failure becomes
+        a ``remote-error`` host cycle; any other executor error
+        propagates out of schedule_once."""
         from kueue_tpu_torch.oracle.engine_bridge import OracleBridge
-        from kueue_tpu_torch.oracle.service import TorchExecutor
+        from kueue_tpu_torch.oracle.service import (
+            RemoteExecutor,
+            TorchExecutor,
+        )
 
         if device is not None:
             self.device = device
             self.cache.set_tas_device(device)
-        self.oracle = OracleBridge(self, TorchExecutor(self.device),
-                                   max_depth=max_depth)
+        if remote_address is not None:
+            executor = RemoteExecutor(*remote_address)
+        else:
+            executor = TorchExecutor(self.device)
+        self.oracle = OracleBridge(self, executor, max_depth=max_depth)
 
     def schedule_once(self) -> Optional[CycleResult]:
-        """One schedule() cycle (scheduler.go:286)."""
+        """One schedule() cycle (scheduler.go:286), then the journal's
+        crash-safe cycle-boundary sync after a non-idle cycle."""
         if not self._serving_gc:
-            return self._schedule_once_impl()
-        try:
-            return self._schedule_once_impl()
-        finally:
-            # Serving GC posture: sweep the young generation and
-            # re-freeze survivors after every cycle.
-            import gc
-            gc.collect(0)
-            gc.freeze()
+            result = self._schedule_once_impl()
+        else:
+            try:
+                result = self._schedule_once_impl()
+            finally:
+                # Serving GC posture: sweep the young generation and
+                # re-freeze survivors after every cycle.
+                import gc
+                gc.collect(0)
+                gc.freeze()
+        self.cycle_seq += 1
+        if result is not None and self.journal is not None:
+            # Every record this cycle wrote reaches the disk before the
+            # decisions take further effect: a SIGKILL between cycles
+            # never loses an applied admission.
+            self.journal.sync()
+        return result
 
     def _schedule_once_impl(self) -> Optional[CycleResult]:
         if self.oracle is not None:
-            result = self.oracle.try_cycle()
+            from kueue_tpu_torch.oracle.service import RemoteOracleError
+
+            try:
+                result = self.oracle.try_cycle()
+            except RemoteOracleError:
+                # Transport failure before any verdict was applied: the
+                # sequential path owns this cycle.
+                self.oracle._fallback("remote-error")
+                result = None
             if result is not None:
                 if not result.entries and not result.inadmissible:
                     return None  # idle
@@ -369,8 +473,19 @@ class Engine:
         self._serving_gc = True
 
     def begin_bulk_admit(self) -> _BulkAdmitCtx:
-        """Open the bulk-admission context of one serving cycle."""
+        """Open the bulk-admission context of one serving cycle; its
+        journal writes are applied once, by flush_bulk_admit."""
         return _BulkAdmitCtx(self.clock)
+
+    def flush_bulk_admit(self, ctx: _BulkAdmitCtx) -> None:
+        """One journal record per workload the cycle touched, in first
+        touch order, in one batched write."""
+        if self.journal is None:
+            return
+        wls = [wl for wl in (self.workloads.get(key)
+                             for key in dict.fromkeys(ctx.journal_keys))
+               if wl is not None]
+        self.journal.apply_many("workload", wls, ts=self.clock)
 
     def bulk_assume_batch(self, entries, bulk: _BulkAdmitCtx) -> list:
         """In-cycle half of a device cycle's admitted batch: remove the
@@ -479,6 +594,8 @@ class Engine:
         QR = WorkloadConditionType.QUOTA_RESERVED
         ADM = WorkloadConditionType.ADMITTED
         on_admit = self.on_admit
+        journal_keys = bulk.journal_keys if self.journal is not None \
+            else None
         n_admitted = 0
         for entry, admission in pairs:
             info = entry.info
@@ -495,6 +612,8 @@ class Engine:
                 if pc is not None and pc.status:
                     conds[ctype] = cond
             self._record(EngineEvent(now, "QuotaReserved", key, cq_name))
+            if journal_keys is not None:
+                journal_keys.append(key)
             adm_cond_prev = conds.get(ADM)
             if adm_cond_prev is not None and adm_cond_prev.status:
                 continue  # already admitted: QuotaReserved only
@@ -546,7 +665,8 @@ class Engine:
         # The workload left the pending world: free its tensor row.
         self.queues.rows.on_remove(wl.key)
         cq_name = entry.info.cluster_queue
-        self._event("QuotaReserved", wl.key, cluster_queue=cq_name)
+        self._event("QuotaReserved", wl.key, cluster_queue=cq_name,
+                    defer_journal=bulk)
         if self.admission_checks is not None:
             self.admission_checks.sync_states(wl, cq_name)
         self._sync_admitted(wl, cq_name, bulk=bulk)
@@ -579,7 +699,8 @@ class Engine:
         else:
             wl.set_condition(WorkloadConditionType.ADMITTED, True,
                              reason="Admitted", now=self.clock)
-        self._event("Admitted", wl.key, cluster_queue=cq_name)
+        self._event("Admitted", wl.key, cluster_queue=cq_name,
+                    defer_journal=bulk)
         if self.on_admit is not None:
             self.on_admit(wl, wl.status.admission)
 
@@ -635,12 +756,19 @@ class Engine:
         wl.status.admission_check_states = {}
         wl.status.admission_check_updates = {}
         self.cache.delete_workload(wl.key)
-        self._event("Evicted", wl.key, cluster_queue=cq_name, detail=reason)
+        self._event("Evicted", wl.key, cluster_queue=cq_name, detail=reason,
+                    defer_journal=bulk)
         if requeue and wl.active:
             wl.status.requeue_count += 1
             if backoff_seconds:
                 wl.status.requeue_at = self.clock + backoff_seconds
             self.queues.add_or_update_workload(wl)
+            # The requeue bookkeeping changed status after the Evicted
+            # record: persist the final state.
+            if bulk is not None:
+                bulk.journal_keys.append(wl.key)
+            else:
+                self._journal_obj("workload", wl)
         if self._deferred_cohort_requeue is not None:
             self._deferred_cohort_requeue.add(cq_name)
         else:
@@ -665,7 +793,7 @@ class Engine:
             self.metrics.preemptions_total += 1
             self._event("Preempted", twl.key,
                         cluster_queue=target.workload.cluster_queue,
-                        detail=target.reason)
+                        detail=target.reason, defer_journal=bulk)
 
     def _requeue(self, entry) -> None:
         """scheduler.go:1016 (requeueAndUpdate)."""
@@ -739,9 +867,17 @@ class Engine:
         self.queues.queue_inadmissible_workloads(names)
 
     def _event(self, kind: str, workload: str, cluster_queue: str = "",
-               detail: str = "") -> None:
+               detail: str = "", defer_journal=None) -> None:
         self._record(EngineEvent(self.clock, kind, workload, cluster_queue,
                                  detail))
+        # Every workload transition flows through here: persist the
+        # post-transition state. Bulk cycles defer the write to one
+        # record per workload at flush time.
+        if defer_journal is not None:
+            defer_journal.journal_keys.append(workload)
+        elif self.journal is not None and workload in self.workloads:
+            self.journal.apply("workload", self.workloads[workload],
+                               ts=self.clock)
 
     def _record(self, ev: EngineEvent) -> None:
         self.events.append(ev)

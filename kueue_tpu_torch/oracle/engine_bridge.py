@@ -37,11 +37,24 @@ every admitted entry takes the engine's per-entry ``_admit``, which
 reserves quota and holds Admitted until its checks are Ready. Neither
 demotes a root.
 
-Differences from the JAX package's bridge: the cycle loop is serial (no
+Every executor call goes through the supervisor
+(``oracle/supervisor.OracleSupervisor``, configured as in the JAX
+package from ``KUEUE_TPU_ORACLE_RETRIES``, ``KUEUE_TPU_ORACLE_BREAKER_N``
+and ``KUEUE_TPU_ORACLE_BREAKER_COOLDOWN``): a RemoteOracleError is
+retried with backoff, a call that still fails feeds the circuit breaker
+and leaves ``try_cycle`` (the engine decides the cycle on the host,
+reason ``remote-error``), and while the breaker is open every cycle is a
+``breaker-open`` host cycle until a half-open probe re-promotes the
+device. Any other executor error (or a failed TAS launch) is counted by
+the supervisor and propagates out of ``schedule_once``, as in the JAX
+package; so does a RemoteExecutorError, the sidecar's executor failing
+on its device. With a remote executor (``service.RemoteExecutor``, which has
+no device) the bridge encodes on the engine's device, and the executor
+ships host copies.
+
+Difference from the JAX package's bridge: the cycle loop is serial (no
 speculative encode of the next cycle, which the JAX package holds
-decision-identical) and there is no supervisor: an executor error (or a
-failed TAS launch) propagates out of ``schedule_once`` instead of
-turning the cycle into a host fallback.
+decision-identical).
 
 The module-level ``cq_policy_cfg``, ``adm_padded`` and ``slot_maybe``
 are the numpy argument helpers of the fused-preemption cycle.
@@ -49,6 +62,7 @@ are the numpy argument helpers of the fused-preemption cycle.
 
 from __future__ import annotations
 
+import os
 import time
 import zlib
 from types import SimpleNamespace
@@ -66,6 +80,7 @@ from kueue_tpu_torch.ops import assign as aops
 from kueue_tpu_torch.ops import commit as cops
 from kueue_tpu_torch.ops import preempt as pops
 from kueue_tpu_torch.ops import quota as qops
+from kueue_tpu_torch.oracle.supervisor import OracleSupervisor
 from kueue_tpu_torch.scheduler.cycle import (
     CycleResult,
     Entry,
@@ -263,8 +278,24 @@ class OracleBridge:
     def __init__(self, engine, executor, max_depth: int = 4):
         self.engine = engine
         self.max_depth = max_depth
-        # In-process execution (service.TorchExecutor) on its device.
+        # Where the device programs run: in-process
+        # (service.TorchExecutor, on its device) or in an oracle sidecar
+        # (service.RemoteExecutor).
         self.executor = executor
+        # Where the cycle's inputs are encoded: the executor's device, or
+        # the engine's when the executor has none (a remote one).
+        self.device = getattr(executor, "device", None)
+        if self.device is None:
+            from kueue_tpu_torch.device import resolve_device
+            self.device = resolve_device(engine.device)
+        # Retry + circuit breaker around executor calls; breaker-open
+        # cycles are refused up front in try_cycle until a half-open
+        # probe re-promotes.
+        self.supervisor = OracleSupervisor(
+            max_attempts=int(os.environ.get("KUEUE_TPU_ORACLE_RETRIES", "3")),
+            threshold=int(os.environ.get("KUEUE_TPU_ORACLE_BREAKER_N", "3")),
+            cooldown_cycles=int(os.environ.get(
+                "KUEUE_TPU_ORACLE_BREAKER_COOLDOWN", "8")))
         self.cycles_on_device = 0
         self.cycles_fallback = 0
         self.cycles_hybrid = 0  # device cycles with a host-root tail
@@ -285,8 +316,7 @@ class OracleBridge:
         self.sim_seconds = 0.0
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a),
-                               device=self.executor.device)
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     def world_is_fast_path_safe(self) -> bool:
         """False when every ClusterQueue with pending work has a flavor
@@ -319,6 +349,19 @@ class OracleBridge:
     def _host_root(self, reason: str, count: int = 1) -> None:
         self.host_root_reasons[reason] = \
             self.host_root_reasons.get(reason, 0) + count
+
+    def _exec_call(self, site: str, fn, *args, **kwargs):
+        """Route one executor call through the supervisor: a
+        RemoteOracleError is retried with backoff; a call that still
+        fails feeds the circuit breaker before propagating."""
+        sup = self.supervisor
+        try:
+            out = sup.call(site, fn, *args, **kwargs)
+        except Exception:
+            sup.record_failure(self.engine.cycle_seq)
+            raise
+        sup.record_success()
+        return out
 
     def _world_tensors(self):
         """World structure tensors memoized by the cache's spec version;
@@ -489,8 +532,9 @@ class OracleBridge:
         if slot_cq is not None:
             tensors["slot_cq"] = slot_cq
         found, overflow, mask, _n, variant, borrow_after = \
-            self.executor.classical_targets(
-                tensors, {"depth": w.depth, "v_cap": v_cap},
+            self._exec_call(
+                "classical_targets", self.executor.classical_targets,
+                tensors, {"depth": int(w.depth), "v_cap": int(v_cap)},
                 derived=derived)
         return found, overflow, mask, variant, borrow_after
 
@@ -744,6 +788,10 @@ class OracleBridge:
         """Attempt one hybrid cycle. Returns None to request full
         sequential fallback (nothing has been mutated in that case)."""
         eng = self.engine
+        if not self.supervisor.allow_cycle(eng.cycle_seq):
+            # Breaker open: the device path is known-bad; go straight to
+            # the host path without paying retries or timeouts.
+            return self._fallback("breaker-open")
         if not self.world_is_fast_path_safe():
             return self._fallback("world")
 
@@ -763,7 +811,8 @@ class OracleBridge:
                 return self._fallback(enc.fallback_reason)
             return enc.value
         t_encode = time.perf_counter()
-        enc.out = self.executor.cycle_step(enc.inputs, enc.statics)
+        enc.out = self._exec_call("cycle_step", self.executor.cycle_step,
+                                  enc.inputs, enc.statics)
         return self._commit_cycle(enc, t0, t_encode)
 
     def _commit_tas_stats(self, tas_plan) -> None:
@@ -1022,10 +1071,12 @@ class OracleBridge:
             device_w_padded = pad_axis0(device_w, Wp, False)
         args = {k: self._tensor(v) for k, v in host.items()}
         args.update(self._device_world_args(w))
-        statics = dict(depth=w.depth, num_resources=w.num_resources,
-                       num_cqs=w.num_cqs,
-                       fair_mode=eng.cycle.enable_fair_sharing,
-                       num_flavors=max(w.num_flavors, 1))
+        # Plain ints and bools: a remote executor sends them as JSON.
+        statics = dict(depth=int(w.depth),
+                       num_resources=int(w.num_resources),
+                       num_cqs=int(w.num_cqs),
+                       fair_mode=bool(eng.cycle.enable_fair_sharing),
+                       num_flavors=int(max(w.num_flavors, 1)))
         pre_kwargs = {}
         preempt_targets: dict[int, list] = {}
         if pre is not None:
@@ -1298,6 +1349,7 @@ class OracleBridge:
         def finalize() -> None:
             eng.bulk_finalize_batch(pairs, bulk)
             eng._requeue_cohorts_bulk(requeue_cohorts)
+            eng.flush_bulk_admit(bulk)
 
         return result, finalize
 

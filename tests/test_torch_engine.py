@@ -555,7 +555,9 @@ def test_attach_oracle_defaults_to_cuda():
 
 def test_executor_error_propagates():
     """A failing executor is not turned into a host fallback: the error
-    leaves schedule_once and nothing is counted as a fallback."""
+    leaves schedule_once and nothing is counted as a fallback. (The
+    bridge's supervisor counts the failure; only a RemoteOracleError
+    becomes a host cycle.)"""
     from kueue_tpu_torch.bench.engine_worlds import build_cycle_engine, \
         port_kit
     from kueue_tpu_torch.bench.scenario import baseline_like
