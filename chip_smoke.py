@@ -43,7 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      launched once per cycle; then the heads kernel vs its plain version
      on the world's first-cycle inputs, exact;
  10-13. the serving engine (Engine.schedule_once through the OracleBridge
-     and TorchExecutor, kueue_tpu_torch/bench/engine_worlds.py FULL):
+     and TorchExecutor, kueue_tpu_torch/bench/engine_worlds.py FULL, on
+     the serial loop with the columnar apply, the loop the JAX constants
+     of phases 10 to 18 came from; each run pins it):
      bench.py's cycle_latency (1,000 ClusterQueues x 50,000 workloads, 1
      untimed and 8 timed cycles) and fair_cycle_latency (500 ClusterQueues
      x 20,000 workloads, 1 + 6 cycles), bench_preempt_churn's world (100
@@ -85,8 +87,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      inputs; each prints p50 and p95 s/cycle and the mean encode / sim /
      device / apply / finalize phases;
  19. the deployed control plane (kueue_tpu_torch/bench/serve_world.py
-     FULL): the cycle_latency world plus an ``arrivals`` ClusterQueue,
-     seeded into a journal (52,204 records); the oracle sidecar
+     FULL) on the default serving loop (the speculation pipeline and the
+     columnar apply): the cycle_latency world plus an ``arrivals``
+     ClusterQueue, seeded into a journal (52,204 records); the oracle sidecar
      (``python -m kueue_tpu_torch.oracle.service``) on the card and
      ``python -m kueue_tpu_torch.serve --oracle 127.0.0.1:PORT --device
      cuda`` rebuilding the journal; 1,000 arrivals POSTed at 200 a
@@ -94,13 +97,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      SIGTERM (exit 0 each). Gated on the final state's checksum, held
      quota count and arrivals against the JAX package's, every arrival
      admitted exactly once (its journal records), no fallback cycle but
-     ``idle-*``, and the sidecar's heads launches and compute replies
-     equal to the device cycles. Prints the restart (journal bytes,
-     records, rebuild and boot seconds), the mean cycle wall time (drain
+     ``idle-*``, the sidecar's heads launches and compute replies equal
+     to the device calls the serve process dispatched (device cycles
+     less used speculations, plus every speculation), and one /metrics
+     scrape before SIGTERM: the admitted_workloads_total,
+     pending_workloads, cluster_queue_resource_usage,
+     local_queue_pending_workloads and oracle_breaker_state series
+     against the JAX package's, oracle_cycles_total against the
+     process's /oracle and only ``idle-*`` in oracle_fallback_total.
+     Prints the restart (journal bytes, records, rebuild and boot
+     seconds), the mean cycle wall time (drain
      seconds over device cycles), p50 and p95 of the ``lastCyclePhases``
      each /debug/dump poll sampled (and of each /oracle poll that saw a
-     new device cycle), frame bytes per cycle each way, POST p50 and p95
-     latency, the drain seconds and the serve loop's wall split;
+     new device cycle), frame bytes per device call each way, POST p50
+     and p95 latency, the drain seconds, the serve loop's wall split,
+     its pipeline_stats and the scrape's bytes and seconds;
  20. crash and restart: the same world with ``--oracle local``, the
      serve process SIGKILLed after 30 device cycles while the arrivals
      are POSTed, restarted on the same journal, the arrivals POSTed again
@@ -109,17 +120,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      held before the kill present after the restart, no key admitted
      twice, no ClusterQueue's or cohort's usage above its cohort's
      quota, every arrival admitted, the restarted process's heads
-     launches equal to its device cycles, and the port's rebuild_engine
-     of the final journal (drained to idle on the host) giving the live
-     engine's dump_state. Prints the restart seconds;
+     launches equal to its dispatched device calls, and the port's
+     rebuild_engine of the final journal (drained to idle on the host)
+     giving the live engine's dump_state. Prints the restart seconds;
  21. (beside phase 20: both are gates on processes of their own) the
-     breaker on the card: phase 19 with the sidecar run as
-     ``--fault crash-after:3`` and KUEUE_TPU_ORACLE_BREAKER_COOLDOWN=2;
-     once ``breaker-open`` shows in /oracle the sidecar is restarted on
-     the same port. Gated on ``remote-error`` and ``breaker-open`` host
-     cycles, device cycles again after them (the half-open probe
-     re-promotes), the new sidecar's heads launches equal to the device
-     cycles it served, and phase 19's final-state checksum.
+     breaker on the card, posting the first 250 arrivals (a quarter) to
+     a copy of the journal: the sidecar run as ``--fault crash-after:3`` and
+     KUEUE_TPU_ORACLE_BREAKER_COOLDOWN=2; once ``breaker-open`` shows in
+     /oracle the sidecar is restarted on the same port. Gated on
+     ``remote-error`` and ``breaker-open`` host cycles, device cycles
+     again after them (the half-open probe re-promotes), the new
+     sidecar's heads launches equal to the device calls dispatched
+     after the demotion, and the JAX package's final state with those
+     arrivals;
+ 22-23. the serving engine on the default loop (engine_worlds.DEFAULT_ARM):
+     cycle_latency (the columnar apply at 1,000 admissions a cycle) and
+     preempt_churn (the speculation pipeline's renumbered victims), each
+     against the JAX engine's numbers on its default loop (cycles,
+     admissions, preemptions, evictions, decision-stream crc32, device /
+     hybrid / fallback cycles and pipeline_stats), with the heads kernel
+     launched once per dispatched device call and held against its
+     plain version on the run's first-cycle inputs; each prints p50 and
+     p95 s/cycle and the mean phases, spec_encode included;
+ 24-25. the two arms with the per-entry assume (engine_worlds.OTHER_ARMS):
+     cycle_latency on the serial loop (its apply against phase 10's
+     columnar one) and preempt_churn on the speculation pipeline, gated
+     as phases 22 and 23 against the JAX engine's numbers on each arm.
+Before the kernel summary it prints each phase's wall seconds.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
 tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
@@ -246,10 +273,78 @@ MIXED_EXPECT = {
 # the workloads holding quota and of them the arrivals.
 SERVE_EXPECT = dict(checksum=0x41b5f911, admitted=50937,
                     arrivals_admitted=1000)
+# The /metrics series of phase 19 that do not depend on when the loop
+# ran: the JAX engine's after the same drain on its default loop
+# (tests/test_torch_serve.py recomputes them): the admissions in all,
+# the crc32 of the sample lines of admitted_workloads_total,
+# pending_workloads (no sample: the deployed loop's cycles that set it
+# are idle ones, which return before it),
+# cluster_queue_resource_usage and local_queue_pending_workloads (the
+# last two refreshed by the scrape from the final state), and the
+# breaker's state.
+SERVE_METRICS_EXPECT = dict(admitted_total=50937.0,
+                            admitted_series=0xa4713e32, pending_series=0,
+                            usage_series=0x257777d4,
+                            lq_pending_series=0x8f28d4ae,
+                            breaker_state={(): 0.0})
+# Phase 21 posts the first quarter of the arrivals only.
+BREAKER_ARRIVALS = 250
+# Phase 21's world (serve_world.FULL with its first 250 arrivals): the
+# JAX engine's final state (tests/test_torch_serve.py recomputes it).
+SERVE_BREAKER_EXPECT = dict(checksum=0x638086c7, admitted=50187,
+                            arrivals_admitted=250)
+# Phases 22 and 23 (engine_worlds.DEFAULT_ARM): the JAX engine's numbers
+# on its default loop, the speculation pipeline and the columnar apply
+# on (tests/test_torch_engine_worlds.py recomputes them).
+DEFAULT_ARM_EXPECT = {
+    "cycle_latency": dict(
+        cycles=9, admitted=9000, preempting=0, preemptions=0,
+        checksum=0x32e2d6f0, on_device=9, hybrid=0, fallback=0,
+        overridden=0, evicted=0,
+        pipeline_stats=dict(speculated=9, used=8, discarded=0, skipped=0)),
+    "preempt_churn": dict(
+        cycles=39, admitted=600, preempting=231, preemptions=309,
+        checksum=0xdce70507, on_device=39, hybrid=0, fallback=1,
+        overridden=0, evicted=309,
+        pipeline_stats=dict(speculated=38, used=37, discarded=0,
+                            skipped=0)),
+}
+# Phases 24 and 25 (engine_worlds.OTHER_ARMS): the JAX engine's numbers
+# with the per-entry assume, cycle_latency on the serial loop and
+# preempt_churn on the speculation pipeline
+# (tests/test_torch_engine_worlds.py recomputes them).
+OTHER_ARMS_EXPECT = {
+    "cycle_latency_serial": dict(
+        cycles=9, admitted=9000, preempting=0, preemptions=0,
+        checksum=0x32e2d6f0, on_device=9, hybrid=0, fallback=0,
+        overridden=0, evicted=0,
+        pipeline_stats=dict(speculated=0, used=0, discarded=0, skipped=0)),
+    "preempt_churn_pipelined": dict(
+        cycles=39, admitted=600, preempting=231, preemptions=309,
+        checksum=0xdce70507, on_device=39, hybrid=0, fallback=1,
+        overridden=0, evicted=309,
+        pipeline_stats=dict(speculated=38, used=37, discarded=0,
+                            skipped=0)),
+}
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
                   feasibility_empty=0x76cebe8a,
                   feasibility_final=0x99e5afa2, phase1=0xe7c953cf)
+
+
+# Start times of the script's phases, for the wall split it prints.
+_SPANS: list = []
+
+
+def span(label: str) -> None:
+    """Mark the start of a phase (and the end of the one before)."""
+    _SPANS.append((label, time.perf_counter()))
+
+
+def spans_line() -> str:
+    marks = _SPANS + [("end", time.perf_counter())]
+    return " ".join(f"{a}={t1 - t0:.1f}"
+                    for (a, t0), (_b, t1) in zip(marks, marks[1:]))
 
 
 def card_line() -> str:
@@ -334,7 +429,7 @@ def phase_heads(dev, heads, pk):
                 launches_per_call=prof["launches_per_call"])
 
 
-def check_heads(heads, name, eff_t, cq_t, c, sms) -> int:
+def check_heads(heads, name, eff_t, cq_t, c, sms, say=print) -> int:
     """The kernel against the plain version on one input, exact; returns
     the max abs error (0)."""
     import torch
@@ -347,7 +442,7 @@ def check_heads(heads, name, eff_t, cq_t, c, sms) -> int:
         raise AssertionError(f"heads kernel != plain on {name}: "
                              f"max abs err {err}")
     branch = heads.plan(eff_t.numel(), c, sms)
-    print(f"  heads {name}: exact ("
+    say(f"  heads {name}: exact ("
           + ("global atomics" if branch == 0 else
              f"{branch} cluster{'s' if branch > 1 else ''}") + ")")
     return err
@@ -629,38 +724,54 @@ def phase_preempt_world(heads, pk, card, sms):
     return launches
 
 
-def phase_engine(name, heads, pk, card, sms):
+def dispatched(r) -> int:
+    """The device cycles a run dispatched, so the heads launches it must
+    show: the cycles that encoded afresh (device cycles less the used
+    speculations) and every speculation (used or discarded)."""
+    ps = r["pipeline_stats"]
+    return r["on_device"] - ps.get("used", 0) + ps.get("speculated", 0)
+
+
+def phase_engine(name, config, expect, heads, pk, card, sms):
     """One serving-engine run of kueue_tpu_torch/bench/engine_worlds.py
     (Engine.schedule_once through the OracleBridge and TorchExecutor)
     against the JAX engine's pinned numbers, with the heads kernel
-    launched once per device cycle and held against its plain version
-    on the run's first-cycle inputs. Returns its heads launches."""
+    launched once per dispatched device cycle and held against its plain
+    version on the run's first-cycle inputs. ``config`` is an entry of
+    FULL (the serial loop with the columnar apply), DEFAULT_ARM or
+    OTHER_ARMS, run on the loop arm it names; for the last two the
+    evictions and pipeline_stats are pinned too (engine_worlds.
+    arm_pinned). Returns its heads launches."""
     from kueue_tpu_torch.bench import engine_worlds as ew
 
     box = {}
     heads.launches = 0
     t0 = time.perf_counter()
     eff_t, cq_t, C = pk.first_heads_inputs(
-        lambda: box.update(r=ew.run(ew.FULL[name])))
+        lambda: box.update(r=ew.run(config)))
     total_s = time.perf_counter() - t0
     launches = heads.launches
     r = box["r"]
-    got = {k: r[k] for k in ew.PINNED}
+    got = (ew.arm_pinned(r) if "pipeline_stats" in expect
+           else {k: r[k] for k in ew.PINNED})
     print("  " + " ".join(
         f"{k}=0x{v:08x}" if k == "checksum" else f"{k}={v}"
         for k, v in got.items()))
-    if got != ENGINE_EXPECT[name]:
-        raise AssertionError(f"{name}: got {got}, want {ENGINE_EXPECT[name]}")
-    if launches != r["on_device"]:
-        raise AssertionError(f"{name}: heads kernel launched {launches} "
-                             f"times in {r['on_device']} device cycles")
+    if got != expect:
+        raise AssertionError(f"{name}: got {got}, want {expect}")
+    if launches != dispatched(r):
+        raise AssertionError(
+            f"{name}: heads kernel launched {launches} times for "
+            f"{r['on_device']} device cycles and pipeline_stats "
+            f"{r['pipeline_stats']}")
     check_heads(heads, f"{name} first cycle w={eff_t.numel()} c={C}",
                 eff_t, cq_t, C, sms)
     times = sorted(r["cycle_seconds"])
     p50 = times[len(times) // 2]
     p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
     mean = {ph: sum(p.get(ph, 0.0) for p in r["phases"]) / len(r["phases"])
-            for ph in ("encode", "device", "apply", "finalize")}
+            for ph in ("encode", "sim", "device", "apply", "finalize",
+                       "spec_encode")}
     print(f"  timed_cycles={len(times)} p50_s={p50:.4f} p95_s={p95:.4f} "
           "mean_phases_s=" + ",".join(f"{k}:{v:.4f}" for k, v in mean.items())
           + f" run_s={total_s:.2f} heads_launches={launches} | {card}")
@@ -705,10 +816,11 @@ def phase_tas_engine(name, heads, pk, card, sms):
         if got != want:
             raise AssertionError(f"{name} {path} feas={feas}: got {got}, "
                                  f"want {want}")
-        if heads.launches != r["on_device"]:
+        if heads.launches != dispatched(r):
             raise AssertionError(
                 f"{name} {path}: heads kernel launched {heads.launches} "
-                f"times in {r['on_device']} device cycles")
+                f"times for {r['on_device']} device cycles and "
+                f"pipeline_stats {r['pipeline_stats']}")
         times = sorted(r["cycle_seconds"])
         p50 = times[len(times) // 2]
         p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
@@ -761,9 +873,11 @@ def phase_mixed(name, heads, pk, card, sms):
         else f"{k}={v}" for k, v in got.items()))
     if got != MIXED_EXPECT[name]:
         raise AssertionError(f"{name}: got {got}, want {MIXED_EXPECT[name]}")
-    if launches != r["on_device"]:
-        raise AssertionError(f"{name}: heads kernel launched {launches} "
-                             f"times in {r['on_device']} device cycles")
+    if launches != dispatched(r):
+        raise AssertionError(
+            f"{name}: heads kernel launched {launches} times for "
+            f"{r['on_device']} device cycles and pipeline_stats "
+            f"{r['pipeline_stats']}")
     check_heads(heads, f"{name} first cycle w={eff_t.numel()} c={C}",
                 eff_t, cq_t, C, sms)
     times = sorted(r["cycle_seconds"])
@@ -797,22 +911,60 @@ def serve_views(sw, url):
     return sw.get_json(url, "/workloads"), sw.get_json(url, "/debug/dump")
 
 
-def check_serve_state(sw, views, label, say=print):
+def check_serve_state(sw, views, label, say=print, expect=None):
+    expect = expect or SERVE_EXPECT
     got = sw.final_state(*views)
     say(f"  {label}: checksum=0x{got['checksum']:08x} "
           f"admitted={got['admitted']} "
           f"arrivals_admitted={got['arrivals_admitted']}")
-    if got != SERVE_EXPECT:
-        raise AssertionError(f"{label}: got {got}, want {SERVE_EXPECT}")
+    if got != expect:
+        raise AssertionError(f"{label}: got {got}, want {expect}")
 
 
-def check_arrivals_once(sw, path, label):
-    """Every arrival's journal records went from not admitted to
-    admitted exactly once."""
+def serve_metrics(sw, text) -> dict:
+    """The numbers of SERVE_METRICS_EXPECT, from a /metrics text."""
+    return dict(
+        admitted_total=sum(sw.metric_values(
+            text, "admitted_workloads_total").values()),
+        admitted_series=sw.metrics_digest(text, "admitted_workloads_total"),
+        pending_series=sw.metrics_digest(text, "pending_workloads"),
+        usage_series=sw.metrics_digest(text, "cluster_queue_resource_usage"),
+        lq_pending_series=sw.metrics_digest(
+            text, "local_queue_pending_workloads"),
+        breaker_state=sw.metric_values(text, "oracle_breaker_state"))
+
+
+def check_serve_metrics(sw, text, oracle):
+    """Phase 19's /metrics scrape: the series that do not depend on when
+    the loop's idle iterations ran against the JAX package's, and the
+    bridge's counters against the process's own /oracle view."""
+    got = serve_metrics(sw, text)
+    print("  /metrics: " + " ".join(
+        f"{k}=0x{v:08x}" if k.endswith("_series") else f"{k}={v}"
+        for k, v in got.items()))
+    if got != SERVE_METRICS_EXPECT:
+        raise AssertionError(f"/metrics: got {got}, want "
+                             f"{SERVE_METRICS_EXPECT}")
+    cycles = sw.metric_values(text, "oracle_cycles_total")
+    fallback = sw.metric_values(text, "oracle_fallback_total")
+    print(f"  /metrics: oracle_cycles_total={cycles} "
+          f"oracle_fallback_total={fallback}")
+    device = cycles.get(("device",), 0) + cycles.get(("hybrid",), 0)
+    if device != oracle["cyclesOnDevice"]:
+        raise AssertionError(f"oracle_cycles_total {cycles}, /oracle "
+                             f"{oracle['cyclesOnDevice']} device cycles")
+    if (any(not k[0].startswith("idle-") for k in fallback)
+            or cycles.get(("fallback",), 0) != sum(fallback.values())):
+        raise AssertionError(f"fallbacks {fallback}, cycles {cycles}")
+
+
+def check_arrivals_once(sw, path, label, arrivals):
+    """Each of the ``arrivals`` arrivals' journal records went from not
+    admitted to admitted exactly once."""
     st = sw.journal_state(path)
     arr = {k: n for k, n in st["transitions"].items()
            if k.startswith("default/arrival-")}
-    if len(arr) != sw.FULL["arrivals"] or set(arr.values()) != {1}:
+    if len(arr) != arrivals or set(arr.values()) != {1}:
         raise AssertionError(
             f"{label}: {len(arr)} arrivals admitted, admissions per key "
             f"{sorted(set(arr.values()))}")
@@ -841,9 +993,11 @@ def phase_serve(seed, work, bodies, card):
         procs.append(serve)
         t0 = time.perf_counter()
         posted = sw.post_arrivals(url, bodies, sw.FULL["rate"])
-        idle = sw.wait_idle(url, 900, dump_every=5.0)
+        idle = sw.wait_idle(url, 900, dump_every=30.0)
         drain_s = time.perf_counter() - t0
         views = serve_views(sw, url)
+        text, scrape_s, scrape_bytes = sw.get_text(url, "/metrics")
+        oracle = sw.get_json(url, "/oracle")
         rc, last = serve.stop()
         side_rc, side_last = side.stop()
     finally:
@@ -851,27 +1005,32 @@ def phase_serve(seed, work, bodies, card):
     if set(posted["codes"]) != {201}:
         raise AssertionError(f"POST codes {sorted(set(posted['codes']))}")
     check_serve_state(sw, views, "final state")
-    check_arrivals_once(sw, path, "arrivals")
+    check_arrivals_once(sw, path, "arrivals", sw.FULL["arrivals"])
+    check_serve_metrics(sw, text, oracle)
     fb = idle["oracle"]["fallbackReasons"]
     if any(not k.startswith("idle-") for k in fb):
         raise AssertionError(f"fallback cycles {fb}")
     if (rc, side_rc) != (0, 0):
         raise AssertionError(f"exit codes serve={rc} sidecar={side_rc}")
     cycles = last["cycles_on_device"]
+    calls = dispatched(dict(on_device=cycles,
+                            pipeline_stats=last["pipeline_stats"]))
     if not (side_last["heads_launches"] == side_last["compute_replies"]
-            == cycles > 0):
+            == calls > 0):
         raise AssertionError(
             f"sidecar heads launches {side_last['heads_launches']}, "
             f"replies {side_last['compute_replies']}, device cycles "
-            f"{cycles}")
+            f"{cycles}, pipeline_stats {last['pipeline_stats']}")
     lat = posted["latencies"]
     print(f"  restart: journal_bytes={boot['bytes']} "
           f"records={boot['records']} rebuild_s={boot['rebuild_s']:.3f} "
           f"boot_wall_s={boot['wall_s']:.3f}")
-    print(f"  device_cycles={cycles} fallback={fb} drain_s={drain_s:.3f} "
-          f"mean_cycle_s={drain_s / cycles:.5f} "
-          f"frame_bytes_per_cycle in={side_last['bytes_in'] / cycles:.0f} "
-          f"out={side_last['bytes_out'] / cycles:.0f}")
+    print(f"  device_cycles={cycles} dispatched={calls} fallback={fb} "
+          f"drain_s={drain_s:.3f} mean_cycle_s={drain_s / cycles:.5f} "
+          f"frame_bytes_per_call in={side_last['bytes_in'] / calls:.0f} "
+          f"out={side_last['bytes_out'] / calls:.0f}")
+    print(f"  pipeline_stats={last['pipeline_stats']} "
+          f"metrics_scrape bytes={scrape_bytes} s={scrape_s:.4f}")
     print(f"  POST p50_s={pct(lat, 0.5):.5f} p95_s={pct(lat, 0.95):.5f} "
           f"post_wall_s={posted['seconds']:.3f}")
     print("  serve loop s: " + ",".join(
@@ -932,7 +1091,7 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
         serve2, url2, boot2 = sw.start_serve(path, "local", "cuda")
         procs.append(serve2)
         reposted = sw.post_arrivals(url2, bodies, sw.FULL["rate"])
-        sw.wait_idle(url2, 900, dump_every=5.0)
+        sw.wait_idle(url2, 900, dump_every=15.0)
         views = serve_views(sw, url2)
         capacity = sw.get_json(url2, "/capacity")
         cohorts = sw.get_json(url2, "/cohorts")
@@ -945,7 +1104,7 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
         raise AssertionError(f"re-POST codes {sorted(set(reposted['codes']))}")
     if sw.torn_tail(path):
         raise AssertionError("the journal's torn tail was not repaired")
-    after = check_arrivals_once(sw, path, "arrivals")
+    after = check_arrivals_once(sw, path, "arrivals", len(bodies))
     lost = before["admitted"] - set(views[1]["admitted"])
     if lost or not before["admitted"] <= after["admitted"]:
         raise AssertionError(f"{len(lost)} admissions lost in the restart")
@@ -953,12 +1112,15 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
         raise AssertionError("a workload was admitted twice")
     check_usage(capacity, cohorts)
     got = sw.final_state(*views)
-    if got["arrivals_admitted"] != sw.FULL["arrivals"]:
+    if got["arrivals_admitted"] != len(bodies):
         raise AssertionError(f"arrivals admitted {got}")
-    if last2["heads_launches"] != last2["cycles_on_device"]:
+    if last2["heads_launches"] != dispatched(dict(
+            on_device=last2["cycles_on_device"],
+            pipeline_stats=last2["pipeline_stats"])):
         raise AssertionError(f"restarted serve: heads launches "
                              f"{last2['heads_launches']}, device cycles "
-                             f"{last2['cycles_on_device']}")
+                             f"{last2['cycles_on_device']}, pipeline_stats "
+                             f"{last2['pipeline_stats']}")
     # The port's rebuild of the final journal, drained to idle on the
     # host (the parked workloads it re-activates park again), gives the
     # live engine's dump.
@@ -971,8 +1133,11 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
     eng.journal.close()
     rebuilt = json.loads(json.dumps(dump_state(eng)))
     live = views[1]
+    # The phases and the unadmitted gauges are the process's own, never
+    # journaled: a rebuild starts them empty.
     for d in (rebuilt, live):
         d.pop("lastCyclePhases")
+        d.pop("unadmittedByReason")
     if rebuilt != live:
         raise AssertionError("rebuild_engine of the final journal differs "
                              "from the live engine's dump_state")
@@ -986,17 +1151,20 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
           f"{boot['rebuild_s']:.3f} / {boot['wall_s']:.3f}); in-process "
           f"rebuild_s={rebuild_s:.3f}")
     say(f"  heads_launches={last2['heads_launches']} (restarted serve, "
-          f"{last2['cycles_on_device']} device cycles) | {card}")
+          f"{last2['cycles_on_device']} device cycles, pipeline_stats "
+          f"{last2['pipeline_stats']}) | {card}")
     return last2["heads_launches"]
 
 
 def phase_breaker(seed, work, bodies, card, say=print):
-    """Phase 21: the sidecar crashes after 3 replies; the breaker opens;
-    the restarted sidecar is re-promoted. Returns its heads launches."""
+    """Phase 21 with the first BREAKER_ARRIVALS arrivals: the sidecar
+    crashes after 3 replies; the breaker opens; the restarted sidecar is
+    re-promoted. Returns its heads launches."""
     from kueue_tpu_torch.bench import serve_world as sw
 
     path = work / "p21.jsonl"
     shutil.copy(seed, path)
+    bodies = bodies[:BREAKER_ARRIVALS]
     env = sw.child_env(KUEUE_TPU_ORACLE_BREAKER_COOLDOWN="2")
     procs = []
     try:
@@ -1021,7 +1189,7 @@ def phase_breaker(seed, work, bodies, card, say=print):
         side_rc = side.p.wait(60)
         side2, _ = sw.start_sidecar("cuda", port=port)
         procs.append(side2)
-        idle = sw.wait_idle(url, 900, dump_every=5.0,
+        idle = sw.wait_idle(url, 900, dump_every=15.0,
                             until=lambda s: s["cyclesOnDevice"]
                             > demoted["cyclesOnDevice"])
         poster.join()
@@ -1042,19 +1210,25 @@ def phase_breaker(seed, work, bodies, card, say=print):
     if not (fb.get("remote-error") and fb.get("breaker-open")):
         raise AssertionError(f"no remote-error and breaker-open: {fb}")
     served = last["cycles_on_device"] - demoted["cyclesOnDevice"]
+    calls = dispatched(dict(on_device=last["cycles_on_device"],
+                            pipeline_stats=last["pipeline_stats"])) - \
+        dispatched(dict(on_device=demoted["cyclesOnDevice"],
+                        pipeline_stats=demoted["pipelineStats"]))
     if not (served > 0 and side2_last["heads_launches"]
-            == side2_last["compute_replies"] == served):
+            == side2_last["compute_replies"] == calls):
         raise AssertionError(
             f"new sidecar: heads launches {side2_last['heads_launches']}, "
-            f"replies {side2_last['compute_replies']}, device cycles "
-            f"after re-promotion {served}")
-    check_serve_state(sw, views, "final state", say)
+            f"replies {side2_last['compute_replies']}, device calls "
+            f"after re-promotion {calls} ({served} device cycles)")
+    check_serve_state(sw, views, "final state", say,
+                      expect=SERVE_BREAKER_EXPECT)
     say(f"  heads_launches={side2_last['heads_launches']} (restarted "
-          f"sidecar, {served} device cycles after re-promotion) | {card}")
+          f"sidecar, {served} device cycles after re-promotion, "
+          f"pipeline_stats {last['pipeline_stats']}) | {card}")
     return side2_last["heads_launches"]
 
 
-def check_serve_heads(seed, heads, pk, sms):
+def check_serve_heads(seed, heads, pk, sms, say=print):
     """The heads kernel against its plain version on the inputs of the
     first device cycle that the serve process gives the sidecar: the
     seeded journal rebuilt on the card as the serve process rebuilds
@@ -1066,7 +1240,7 @@ def check_serve_heads(seed, heads, pk, sms):
     eng.attach_oracle()
     eff_t, cq_t, C = pk.first_heads_inputs(eng.schedule_once)
     check_heads(heads, f"serve_world first cycle w={eff_t.numel()} c={C}",
-                eff_t, cq_t, C, sms)
+                eff_t, cq_t, C, sms, say=say)
 
 
 def phases_serve(card, by_path, heads, pk, sms):
@@ -1083,16 +1257,21 @@ def phases_serve(card, by_path, heads, pk, sms):
     bodies = sw.arrival_bodies(sw.FULL)
     print(f"  seeded journal: records={seeded['records']} "
           f"bytes={seeded['bytes']} in {time.perf_counter() - t0:.2f} s")
+    span("19")
     print("[19] deployed control plane: serve + oracle sidecar on the card")
     by_path["serve_world"] = phase_serve(seed, work, bodies, card)
-    check_serve_heads(seed, heads, pk, sms)
     # Phases 20 and 21 are gates on other worlds' processes (their own
-    # journals, sidecar and ports): they run side by side, each printing
-    # its lines when both are done.
+    # journals, sidecar and ports), and phase 19's heads check a gate on
+    # an engine of this process: they run side by side, each printing
+    # its lines when all are done.
     runs = {"serve_restart": (phase_restart, "[20] crash and restart of "
                               "the serve process (beside 21)"),
             "serve_breaker": (phase_breaker, "[21] the breaker: sidecar "
-                              "crash, host cycles, re-promotion (beside 20)")}
+                              "crash, host cycles, re-promotion (beside 20)"),
+            "serve_heads": (
+                lambda *_a, say: check_serve_heads(seed, heads, pk, sms,
+                                                   say=say),
+                "[19] heads on the serve path's first-cycle inputs")}
     lines = {name: [] for name in runs}
     done = {}
 
@@ -1104,6 +1283,7 @@ def phases_serve(card, by_path, heads, pk, sms):
             done[name] = e
 
     threads = [threading.Thread(target=run, args=(name,)) for name in runs]
+    span("20+21")
     for t in threads:
         t.start()
     for t in threads:
@@ -1115,7 +1295,8 @@ def phases_serve(card, by_path, heads, pk, sms):
     for name in runs:
         if isinstance(done[name], BaseException):
             raise done[name]
-        by_path[name] = done[name]
+        if name != "serve_heads":
+            by_path[name] = done[name]
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -1154,9 +1335,11 @@ def main() -> int:
         return 1
     from kueue_tpu_torch.device import resolve_device
     from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.bench import engine_worlds as ew
     from kueue_tpu_torch.bench import profile_kernels as pk
     from kueue_tpu_torch.ops import heads, leaf
 
+    span("1-2")
     dev = resolve_device()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1173,14 +1356,17 @@ def main() -> int:
                 if "registers" in line or "smem" in line:
                     print(f"    {line.strip()}")
 
+    span("3")
     print("[3] heads kernel vs plain on the card")
     heads_row = phase_heads(dev, heads, pk)
 
+    span("4")
     print("[4] small drain on the card")
     solver, _ = drain(SMALL)
     _, stats = solver.solve()
     check(stats, SMALL_EXPECT, "512 workloads")
 
+    span("5")
     print("[5] full-width drain on the card")
     solver, encode_s = drain(FULL)
     heads.launches = 0
@@ -1209,16 +1395,20 @@ def main() -> int:
           f"admissions_per_s={stats['admitted'] / solve2_s:.1f} "
           f"heads_launches={launches} | {card}")
 
+    span("6")
     print("[6] leaf kernel vs plain on the card")
     leaf_row = phase_leaf(dev, leaf, pk)
 
+    span("7")
     print("[7] device TAS on the 5,120-node forest")
     leaf_launches = phase_tas(dev, leaf, card)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    span("8")
     print("[8] hier_fair drain on the card")
     fair_launches = phase_hier_fair(heads, pk, card, sms)
 
+    span("9")
     print("[9] preemption world on the card")
     preempt_launches = phase_preempt_world(heads, pk, card, sms)
 
@@ -1226,16 +1416,34 @@ def main() -> int:
                "preempt_world": preempt_launches}
     for i, name in enumerate(("cycle_latency", "fair_cycle_latency",
                               "preempt_churn", "multiflavor"), start=10):
+        span(str(i))
         print(f"[{i}] serving engine: {name}")
-        by_path[name] = phase_engine(name, heads, pk, card, sms)
+        by_path[name] = phase_engine(name, ew.FULL[name], ENGINE_EXPECT[name],
+                                     heads, pk, card, sms)
     for i, name in enumerate(("tas", "tas_large", "tas_churn"), start=14):
+        span(str(i))
         print(f"[{i}] serving engine, TAS: {name}")
         by_path[f"{name}_engine"] = phase_tas_engine(name, heads, pk, card,
                                                      sms)
     for i, name in enumerate(("mixed_world", "afs_serving"), start=17):
+        span(str(i))
         print(f"[{i}] serving engine, mixed: {name}")
         by_path[name] = phase_mixed(name, heads, pk, card, sms)
+    span("19-21 setup")
     phases_serve(card, by_path, heads, pk, sms)
+    for i, name in enumerate(("cycle_latency", "preempt_churn"), start=22):
+        span(str(i))
+        print(f"[{i}] serving engine, default loop: {name}")
+        by_path[f"{name}_default"] = phase_engine(
+            name, ew.DEFAULT_ARM[name], DEFAULT_ARM_EXPECT[name], heads, pk,
+            card, sms)
+    for i, name in enumerate(ew.OTHER_ARMS, start=24):
+        span(str(i))
+        print(f"[{i}] serving engine, per-entry assume: {name}")
+        by_path[name] = phase_engine(name, ew.OTHER_ARMS[name],
+                                     OTHER_ARMS_EXPECT[name], heads, pk,
+                                     card, sms)
+    print(f"phase seconds: {spans_line()}")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="heads_segment_min", route="cuda",

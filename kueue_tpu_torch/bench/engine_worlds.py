@@ -16,9 +16,11 @@ of the concatenated streams pins a run against the JAX engine's.
 from __future__ import annotations
 
 import gc
+import os
 import random
 import time
 import zlib
+from contextlib import contextmanager
 from dataclasses import dataclass
 from types import ModuleType
 from typing import Callable
@@ -56,6 +58,33 @@ def port_kit(device=None) -> Kit:
                                          device=device),
                lambda eng: eng.attach_oracle(device=device), snapshot,
                afs, admissionchecks)
+
+
+# The serving loop's arms: (KUEUE_TPU_PIPELINE, KUEUE_TPU_COLUMNAR).
+# "full" is both packages' default.
+LOOP_ARMS = {"serial": ("0", "0"), "columnar": ("0", "1"),
+             "pipelined": ("1", "0"), "full": ("1", "1")}
+
+
+@contextmanager
+def loop_arm(name):
+    """Run the block with the serving loop's variables set to the arm
+    ``name`` (an entry of LOOP_ARMS; None leaves the environment as it
+    is), in both packages alike; restores them after."""
+    if name is None:
+        yield
+        return
+    keys = ("KUEUE_TPU_PIPELINE", "KUEUE_TPU_COLUMNAR")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(zip(keys, LOOP_ARMS[name]))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def build_cycle_engine(scen, fair=False, kit=None):
@@ -259,19 +288,33 @@ def decision_stream(result) -> bytes:
 # 1 untimed and then 8 (6) timed cycles; bench_preempt_churn's world
 # (100 ClusterQueues, 4,000 pending) drained; the multi-flavor
 # preemption worlds of tests/test_multiflavor_preempt_device.py (8
-# Preempt and 4 TryNextFlavor seeds). QUARTER holds the smaller twins
-# the CPU tests run against the JAX engine.
+# Preempt and 4 TryNextFlavor seeds), each on the serial loop with the
+# columnar apply (``arm``, the loop its JAX constants came from).
+# QUARTER holds the smaller twins the CPU tests run against the JAX
+# engine. DEFAULT_ARM holds the runs of chip_smoke.py phases 22 and 23:
+# cycle_latency and preempt_churn at full width on both packages'
+# default loop (the speculation pipeline and the columnar apply).
+# OTHER_ARMS holds phases 24 and 25, the two arms with the per-entry
+# assume: cycle_latency on the serial loop (its apply against phase
+# 10's columnar one) and preempt_churn on the speculation pipeline.
 FULL = {
     "cycle_latency": dict(kind="cycles", scenario="baseline_like",
                           kw=dict(n_cohorts=200, cqs_per_cohort=5,
                                   n_workloads=50_000),
-                          fair=False, cycles=8),
+                          fair=False, cycles=8, arm="columnar"),
     "fair_cycle_latency": dict(kind="cycles", scenario="hierarchical_fair",
                                kw=dict(n_workloads=20_000), fair=True,
-                               cycles=6),
-    "preempt_churn": dict(kind="churn", n_pending=4_000, n_cohorts=20),
+                               cycles=6, arm="columnar"),
+    "preempt_churn": dict(kind="churn", n_pending=4_000, n_cohorts=20,
+                          arm="columnar"),
     "multiflavor": dict(kind="multiflavor", preempt_seeds=8,
-                        try_next_seeds=4),
+                        try_next_seeds=4, arm="columnar"),
+}
+DEFAULT_ARM = {name: dict(FULL[name], arm="full")
+               for name in ("cycle_latency", "preempt_churn")}
+OTHER_ARMS = {
+    "cycle_latency_serial": dict(FULL["cycle_latency"], arm="serial"),
+    "preempt_churn_pipelined": dict(FULL["preempt_churn"], arm="pipelined"),
 }
 QUARTER = {
     "cycle_latency": dict(FULL["cycle_latency"],
@@ -280,8 +323,9 @@ QUARTER = {
     "fair_cycle_latency": dict(FULL["fair_cycle_latency"],
                                kw=dict(n_roots=13, n_workloads=5_000),
                                cycles=3),
-    "preempt_churn": dict(kind="churn", n_pending=100, n_cohorts=2),
-    "multiflavor": dict(kind="multiflavor", preempt_seeds=1,
+    "preempt_churn": dict(FULL["preempt_churn"], n_pending=100,
+                          n_cohorts=2),
+    "multiflavor": dict(FULL["multiflavor"], preempt_seeds=1,
                         try_next_seeds=0),
 }
 # The numbers a run must reproduce (against the JAX engine's).
@@ -292,10 +336,22 @@ PINNED = ("cycles", "admitted", "preempting", "preemptions", "checksum",
 SPAN = "engine_worlds.schedule_once"
 
 
+def arm_pinned(r: dict) -> dict:
+    """What a run on a chosen loop arm (DEFAULT_ARM, OTHER_ARMS) must
+    reproduce: its PINNED numbers, its evictions and its
+    pipeline_stats."""
+    got = {k: r[k] for k in PINNED}
+    got["evicted"] = sum(1 for eng in r["engines"] for e in eng.events
+                         if e.kind == "Evicted")
+    got["pipeline_stats"] = r["pipeline_stats"]
+    return got
+
+
 def _instrument(eng, out):
     """Count the cycles whose device call carries the sim nomination's
     slot overrides, count and time every schedule_once (``calls``,
-    ``engine_s``), and record the wall seconds and phases of each while
+    ``engine_s``), record the bridge's ``pipeline_stats`` after each
+    (``pipeline``), and record the wall seconds and phases of each while
     ``out["timing"]`` is set. Each schedule_once is a profiler range
     named ``SPAN``."""
     from torch.profiler import record_function
@@ -316,6 +372,7 @@ def _instrument(eng, out):
             dt = time.perf_counter() - t0
         out["calls"] += 1
         out["engine_s"] += dt
+        out["pipeline"].append(dict(eng.oracle.pipeline_stats))
         if out["timing"]:
             out["cycle_seconds"].append(dt)
             out["phases"].append(dict(eng.last_cycle_phases))
@@ -326,19 +383,26 @@ def _instrument(eng, out):
 
 
 def run(config: dict, kit=None) -> dict:
-    """Drive one engine run of ``config`` (an entry of FULL or QUARTER).
-    Returns the PINNED numbers (cycles that decided something, admitted
-    and preempting entries, preemptions issued, the crc32 of every
+    """Drive one engine run of ``config`` (an entry of FULL, QUARTER,
+    DEFAULT_ARM or OTHER_ARMS) on its loop arm (``config["arm"]``, see
+    loop_arm). Returns the PINNED numbers (cycles that decided something,
+    admitted and preempting entries, preemptions issued, the crc32 of every
     cycle's decision stream, the bridge's device / hybrid / fallback
-    cycles, cycles with slot overrides), plus ``cycle_seconds`` and
+    cycles, cycles with slot overrides), ``pipeline_stats`` (summed over
+    the run's engines) and ``pipeline`` (the bridge's after each
+    schedule_once), plus ``cycle_seconds`` and
     ``phases`` (wall seconds and ``last_cycle_phases`` of each timed
     cycle: all but the first of a cycle run, the wave's of the churn,
     every one of the multi-flavor worlds), ``calls`` and ``engine_s``
     (every schedule_once and their wall seconds) and ``engines``."""
-    kit = kit or port_kit()
+    with loop_arm(config.get("arm")):
+        return _run(config, kit or port_kit())
+
+
+def _run(config: dict, kit) -> dict:
     out = dict.fromkeys(PINNED, 0)
     out.update(cycle_seconds=[], phases=[], timing=False, calls=0,
-               engine_s=0.0)
+               engine_s=0.0, pipeline=[], pipeline_stats={})
 
     def on_cycle(r):
         out["checksum"] = zlib.crc32(decision_stream(r), out["checksum"])
@@ -391,5 +455,7 @@ def run(config: dict, kit=None) -> dict:
         out["hybrid"] += b.cycles_hybrid
         out["fallback"] += b.cycles_fallback
         out["preemptions"] += eng.metrics.preemptions_total
+        for k, v in b.pipeline_stats.items():
+            out["pipeline_stats"][k] = out["pipeline_stats"].get(k, 0) + v
     out["engines"] = engines
     return out

@@ -63,6 +63,7 @@ from kueue_tpu_torch.bench.engine_worlds import (
     _drain_engine,
     _instrument,
     decision_stream,
+    loop_arm,
     port_kit,
 )
 from kueue_tpu_torch.bench.tas_engine_worlds import placement_stream
@@ -75,9 +76,10 @@ SIZE_CLASSES = ((1000, 0.70), (5000, 0.20), (20000, 0.10))
 
 FULL = {
     "mixed_world": dict(kind="mixed", n_workloads=10_000, n_roots=30,
-                        cqs_per_root=4),
+                        cqs_per_root=4, arm="columnar"),
     "afs_serving": dict(kind="afs", kw=dict(n_cohorts=200, cqs_per_cohort=5,
-                                            n_workloads=50_000), cycles=8),
+                                            n_workloads=50_000), cycles=8,
+                        arm="columnar"),
 }
 # The smaller twins the CPU tests run against the JAX engine.
 QUARTER = {
@@ -278,11 +280,18 @@ def run(config: dict, kit=None) -> dict:
     seconds and ``last_cycle_phases`` of each timed cycle: every cycle of
     the mixed drain, all but the first of afs_serving), ``calls`` and
     ``engine_s`` (every schedule_once and their wall seconds),
-    ``outcomes`` (provisioning outcomes applied) and ``engine``."""
-    kit = kit or port_kit()
+    ``outcomes`` (provisioning outcomes applied), ``pipeline_stats`` and
+    ``pipeline`` (the bridge's, at the end and after each schedule_once)
+    and ``engine``. Runs on the loop arm ``config["arm"]``
+    (engine_worlds.loop_arm)."""
+    with loop_arm(config.get("arm")):
+        return _run(config, kit or port_kit())
+
+
+def _run(config: dict, kit) -> dict:
     out = dict.fromkeys(PINNED, 0)
     out.update(cycle_seconds=[], phases=[], timing=False, calls=0,
-               engine_s=0.0, outcomes=0)
+               engine_s=0.0, outcomes=0, pipeline=[])
 
     def on_cycle(r):
         out["checksum"] = zlib.crc32(decision_stream(r), out["checksum"])
@@ -326,6 +335,7 @@ def run(config: dict, kit=None) -> dict:
     out["on_device"] = b.cycles_on_device
     out["hybrid"] = b.cycles_hybrid
     out["fallback"] = b.cycles_fallback
+    out["pipeline_stats"] = dict(b.pipeline_stats)
     out["host_root_reasons"] = dict(sorted(b.host_root_reasons.items()))
     out["fallback_reasons"] = dict(sorted(b.fallback_reasons.items()))
     out["evicted"] = sum(1 for e in eng.events if e.kind == "Evicted")

@@ -331,6 +331,45 @@ def get_json(url: str, path: str, timeout: float = 120.0):
         c.close()
 
 
+def get_text(url: str, path: str, timeout: float = 120.0) -> tuple:
+    """(body text, wall seconds, bytes) of one GET answered 200."""
+    t0 = time.perf_counter()
+    c = _conn(url, timeout)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        body = r.read()
+        if r.status != 200:
+            raise RuntimeError(f"GET {path}: {r.status} {body[:200]!r}")
+    finally:
+        c.close()
+    return body.decode(), time.perf_counter() - t0, len(body)
+
+
+def metric_lines(text: str, family: str) -> list:
+    """The sorted sample lines of one family of a Prometheus text
+    exposition (``family`` without the ``kueue_tpu_`` prefix)."""
+    name = "kueue_tpu_" + family
+    return sorted(ln for ln in text.split("\n")
+                  if ln.startswith((name + "{", name + " ")))
+
+
+def metric_values(text: str, family: str) -> dict:
+    """{label values tuple: value} of one family's samples."""
+    out = {}
+    for ln in metric_lines(text, family):
+        head, _, value = ln.rpartition(" ")
+        labels = head[head.index("{") + 1:-1] if "{" in head else ""
+        out[tuple(part.split("=", 1)[1].strip('"')
+                  for part in labels.split(",") if part)] = float(value)
+    return out
+
+
+def metrics_digest(text: str, family: str) -> int:
+    """crc32 of one family's sorted sample lines."""
+    return zlib.crc32("\n".join(metric_lines(text, family)).encode())
+
+
 def post(url: str, path: str, body: bytes, timeout: float = 120.0):
     """(status, parsed body) of one POST."""
     c = _conn(url, timeout)
@@ -378,7 +417,8 @@ def post_arrivals(url: str, bodies, rate: float, workers: int = 8) -> dict:
 def wait_idle(url: str, timeout: float, dump_every: float = 2.0,
               settle: float = 1.0, until=None, held: int = 0) -> dict:
     """Poll ``/oracle`` (every 0.1 s) and ``/debug/dump`` (every
-    ``dump_every`` s) until the ClusterQueues hold no active pending
+    ``dump_every`` s, and once more as soon as no device cycle ran for
+    ``settle`` seconds) until the ClusterQueues hold no active pending
     workload but the ``held`` ones (held back by a future requeue time)
     and no device cycle ran for ``settle`` seconds (requests wait out a
     running cycle, so a dump sees the queues between cycles);
@@ -401,13 +441,15 @@ def wait_idle(url: str, timeout: float, dump_every: float = 2.0,
             if prev is not None:
                 oracle_samples.append(st["lastCyclePhases"])
             prev, stable_since = busy, now
-        if now - last_dump >= dump_every:
+        settled = now - stable_since >= settle
+        if (now - last_dump >= dump_every
+                or (settled and last_dump < stable_since + settle)):
             dump = get_json(url, "/debug/dump")
             last_dump = now
             if dump["lastCyclePhases"]:
                 samples.append(dump["lastCyclePhases"])
             active = sum(len(q["active"]) for q in dump["queues"].values())
-            if (active == held and now - stable_since >= settle
+            if (active == held and settled
                     and (until is None or until(st))):
                 return {"oracle": st, "dump": dump, "phase_samples": samples,
                         "oracle_samples": oracle_samples}

@@ -35,17 +35,19 @@ from kueue_tpu_torch.bench.engine_worlds import (
     SPAN,
     _drain_engine,
     decision_stream,
+    loop_arm,
     port_kit,
 )
 from kueue_tpu_torch.bench.tas_world import pinned
 
 FULL = {
     "tas": dict(kind="drain", seed=11, dims=(8, 8, 10), pods=32, n_cqs=8,
-                n_wl=800, counts=(2, 4, 8)),
+                n_wl=800, counts=(2, 4, 8), arm="columnar"),
     "tas_large": dict(kind="drain", seed=13, dims=(8, 16, 40), pods=32,
-                      n_cqs=8, n_wl=120, counts=(4, 8, 16)),
+                      n_cqs=8, n_wl=120, counts=(4, 8, 16), arm="columnar"),
     "tas_churn": dict(kind="churn", seed=11, dims=(8, 16, 40), n_cqs=32,
-                      n_wl=320, fill_cycles=80, churn_cycles=20),
+                      n_wl=320, fill_cycles=80, churn_cycles=20,
+                      arm="columnar"),
 }
 # The smaller twins the CPU tests run against the JAX engine: a quarter
 # of the workloads (and of the churn's cycles) on the same forests, so
@@ -173,19 +175,21 @@ def run(config: dict, path: str, feas: str = "1", kit=None,
     place and decode), ``cycle_seconds`` (the wall seconds of every
     schedule_once of the drain, or of the churn cycles) and ``phases``
     (their ``last_cycle_phases``), ``calls`` and
-    ``engine_s`` (every schedule_once and their wall seconds) and
-    ``engine``. Each schedule_once is a profiler range named
-    ``engine_worlds.SPAN``. ``sync()``, when given, runs after each
-    cycle inside its timing (torch.cuda.synchronize on the card). A
-    drain stops after ``config["max_cycles"]`` calls when that is set
-    (profiling windows)."""
+    ``engine_s`` (every schedule_once and their wall seconds),
+    ``pipeline_stats`` and ``pipeline`` (the bridge's, at the end and
+    after each schedule_once) and ``engine``. Runs on the loop arm
+    ``config["arm"]`` (engine_worlds.loop_arm). Each schedule_once is a
+    profiler range named ``engine_worlds.SPAN``. ``sync()``, when given,
+    runs after each cycle inside its timing (torch.cuda.synchronize on
+    the card). A drain stops after ``config["max_cycles"]`` calls when
+    that is set (profiling windows)."""
     from torch.profiler import record_function
 
     kit = kit or port_kit()
     out = dict.fromkeys(PINNED, 0)
     out.update(cycle_seconds=[], phases=[], placements=0, calls=0,
-               engine_s=0.0)
-    with pinned(path, feas):
+               engine_s=0.0, pipeline=[])
+    with pinned(path, feas), loop_arm(config.get("arm")):
         eng = build(config, kit)
         inner = eng.schedule_once
         timing = [config["kind"] != "churn"]
@@ -199,6 +203,7 @@ def run(config: dict, path: str, feas: str = "1", kit=None,
                 dt = time.perf_counter() - t0
             out["calls"] += 1
             out["engine_s"] += dt
+            out["pipeline"].append(dict(eng.oracle.pipeline_stats))
             if timing[0]:
                 out["cycle_seconds"].append(dt)
                 out["phases"].append(dict(eng.last_cycle_phases))
@@ -229,6 +234,7 @@ def run(config: dict, path: str, feas: str = "1", kit=None,
     out["on_device"] = b.cycles_on_device
     out["hybrid"] = b.cycles_hybrid
     out["fallback"] = b.cycles_fallback
+    out["pipeline_stats"] = dict(b.pipeline_stats)
     out["host_root_reasons"] = dict(sorted(b.host_root_reasons.items()))
     for k in ("placed_device", "placed_host", "memo_hits", "commit_drops"):
         out[k] = int(b.tas_stats[k])

@@ -7,8 +7,10 @@ as plain mappings of field name to numpy array or scalar (for example
 dataclasses, so the port can solve exactly the arrays another encoder
 produced. Fields the port does not have are ignored; a missing field
 raises. ``tas_structure`` does the same for a topology forest's device
-encoding, and ``api_object`` for an API object (flavors, queues,
-workloads, topologies, TAS nodes and topology assignments).
+encoding, ``api_object`` for an API object (flavors, queues,
+workloads, topologies, TAS nodes and topology assignments), and
+``configuration`` for the metrics' custom labels of a manager
+Configuration.
 """
 
 from __future__ import annotations
@@ -76,6 +78,19 @@ def api_object(obj):
     if isinstance(obj, dict):
         return {api_object(k): api_object(v) for k, v in obj.items()}
     return obj
+
+
+def configuration(cfg):
+    """The port's ``config.api.Configuration`` carrying the
+    ``metrics_custom_labels`` of ``cfg`` (another package's
+    Configuration) as the port's ``CustomLabelEntry``s."""
+    from kueue_tpu_torch.config.api import Configuration
+    from kueue_tpu_torch.metrics.registry import CustomLabelEntry
+
+    return Configuration(metrics_custom_labels=[
+        CustomLabelEntry(name=e.name, source_label_key=e.source_label_key,
+                         source_annotation_key=e.source_annotation_key)
+        for e in cfg.metrics_custom_labels])
 
 
 def world_tensors(mapping) -> WorldTensors:

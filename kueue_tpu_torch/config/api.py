@@ -3,7 +3,9 @@ reads.
 
 A trimmed copy of ``kueue_tpu/config/api.py``: admission fair sharing's
 settings (apis/config/v1beta2/configuration_types.go
-AdmissionFairSharing), with the same field names and defaults."""
+AdmissionFairSharing) and, of the manager's ``Configuration``, the
+metrics' custom labels (``metrics.customLabels``), with the same field
+names and defaults."""
 
 from __future__ import annotations
 
@@ -15,3 +17,12 @@ class AdmissionFairSharingConfig:
     usage_half_life_seconds: int = 600
     usage_sampling_interval_seconds: int = 60
     resource_weights: dict[str, float] = field(default_factory=dict)
+
+
+@dataclass
+class Configuration:
+    """The part of the manager's Configuration the engine reads:
+    ``metrics_custom_labels``, a list of
+    ``metrics.registry.CustomLabelEntry``."""
+
+    metrics_custom_labels: list = field(default_factory=list)

@@ -22,6 +22,14 @@ _DEFAULTS: dict[str, bool] = {
     "TASProfileMixed": True,
     # On-demand pending positions (GET .../pendingworkloads).
     "VisibilityOnDemand": True,
+    # The per-reason unadmitted_workloads gauge families.
+    "UnadmittedWorkloadsObservability": True,
+    # Every per-LocalQueue series family, event-time and sync-time.
+    "LocalQueueMetrics": True,
+    # The cohort gauge families of sync_resource_metrics.
+    "MetricsForCohorts": True,
+    # Extra metric labels from ClusterQueue metadata.
+    "CustomMetricLabels": True,
 }
 
 

@@ -1,0 +1,231 @@
+"""Columnar diff application for the serving cycle's admitted batch.
+
+A copy of ``kueue_tpu/controllers/colapply.py``. The serial assume path
+(Engine._assume_batch_serial) walks the batch one entry at a time: each
+admission pays its own rowcache release (four single-element numpy
+writes) and its own admitted-dirty mark. At 1k admissions a cycle those
+per-entry round trips dominate the apply span.
+
+This module applies the same diff in columns:
+
+  * pending-world exits release their tensor rows through
+    ``WorkloadRowCache.on_remove_batch``: four vectorized column writes
+    for the whole batch instead of four numpy scalar writes per entry;
+  * admitted-dirty marks flush as one ``set.update``.
+
+The JAX package's two other columns are empty here, as its own are when
+their stores are: the port has no second-pass queue (node replacement
+is not ported) and no preemption-expectation store (evictions are
+observed synchronously, so the JAX store is empty at every assume and
+its column is skipped there too).
+
+Every observable mutation lands in the same order and with the same
+values as the serial loop: the per-entry dict pops happen inline in
+entry order, and a rare fallback ``delete_workload`` (stale LocalQueue
+mapping) flushes the pending row column first so the tensor-row
+free-list order, which future row allocation reads, matches the serial
+path's.
+
+``KUEUE_TPU_COLUMNAR=0`` is the escape hatch back to the per-entry
+loop (Engine._assume_batch_serial).
+"""
+
+from __future__ import annotations
+
+import os
+
+from kueue_tpu_torch.api.types import Admission, PodSetAssignmentStatus
+
+
+def columnar_enabled() -> bool:
+    """Columnar apply is on unless KUEUE_TPU_COLUMNAR=0."""
+    return os.environ.get("KUEUE_TPU_COLUMNAR", "1") != "0"
+
+
+def _psa_columns(pod_sets) -> tuple:
+    """The CQ-independent half of admission_from_assignment: the
+    PodSetAssignmentStatus tuple and the per-podset flavor dicts depend
+    only on the assignment's pod sets, so they flyweight by assignment
+    identity and an Admission for a new (CQ, assignment) pair costs one
+    two-field dataclass.
+
+    The flavor dicts are the admission statuses' flavor-NAME maps
+    (res -> str), exactly what the serial loop writes into
+    PodSetResources.flavors — a requeued workload re-encodes its rows
+    from those, so assignment objects must never leak in. They are
+    SHARED across every equivalent admission (the serial loop copies
+    one per entry) — safe because nothing mutates a
+    PodSetResources.flavors dict in place, only rebinds it wholesale."""
+    statuses = tuple(
+        PodSetAssignmentStatus(
+            name=psa.name,
+            flavors={res: getattr(fa, "name", fa)
+                     for res, fa in psa.flavors.items()},
+            resource_usage=dict(psa.requests),
+            count=psa.count,
+            topology_assignment=psa.topology_assignment,
+        )
+        for psa in pod_sets
+    )
+    flavor_dicts = [dict(st.flavors) for st in statuses]
+    return statuses, flavor_dicts
+
+
+def columnar_assume_batch(eng, entries, bulk) -> list:
+    """Engine.bulk_assume_batch's loop, applied in columns.
+
+    Returns the (entry, admission) pairs for bulk_finalize_batch,
+    exactly as the serial loop does. Entries with reclaimable pods,
+    preemption targets, or configured admission checks take the exact
+    per-entry _admit path — only the hot plain-admission shape is
+    flattened.
+    """
+    if not entries:
+        return []
+    cache = eng.cache
+    queues = eng.queues
+    rows = queues.rows
+    checks = eng.admission_checks
+    tas_names = cache._tas_flavor_names()
+    workloads_reg = cache.workloads
+    wl_usage = cache._wl_usage
+    wl_tas = cache._wl_tas
+    live_cqs = cache.cluster_queues
+    cq_usage = cache.cq_usage
+    cq_workloads = cache.cq_workloads
+    pending_cqs = queues.cluster_queues
+
+    # Persistent Admission flyweights (shared with the serial loop via
+    # the same engine attribute): the stored assignment ref keeps its
+    # id() from being recycled, so identity keys are safe.
+    ver = cache.spec_version
+    fly = getattr(eng, "_admission_fly", None)
+    if fly is None or fly[0] != ver:
+        fly = (ver, {})
+        eng._admission_fly = fly
+    fly = fly[1]
+    if len(fly) > 65536:
+        fly.clear()
+    psa_fly = getattr(eng, "_psa_fly", None)
+    if psa_fly is None or psa_fly[0] != ver:
+        psa_fly = (ver, {})
+        eng._psa_fly = psa_fly
+    psa_fly = psa_fly[1]
+    if len(psa_fly) > 65536:
+        psa_fly.clear()
+
+    pairs: list = []
+    slow: list = []
+    row_batch: list = []   # keys whose tensor rows release as one column
+    dirty_keys: list = []  # admitted-dirty marks, flushed as one update
+    if checks is not None:
+        # Configured admission checks force every entry through the
+        # exact per-entry path — no point classifying one at a time.
+        entries, slow = (), list(entries)
+    for entry in entries:
+        info = entry.info
+        wl = info.obj
+        st = wl.status
+        if (st.reclaimable_pods or entry.preemption_targets
+                or st.admission_check_states):
+            slow.append(entry)
+            continue
+        key = wl.namespace + "/" + wl.name  # Workload.key, inlined
+        cq_name = info.cluster_queue
+        assignment = entry.assignment
+        akey = (cq_name, id(assignment))
+        ent = fly.get(akey)
+        # len(ent) guard: the serial escape hatch stores 2-tuples in the
+        # same flyweight dict — rebuild those with the flavor column.
+        if ent is None or ent[0] is not assignment or len(ent) != 4:
+            pent = psa_fly.get(id(assignment))
+            if pent is None or pent[0] is not assignment:
+                psas_t, flavor_dicts = _psa_columns(assignment.pod_sets)
+                psa_fly[id(assignment)] = (assignment, psas_t,
+                                           flavor_dicts)
+            else:
+                psas_t, flavor_dicts = pent[1], pent[2]
+            admission = Admission(cluster_queue=cq_name,
+                                  pod_set_assignments=psas_t)
+            ent = fly[akey] = (assignment, admission, flavor_dicts,
+                              tuple(assignment.usage.items()))
+        admission = ent[1]
+        flavor_dicts = ent[2]
+        usage_items = ent[3]
+        # status.admission is part of the ASSUME state (the reference
+        # sets quota reservation before assuming, scheduler.go:856-920):
+        # cache accounting below reads it (tas_domains), and a stale
+        # prior admission must never be accounted.
+        wl.status.admission = admission
+        # apply_admission, inlined for the fast shape (device verdicts
+        # never reduce pod counts). The flavor dicts are the flyweight's
+        # shared ones (see _psa_columns).
+        trs = info.total_requests
+        if len(trs) == len(flavor_dicts):
+            for psr, fd in zip(trs, flavor_dicts):
+                psr.flavors = fd
+        else:
+            info.apply_admission(admission)
+        # Pending-world exit (delete_lazy, inlined): the dict pops run
+        # here in entry order; the tensor-row release joins the batch
+        # column. The fallback delete_workload releases rows itself, so
+        # the pending column flushes FIRST — free-list push order stays
+        # identical to the serial loop.
+        pcq = pending_cqs.get(cq_name)
+        if pcq is not None and (
+                key in pcq.items or key in pcq.inadmissible
+                or pcq.in_flight == key):
+            pcq.items.pop(key, None)
+            pcq.inadmissible.pop(key, None)
+            if pcq.in_flight == key:
+                pcq.in_flight = None
+            row_batch.append(key)
+        else:
+            if row_batch:
+                rows.on_remove_batch(row_batch)
+                row_batch = []
+            queues.delete_workload(wl)
+        # Cache assume (add_or_update_workload inlined; usage dict is
+        # the assignment flyweight's — shared and never mutated by
+        # accounting).
+        if cq_name in live_cqs:
+            if key in wl_usage:
+                cache._unaccount(key)
+            workloads_reg[key] = info
+            cqu = cq_usage.get(cq_name)
+            if cqu is None:
+                cqu = cq_usage[cq_name] = {}
+            for fr, v in usage_items:
+                cqu[fr] = cqu.get(fr, 0) + v
+            cqw = cq_workloads.get(cq_name)
+            if cqw is None:
+                cqw = cq_workloads[cq_name] = {}
+            cqw[key] = info
+            wl_usage[key] = (cq_name, assignment.usage)
+            dirty_keys.append(key)
+            if tas_names:
+                tas = info.tas_domains(tas_names)
+                if tas:
+                    wl_tas[key] = tas
+                    cache._account_tas(tas)
+        pairs.append((entry, admission))
+
+    if row_batch:
+        rows.on_remove_batch(row_batch)
+    if dirty_keys:
+        # mark_admitted_dirty's overflow clamp, applied to the whole
+        # column: under the cap the batched update is element-for-
+        # element what the per-key adds would do; over it, fall back to
+        # the per-key path so the clear fires at the same crossing.
+        if len(cache.admitted_dirty) + len(dirty_keys) <= 100_000:
+            cache.admitted_dirty.update(dirty_keys)
+        else:
+            for key in dirty_keys:
+                cache.mark_admitted_dirty(key)
+    if pairs:
+        cache.admitted_version += 1
+    # Rare shapes: the exact per-entry path (assume + finalize).
+    for entry in slow:
+        queues.delete_workload(entry.info.obj)
+        eng._admit(entry, bulk=bulk)
+    return pairs

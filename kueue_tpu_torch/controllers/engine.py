@@ -19,13 +19,18 @@ transition is journaled as the JAX engine journals it, synced at each
 non-idle cycle boundary; ``restore_workload`` is the rebuild path of
 ``store/journal.rebuild_engine``) and a remote oracle
 (``attach_oracle(remote_address=...)``: a transport failure becomes a
-``remote-error`` host cycle). Decisions are the JAX package's engine's,
+``remote-error`` host cycle), the metrics registry (``registry``, a
+``metrics.registry.MetricsRegistry`` written at the JAX engine's write
+sites with its values, in its order; ``unadmitted``, the per-reason
+unadmitted-workload gauges; ``sync_resource_metrics`` for the resource
+and cohort gauges; phases timed on ``wall_clock``) and the columnar
+apply of a device cycle's admitted batch (``controllers/colapply``,
+``KUEUE_TPU_COLUMNAR``). Decisions are the JAX package's engine's,
 cycle by cycle. Left out: the journal's disk-budget gate, event
-listeners, the flight recorder, tracing,
-the metrics registry and SLOs (with them the unadmitted-workload
-gauges), pods-ready, MultiKueue, holds, LimitRanges and RuntimeClasses
-(pod templates), columnar apply, and of TAS non-TAS pod usage
-(``observe_pod``), node failure and replacement
+listeners, the flight recorder, tracing, SLOs, pods-ready, MultiKueue,
+holds, LimitRanges and RuntimeClasses (pod templates), the preemption
+expectation store (evictions are observed synchronously), and of TAS
+non-TAS pod usage (``observe_pod``), node failure and replacement
 (``mark_node_unhealthy``), balanced placement and elastic slices, each
 raising NotImplementedError.
 
@@ -42,7 +47,6 @@ Lifecycle semantics mirrored from the reference:
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -90,11 +94,11 @@ class EngineMetrics:
 class _BulkAdmitCtx:
     """Per-cycle state of the batched serving path: the Condition
     instances every admission of the cycle shares, the Admission
-    flyweights, and the keys whose journal records are written once, by
-    flush_bulk_admit."""
+    flyweights, and the metric, unadmitted-gauge and journal writes that
+    flush_bulk_admit applies once."""
 
-    __slots__ = ("qr_cond", "adm_cond", "reset_conds", "admissions",
-                 "journal_keys")
+    __slots__ = ("qr_cond", "adm_cond", "reset_conds", "counts", "waits",
+                 "removed_unadmitted", "journal_keys", "admissions")
 
     def __init__(self, now: float):
         self.qr_cond = Condition(
@@ -109,12 +113,37 @@ class _BulkAdmitCtx:
             for ct in (WorkloadConditionType.EVICTED,
                        WorkloadConditionType.PREEMPTED,
                        WorkloadConditionType.BLOCKED_ON_PREEMPTION_GATES))
-        self.admissions: dict = {}  # (cq, assignment-id) -> Admission
+        # Per-family aggregation: {name: {labels: n}} and {name:
+        # {labels: [values]}}, so the flush fetches each series once.
+        self.counts: dict = {}
+        self.waits: dict = {}
+        self.removed_unadmitted: list = []
         self.journal_keys: list = []
+        self.admissions: dict = {}  # (cq, assignment-id) -> Admission
+
+    def count(self, name: str, labels: tuple, n: int = 1) -> None:
+        fam = self.counts.get(name)
+        if fam is None:
+            fam = self.counts[name] = {}
+        fam[labels] = fam.get(labels, 0) + n
+
+    def wait(self, name: str, labels: tuple, value: float) -> None:
+        fam = self.waits.get(name)
+        if fam is None:
+            fam = self.waits[name] = {}
+        lst = fam.get(labels)
+        if lst is None:
+            fam[labels] = [value]
+        else:
+            lst.append(value)
 
 
 class Engine:
-    def __init__(self, enable_fair_sharing: bool = False, device=None):
+    def __init__(self, enable_fair_sharing: bool = False, device=None,
+                 config=None):
+        """``config`` is an optional ``config.api.Configuration``; the
+        engine reads its ``metrics_custom_labels``."""
+        self.config = config
         self.queues = QueueManager()
         self.cache = Cache()
         # Where the TAS forests' tensors and the oracle live: CUDA unless
@@ -129,11 +158,30 @@ class Engine:
         self.cycle.namespace_labels_of = \
             lambda ns: self.namespace_labels.get(ns)
         # Engine time: every decision reads this clock; callers advance
-        # it (``eng.clock += dt`` / ``tick``). Phases are timed on the
-        # wall clock, which no decision reads.
+        # it (``eng.clock += dt`` / ``tick``).
         self.clock: float = 0.0
+        # Wall-clock source for phase timing and metrics, which no
+        # decision reads; a caller may inject another (a fixed-step
+        # clock makes the phase histograms deterministic).
+        import time as _time
+        self.wall_clock: Callable[[], float] = _time.perf_counter
         self.events: list[EngineEvent] = []
         self.metrics = EngineMetrics()
+        from kueue_tpu_torch.cache.unadmitted import UnadmittedWorkloads
+        from kueue_tpu_torch.metrics.registry import (
+            CustomMetricLabels,
+            MetricsRegistry,
+        )
+        self.registry = MetricsRegistry()
+        self.unadmitted = UnadmittedWorkloads(self.registry)
+        # Extra metric labels from CQ metadata (pkg/metrics/
+        # custom_labels.go), configured via metrics.customLabels.
+        self.custom_labels = CustomMetricLabels(
+            config.metrics_custom_labels if config is not None else [])
+        self._cq_labels_cache = None  # (spec_version, {cq: labels})
+        # First-eviction-per-workload tracking
+        # (evicted_workloads_once_total, metrics.go:666).
+        self._evicted_once: set[str] = set()
         self._serving_gc = False  # apply_serving_gc_posture() active
         # Last cycle's phase durations, and which path decided it:
         # "sequential", "device", or "hybrid" (device roots + host tail).
@@ -277,13 +325,54 @@ class Engine:
             # restarted engine carries the same object.
             self._journal_obj("workload", wl)
             return False
+        self.registry.histogram("workload_creation_latency_seconds").observe(
+            max(0.0, self.clock - wl.creation_time))
         # status.resourceRequests: the effective totals at consideration
         # time (workload_types.go:886 PodSetRequest).
         wl.status.resource_requests = {
             psr.name: dict(psr.requests) for psr in info.total_requests}
+        self._track_unadmitted(wl, info.cluster_queue, "NoReservation")
         self._event("Submitted", wl.key,
                     cluster_queue=info.cluster_queue)
         return True
+
+    def _track_unadmitted(self, wl: Workload, cq_name: str,
+                          reason: str, cause: str = "") -> None:
+        """unadmitted_workloads.go:75 (update)."""
+        from kueue_tpu_torch.cache.unadmitted import UnadmittedStatus
+
+        self.unadmitted.update(wl.key, UnadmittedStatus(
+            cluster_queue=cq_name, local_queue=wl.queue_name,
+            namespace=wl.namespace, reason=reason, cause=cause))
+
+    def _lq_key(self, wl: Workload) -> tuple:
+        return (f"{wl.namespace}/{wl.queue_name}",)
+
+    def _lq_metrics_on(self) -> bool:
+        # kube_features.go LocalQueueMetrics: every per-LocalQueue
+        # series family, event-time and sync-time alike.
+        from kueue_tpu_torch.config import features
+        return features.enabled("LocalQueueMetrics")
+
+    def _custom_cq_labels(self, cq_name: str) -> tuple:
+        # kube_features.go CustomMetricLabels, memoized by (spec
+        # version, gate state): label values come from CQ metadata.
+        from kueue_tpu_torch.config import features
+        on = features.enabled("CustomMetricLabels")
+        ver = (self.cache.spec_version, on)
+        cached = self._cq_labels_cache
+        if cached is None or cached[0] != ver:
+            cached = (ver, {})
+            self._cq_labels_cache = cached
+        labels = cached[1].get(cq_name)
+        if labels is None:
+            if not on:
+                labels = ()
+            else:
+                labels = self.custom_labels.for_object(
+                    self.cache.cluster_queues.get(cq_name))
+            cached[1][cq_name] = labels
+        return labels
 
     def finish(self, key: str) -> None:
         wl = self.workloads.get(key)
@@ -298,6 +387,14 @@ class Engine:
                    if wl.status.admission else "")
         self.cache.delete_workload(key)
         self.queues.delete_workload(wl)
+        self.unadmitted.remove(key)
+        self._evicted_once.discard(wl.uid)  # bound the set to live objects
+        self.registry.counter("finished_workloads_total").inc(
+            (cq_name, reason))
+        if self._lq_metrics_on():
+            self.registry.counter(
+                "local_queue_finished_workloads_total").inc(
+                self._lq_key(wl) + (reason,))
         self._event("Finished", key, cluster_queue=cq_name)
         self._requeue_cohort_inadmissible(cq_name)
 
@@ -379,6 +476,7 @@ class Engine:
         if self.oracle is not None:
             from kueue_tpu_torch.oracle.service import RemoteOracleError
 
+            t0 = self.wall_clock()
             try:
                 result = self.oracle.try_cycle()
             except RemoteOracleError:
@@ -390,8 +488,13 @@ class Engine:
                 if not result.entries and not result.inadmissible:
                     return None  # idle
                 self.metrics.admission_cycles += 1
+                outcome = ("success" if result.stats.admitted
+                           else "inadmissible")
+                self.registry.report_admission_attempt(
+                    outcome, self.wall_clock() - t0)
                 return result
             self.oracle.cycles_fallback += 1
+            self.registry.counter("oracle_cycles_total").inc(("fallback",))
 
         heads = self.queues.heads(self.clock)
         if not heads:
@@ -405,19 +508,19 @@ class Engine:
         hybrid cycle (roots never interact, so running them after the
         device roots is cycle-equivalent); the bridge passes
         count_cycle=False."""
-        t0 = time.perf_counter()
+        t0 = self.wall_clock()
         if count_cycle:
             self.metrics.admission_cycles += 1
             self.last_cycle_mode = "sequential"
         snapshot = self.cache.snapshot()
-        t_snap = time.perf_counter()
+        t_snap = self.wall_clock()
         already = set(self.cache.workloads)
         try:
             result = self.cycle.schedule(heads, snapshot, now=self.clock,
                                          already_admitted=already)
         finally:
             snapshot.close()
-        t_decide = time.perf_counter()
+        t_decide = self.wall_clock()
         deferred: set = set()
         self._deferred_cohort_requeue = deferred
         try:
@@ -438,11 +541,181 @@ class Engine:
         for cq_name, skips in result.stats.preemption_skips.items():
             m = self.metrics.admission_cycle_preemption_skips
             m[cq_name] = m.get(cq_name, 0) + skips
+            self.registry.counter("admission_cycle_preemption_skips").inc(
+                (cq_name,), skips)
+        # A hybrid cycle's host tail (count_cycle=False) must not
+        # overwrite the bridge's phase record.
         if count_cycle:
-            self.last_cycle_phases = {"snapshot": t_snap - t0,
-                                      "decide": t_decide - t_snap,
-                                      "apply": time.perf_counter() - t_decide}
+            t_apply = self.wall_clock()
+            phases = {"snapshot": t_snap - t0,
+                      "decide": t_decide - t_snap,
+                      "apply": t_apply - t_decide}
+            self.last_cycle_phases = phases
+            for phase, dur in phases.items():
+                self.registry.histogram(
+                    "scheduler_phase_duration_seconds").observe(
+                    dur, (phase,))
+            outcome = "success" if result.assumed else "inadmissible"
+            self.registry.report_admission_attempt(
+                outcome, self.wall_clock() - t0)
+        for name, pcq in self.queues.cluster_queues.items():
+            self.registry.report_pending(name, len(pcq.items),
+                                         len(pcq.inadmissible))
+            self.registry.gauge("admitted_active_workloads").set(
+                (name,), self.cache.admitted_count(name))
         return result
+
+    def sync_resource_metrics(self) -> None:
+        """Refresh the per-CQ / per-LQ / cohort resource and share gauges
+        from a fresh snapshot (the metrics.go:796-948 families; the
+        reference's cache controllers update these on reconcile). All
+        values are collected into fresh tables first and swapped into the
+        registry at the end: an exception mid-collection leaves the
+        previous aggregates intact, and stale series for deleted objects
+        vanish on swap."""
+        from collections import defaultdict
+
+        from kueue_tpu_torch.cache.snapshot import dominant_resource_share
+
+        snap = self.cache.snapshot()
+        fams: dict[str, dict] = defaultdict(dict)
+        # kube_features.go LocalQueueMetrics: skip the per-LQ aggregation
+        # entirely when off (the family swap below still clears stale
+        # series).
+        lq_on = self._lq_metrics_on()
+
+        lq_pending: dict = {}
+        lq_reserving: dict = {}
+        lq_admitted: dict = {}
+        for name, cqs in snap.cluster_queues.items():
+            fams["cluster_queue_info"][(name, cqs.spec.cohort or "")] = 1
+            # Reservation = every quota-reserved workload's usage;
+            # usage = admitted-only (metrics.go:796,814).
+            admitted_usage: dict = {}
+            reserving = 0
+            admitted_n = 0
+            lq_reservation: dict = {}
+            lq_usage: dict = {}
+            for key, info in cqs.workloads.items():
+                wl = self.workloads.get(key)
+                is_admitted = wl is not None and wl.is_admitted
+                reserving += 1
+                if lq_on:
+                    lq = f"{info.obj.namespace}/{info.obj.queue_name}"
+                    lq_reserving[lq] = lq_reserving.get(lq, 0) + 1
+                    if is_admitted:
+                        lq_admitted[lq] = lq_admitted.get(lq, 0) + 1
+                if is_admitted:
+                    admitted_n += 1
+                for fr, v in info.usage().items():
+                    if lq_on:
+                        lq_reservation[(lq, fr)] = \
+                            lq_reservation.get((lq, fr), 0) + v
+                        if is_admitted:
+                            lq_usage[(lq, fr)] = \
+                                lq_usage.get((lq, fr), 0) + v
+                    if is_admitted:
+                        admitted_usage[fr] = admitted_usage.get(fr, 0) + v
+            for fr, v in cqs.node.usage.items():
+                fams["cluster_queue_resource_reservation"][
+                    (name, fr.flavor, fr.resource)] = v
+            for fr, v in admitted_usage.items():
+                fams["cluster_queue_resource_usage"][
+                    (name, fr.flavor, fr.resource)] = v
+            for (lq, fr), v in lq_reservation.items():
+                fams["local_queue_resource_reservation"][
+                    (lq, fr.flavor, fr.resource)] = v
+            for (lq, fr), v in lq_usage.items():
+                fams["local_queue_resource_usage"][
+                    (lq, fr.flavor, fr.resource)] = v
+            fams["reserving_active_workloads"][(name,)] = reserving
+            for fr, q in cqs.node.quotas.items():
+                fams["cluster_queue_nominal_quota"][
+                    (name, fr.flavor, fr.resource)] = q.nominal
+                if q.borrowing_limit is not None:
+                    fams["cluster_queue_borrowing_limit"][
+                        (name, fr.flavor, fr.resource)] = q.borrowing_limit
+                if q.lending_limit is not None:
+                    fams["cluster_queue_lending_limit"][
+                        (name, fr.flavor, fr.resource)] = q.lending_limit
+            # Pending per resource + per LocalQueue (metrics.go:805,409).
+            pcq = self.queues.cluster_queues.get(name)
+            if pcq is not None:
+                pending: dict = {}
+                for status, table in (("active", pcq.items),
+                                      ("inadmissible", pcq.inadmissible)):
+                    for info in list(table.values()):
+                        if lq_on:
+                            lq = (f"{info.obj.namespace}/"
+                                  f"{info.obj.queue_name}")
+                            lq_pending[(lq, status)] = \
+                                lq_pending.get((lq, status), 0) + 1
+                        for psr in info.total_requests:
+                            for res, v in psr.requests.items():
+                                pending[res] = pending.get(res, 0) + v
+                for res, v in pending.items():
+                    fams["cluster_queue_resource_pending"][(name, res)] = v
+            drs = dominant_resource_share(cqs, None)
+            share = (drs.precise_weighted_share()
+                     if cqs.fair_weight else drs.unweighted_ratio)
+            fams["cluster_queue_weighted_share"][(name,)] = share
+
+        for (lq, status), n in lq_pending.items():
+            fams["local_queue_pending_workloads"][(lq, status)] = n
+        for lq, n in lq_reserving.items():
+            fams["local_queue_reserving_active_workloads"][(lq,)] = n
+        for lq, n in lq_admitted.items():
+            fams["local_queue_admitted_active_workloads"][(lq,)] = n
+        if self.afs is not None and lq_on:
+            for lq, entry in self.afs.usage.items():
+                fams["local_queue_admission_fair_sharing_usage"][(lq,)] = \
+                    self.afs.current_usage(lq)
+
+        # kube_features.go MetricsForCohorts.
+        from kueue_tpu_torch.config import features
+        cohort_items = (snap.cohorts.items()
+                        if features.enabled("MetricsForCohorts") else ())
+        for name, cohort in cohort_items:
+            fams["cohort_info"][
+                (name, cohort.parent.name if cohort.parent else "")] = 1
+            for fr, v in cohort.node.subtree_quota.items():
+                fams["cohort_subtree_quota"][
+                    (name, fr.flavor, fr.resource)] = v
+            for fr, v in cohort.node.usage.items():
+                fams["cohort_subtree_resource_reservations"][
+                    (name, fr.flavor, fr.resource)] = v
+            admitted = sum(
+                1 for cqs in cohort.subtree_cluster_queues()
+                for key in cqs.workloads
+                if (w := self.workloads.get(key)) is not None
+                and w.is_admitted)
+            fams["cohort_subtree_admitted_active_workloads"][
+                (name,)] = admitted
+            drs = dominant_resource_share(cohort, None)
+            share = (drs.precise_weighted_share()
+                     if cohort.fair_weight else drs.unweighted_ratio)
+            fams["cohort_weighted_share"][(name,)] = share
+
+        # Atomic swap per family (empty tables drop stale series too).
+        for fam in ("cluster_queue_info", "cluster_queue_resource_usage",
+                    "cluster_queue_resource_reservation",
+                    "cluster_queue_resource_pending",
+                    "cluster_queue_nominal_quota",
+                    "cluster_queue_borrowing_limit",
+                    "cluster_queue_lending_limit",
+                    "cluster_queue_weighted_share",
+                    "local_queue_resource_usage",
+                    "local_queue_resource_reservation",
+                    "local_queue_pending_workloads",
+                    "local_queue_reserving_active_workloads",
+                    "local_queue_admitted_active_workloads",
+                    "local_queue_admission_fair_sharing_usage",
+                    "reserving_active_workloads", "cohort_info",
+                    "cohort_subtree_quota",
+                    "cohort_subtree_resource_reservations",
+                    "cohort_subtree_admitted_active_workloads",
+                    "cohort_weighted_share"):
+            self.registry.gauge(fam).values = fams.get(fam, {})
 
     def run_until_quiescent(self, max_cycles: int = 10_000) -> int:
         """Drive cycles until no progress is possible (tests/bench)."""
@@ -478,8 +751,19 @@ class Engine:
         return _BulkAdmitCtx(self.clock)
 
     def flush_bulk_admit(self, ctx: _BulkAdmitCtx) -> None:
-        """One journal record per workload the cycle touched, in first
+        """The cycle's deferred metric and unadmitted-gauge writes, then
+        one journal record per workload the cycle touched, in first
         touch order, in one batched write."""
+        for name, fam in ctx.counts.items():
+            values = self.registry.counter(name).values
+            for labels, n in fam.items():
+                values[labels] += n
+        for name, fam in ctx.waits.items():
+            hist = self.registry.histogram(name)
+            for labels, values in fam.items():
+                hist.observe_many(values, labels)
+        if ctx.removed_unadmitted:
+            self.unadmitted.remove_many(ctx.removed_unadmitted)
         if self.journal is None:
             return
         wls = [wl for wl in (self.workloads.get(key)
@@ -493,7 +777,19 @@ class Engine:
         (scheduler.go:920 assumeWorkload). Returns the (entry, admission)
         pairs for bulk_finalize_batch. Entries with reclaimable pods,
         preemption targets or configured admission checks take the exact
-        per-entry _admit path."""
+        per-entry _admit path.
+
+        The batch is applied in columns by default (controllers/colapply);
+        KUEUE_TPU_COLUMNAR=0 takes the per-entry loop,
+        _assume_batch_serial. Both leave the same state."""
+        from kueue_tpu_torch.controllers import colapply
+
+        if colapply.columnar_enabled():
+            return colapply.columnar_assume_batch(self, entries, bulk)
+        return self._assume_batch_serial(entries, bulk)
+
+    def _assume_batch_serial(self, entries, bulk: _BulkAdmitCtx) -> list:
+        """The per-entry assume loop (the KUEUE_TPU_COLUMNAR=0 arm)."""
         if not entries:
             return []
         cache = self.cache
@@ -587,15 +883,25 @@ class Engine:
     def bulk_finalize_batch(self, pairs, bulk: _BulkAdmitCtx) -> None:
         """Status finalization of a device cycle's admitted batch
         (scheduler.go:870, the reference's async status PATCH): status
-        conditions and events."""
+        conditions, events, the admission metrics and unadmitted gauges
+        (deferred to flush_bulk_admit or written once per series) and
+        the journal keys."""
         if not pairs:
             return
         now = self.clock
+        qr_cond = bulk.qr_cond
+        adm_cond = bulk.adm_cond
+        reset_conds = bulk.reset_conds
+        lq_on = self._lq_metrics_on()
+        events = self.events
+        on_admit = self.on_admit
+        journal_on = self.journal is not None
         QR = WorkloadConditionType.QUOTA_RESERVED
         ADM = WorkloadConditionType.ADMITTED
-        on_admit = self.on_admit
-        journal_keys = bulk.journal_keys if self.journal is not None \
-            else None
+        # (cq, lq) -> [count, [wait values], [nonzero checks waits]]
+        agg: dict[tuple, list] = {}
+        removed_unadmitted = bulk.removed_unadmitted
+        journal_keys = bulk.journal_keys
         n_admitted = 0
         for entry, admission in pairs:
             info = entry.info
@@ -605,24 +911,122 @@ class Engine:
             conds = wl.status.conditions
             prev = conds.get(QR)
             if prev is None or not prev.status:
-                conds[QR] = bulk.qr_cond
-            for ctype, cond in bulk.reset_conds:
+                conds[QR] = qr_cond
+                checks_wait = 0.0
+            else:
+                # A live reservation keeps its transition time; the
+                # admission-checks wait spans from it.
+                checks_wait = now - prev.last_transition_time
+                if checks_wait < 0.0:
+                    checks_wait = 0.0
+            for ctype, cond in reset_conds:
                 # Reset only currently-True conditions.
                 pc = conds.get(ctype)
                 if pc is not None and pc.status:
                     conds[ctype] = cond
-            self._record(EngineEvent(now, "QuotaReserved", key, cq_name))
-            if journal_keys is not None:
+            events.append(EngineEvent(now, "QuotaReserved", key, cq_name))
+            if journal_on:
                 journal_keys.append(key)
             adm_cond_prev = conds.get(ADM)
             if adm_cond_prev is not None and adm_cond_prev.status:
-                continue  # already admitted: QuotaReserved only
-            conds[ADM] = bulk.adm_cond
+                # Already admitted: QuotaReserved bookkeeping only.
+                bulk.count("quota_reserved_workloads_total", (cq_name,))
+                bulk.wait("quota_reserved_wait_time_seconds", (cq_name,),
+                          max(0.0, now - wl.creation_time))
+                if lq_on:
+                    lq_l = (f"{wl.namespace}/{wl.queue_name}",)
+                    bulk.count(
+                        "local_queue_quota_reserved_workloads_total", lq_l)
+                    bulk.wait(
+                        "local_queue_quota_reserved_wait_time_seconds",
+                        lq_l, max(0.0, now - wl.creation_time))
+                continue
+            conds[ADM] = adm_cond
             n_admitted += 1
-            self._record(EngineEvent(now, "Admitted", key, cq_name))
+            wait = now - wl.creation_time
+            if wait < 0.0:
+                wait = 0.0
+            lq = f"{wl.namespace}/{wl.queue_name}"
+            a = agg.get((cq_name, lq))
+            if a is None:
+                a = agg[(cq_name, lq)] = [1, [wait], []]
+            else:
+                a[0] += 1
+                a[1].append(wait)
+            if checks_wait > 0.0:
+                a[2].append(checks_wait)
+            removed_unadmitted.append(key)
+            events.append(EngineEvent(now, "Admitted", key, cq_name))
             if on_admit is not None:
                 on_admit(wl, admission)
         self.metrics.admissions_total += n_admitted
+        self._flush_admission_metrics(agg, lq_on)
+
+    def _flush_admission_metrics(self, agg: dict, lq_on: bool) -> None:
+        """Direct registry writes for a batch's admission metric series:
+        the families are fetched once and their label maps updated in
+        place (one layer, no per-write tuple/registry churn)."""
+        import bisect as _bisect
+
+        reg = self.registry
+        qr_total = reg.counter("quota_reserved_workloads_total").values
+        adm_total = reg.counter("admitted_workloads_total").values
+        hists = [
+            reg.histogram("quota_reserved_wait_time_seconds"),
+            reg.histogram("admission_wait_time_seconds"),
+        ]
+        checks_h = reg.histogram("admission_checks_wait_time_seconds")
+        if lq_on:
+            lq_qr_total = reg.counter(
+                "local_queue_quota_reserved_workloads_total").values
+            lq_adm_total = reg.counter(
+                "local_queue_admitted_workloads_total").values
+            lq_hists = [
+                reg.histogram("local_queue_quota_reserved_wait_time_seconds"),
+                reg.histogram("local_queue_admission_wait_time_seconds"),
+            ]
+        for (cq_name, lq), (n, waits, checks_waits) in agg.items():
+            cq_l = (cq_name,)
+            qr_total[cq_l] += n
+            adm_total[cq_l + self._custom_cq_labels(cq_name)] += n
+            for h in hists:
+                counts = h.counts.get(cq_l)
+                if counts is None:
+                    counts = h.counts[cq_l] = [0] * (len(h.buckets) + 1)
+                s = 0.0
+                for v in waits:
+                    counts[_bisect.bisect_left(h.buckets, v)] += 1
+                    s += v
+                h.sums[cq_l] += s
+                h.totals[cq_l] += n
+            # admission-checks wait: 0.0 for immediate admissions,
+            # the real reservation-to-now span for second-pass ones.
+            ccounts = checks_h.counts.get(cq_l)
+            if ccounts is None:
+                ccounts = checks_h.counts[cq_l] = \
+                    [0] * (len(checks_h.buckets) + 1)
+            ccounts[0] += n - len(checks_waits)
+            if checks_waits:
+                s = 0.0
+                for v in checks_waits:
+                    ccounts[_bisect.bisect_left(checks_h.buckets, v)] += 1
+                    s += v
+                checks_h.sums[cq_l] += s
+            checks_h.totals[cq_l] += n
+            if lq_on:
+                lq_l = (lq,)
+                lq_qr_total[lq_l] += n
+                lq_adm_total[lq_l] += n
+                for h in lq_hists:
+                    counts = h.counts.get(lq_l)
+                    if counts is None:
+                        counts = h.counts[lq_l] = [0] * (len(h.buckets) + 1)
+                    s = 0.0
+                    for v in waits:
+                        counts[_bisect.bisect_left(h.buckets, v)] += 1
+                        s += v
+                    h.sums[lq_l] += s
+                    h.totals[lq_l] += n
 
     def _admit(self, entry, bulk: Optional[_BulkAdmitCtx] = None) -> None:
         """scheduler.go:856 (admit): reserve quota, assume in cache; the
@@ -665,9 +1069,33 @@ class Engine:
         # The workload left the pending world: free its tensor row.
         self.queues.rows.on_remove(wl.key)
         cq_name = entry.info.cluster_queue
-        self._event("QuotaReserved", wl.key, cluster_queue=cq_name,
-                    defer_journal=bulk)
+        wait = max(0.0, self.clock - wl.creation_time)
+        lq = self._lq_key(wl)
+        if bulk is not None:
+            self._event("QuotaReserved", wl.key, cluster_queue=cq_name,
+                        defer_journal=bulk)
+            bulk.count("quota_reserved_workloads_total", (cq_name,))
+            bulk.wait("quota_reserved_wait_time_seconds", (cq_name,), wait)
+            if self._lq_metrics_on():
+                bulk.count("local_queue_quota_reserved_workloads_total", lq)
+                bulk.wait("local_queue_quota_reserved_wait_time_seconds",
+                          lq, wait)
+        else:
+            self._event("QuotaReserved", wl.key, cluster_queue=cq_name)
+            self.registry.counter("quota_reserved_workloads_total").inc(
+                (cq_name,))
+            self.registry.histogram(
+                "quota_reserved_wait_time_seconds").observe(wait, (cq_name,))
+            if self._lq_metrics_on():
+                self.registry.counter(
+                    "local_queue_quota_reserved_workloads_total").inc(lq)
+                self.registry.histogram(
+                    "local_queue_quota_reserved_wait_time_seconds").observe(
+                    wait, lq)
         if self.admission_checks is not None:
+            # The UnsatisfiedChecks window exists only when checks can
+            # defer the Admitted condition.
+            self._track_unadmitted(wl, cq_name, "UnsatisfiedChecks")
             self.admission_checks.sync_states(wl, cq_name)
         self._sync_admitted(wl, cq_name, bulk=bulk)
         # Replace-old-slice after successful admission
@@ -693,14 +1121,46 @@ class Engine:
                 and not self.admission_checks.all_ready(wl, cq_name)):
             return
         self.metrics.admissions_total += 1
+        wait = max(0.0, self.clock - wl.creation_time)
+        lq = self._lq_key(wl)
+        reserved = wl.condition(WorkloadConditionType.QUOTA_RESERVED)
         if bulk is not None:
             wl.status.conditions[WorkloadConditionType.ADMITTED] = \
                 bulk.adm_cond
+            bulk.count("admitted_workloads_total",
+                       (cq_name,) + self._custom_cq_labels(cq_name))
+            bulk.wait("admission_wait_time_seconds", (cq_name,), wait)
+            if self._lq_metrics_on():
+                bulk.count("local_queue_admitted_workloads_total", lq)
+                bulk.wait("local_queue_admission_wait_time_seconds", lq,
+                          wait)
+            if reserved is not None:
+                bulk.wait(
+                    "admission_checks_wait_time_seconds", (cq_name,),
+                    max(0.0, self.clock - reserved.last_transition_time))
+            bulk.removed_unadmitted.append(wl.key)
+            self._event("Admitted", wl.key, cluster_queue=cq_name,
+                        defer_journal=bulk)
         else:
             wl.set_condition(WorkloadConditionType.ADMITTED, True,
                              reason="Admitted", now=self.clock)
-        self._event("Admitted", wl.key, cluster_queue=cq_name,
-                    defer_journal=bulk)
+            self.registry.counter("admitted_workloads_total").inc(
+                (cq_name,) + self._custom_cq_labels(cq_name))
+            self.registry.histogram("admission_wait_time_seconds").observe(
+                wait, (cq_name,))
+            if self._lq_metrics_on():
+                self.registry.counter(
+                    "local_queue_admitted_workloads_total").inc(lq)
+                self.registry.histogram(
+                    "local_queue_admission_wait_time_seconds").observe(
+                    wait, lq)
+            if reserved is not None:
+                self.registry.histogram(
+                    "admission_checks_wait_time_seconds").observe(
+                    max(0.0, self.clock - reserved.last_transition_time),
+                    (cq_name,))
+            self.unadmitted.remove(wl.key)
+            self._event("Admitted", wl.key, cluster_queue=cq_name)
         if self.on_admit is not None:
             self.on_admit(wl, wl.status.admission)
 
@@ -756,6 +1216,38 @@ class Engine:
         wl.status.admission_check_states = {}
         wl.status.admission_check_updates = {}
         self.cache.delete_workload(wl.key)
+        if bulk is not None:
+            bulk.count("evicted_workloads_total",
+                       (cq_name, reason) + self._custom_cq_labels(cq_name))
+            if self._lq_metrics_on():
+                bulk.count("local_queue_evicted_workloads_total",
+                           self._lq_key(wl) + (reason,))
+        else:
+            self.registry.counter("evicted_workloads_total").inc(
+                (cq_name, reason) + self._custom_cq_labels(cq_name))
+            if self._lq_metrics_on():
+                self.registry.counter(
+                    "local_queue_evicted_workloads_total").inc(
+                    self._lq_key(wl) + (reason,))
+        if wl.uid not in self._evicted_once:
+            # Keyed by UID: a re-created workload under the same name is
+            # a new object with its own first eviction (metrics.go:666).
+            self._evicted_once.add(wl.uid)
+            if bulk is not None:
+                bulk.count("evicted_workloads_once_total",
+                           (cq_name, reason))
+            else:
+                self.registry.counter("evicted_workloads_once_total").inc(
+                    (cq_name, reason))
+        if admitted_at is not None:
+            if bulk is not None:
+                bulk.wait("workload_eviction_latency_seconds",
+                          (cq_name, reason),
+                          max(0.0, self.clock - admitted_at))
+            else:
+                self.registry.histogram(
+                    "workload_eviction_latency_seconds").observe(
+                    max(0.0, self.clock - admitted_at), (cq_name, reason))
         self._event("Evicted", wl.key, cluster_queue=cq_name, detail=reason,
                     defer_journal=bulk)
         if requeue and wl.active:
@@ -763,12 +1255,15 @@ class Engine:
             if backoff_seconds:
                 wl.status.requeue_at = self.clock + backoff_seconds
             self.queues.add_or_update_workload(wl)
+            self._track_unadmitted(wl, cq_name, "Evicted", cause=reason)
             # The requeue bookkeeping changed status after the Evicted
             # record: persist the final state.
             if bulk is not None:
                 bulk.journal_keys.append(wl.key)
             else:
                 self._journal_obj("workload", wl)
+        else:
+            self.unadmitted.remove(wl.key)
         if self._deferred_cohort_requeue is not None:
             self._deferred_cohort_requeue.add(cq_name)
         else:
@@ -813,6 +1308,7 @@ class Engine:
                 reason="PreemptionGated",
                 message=entry.inadmissible_msg, now=self.clock)
         self.queues.requeue_workload(entry.info, reason)
+        self._track_unadmitted(wl, entry.info.cluster_queue, reason.value)
         self._event("Requeued", wl.key,
                     cluster_queue=entry.info.cluster_queue,
                     detail=f"{reason.value}: {entry.inadmissible_msg}")

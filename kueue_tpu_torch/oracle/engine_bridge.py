@@ -52,9 +52,29 @@ on its device. With a remote executor (``service.RemoteExecutor``, which has
 no device) the bridge encodes on the engine's device, and the executor
 ships host copies.
 
-Difference from the JAX package's bridge: the cycle loop is serial (no
-speculative encode of the next cycle, which the JAX package holds
-decision-identical).
+The speculation pipeline (``KUEUE_TPU_PIPELINE``, default on, as in the
+JAX package): at the end of a device cycle ``_maybe_speculate`` encodes
+the next cycle and runs its device program; the next ``try_cycle`` takes
+it if the state token (clock, spec and admitted versions, row-cache
+mutations, journal writes, workload and namespace counts) still matches,
+and otherwise encodes afresh. A discarded speculation leaves what the JAX
+package's leaves (the admitted-row sync, the row-cache flush, TAS memo
+entries, the supervisor's bookkeeping of its executor call); its
+counters and stats are deferred (``enc.deferred``) and applied only when
+it is used. After two discards in a row the next end-of-cycle skips
+speculating once (``pipeline_stats["skipped"]``). The executor here syncs
+inside its call, so a speculative cycle's device time is spent in the
+previous ``schedule_once``; ``last_cycle_phases["spec_encode"]`` reports
+it, device time included, on the cycle that uses it.
+
+The bridge writes the engine's registry as the JAX package's does
+(``oracle_fallback_total``, ``oracle_host_root_total``,
+``oracle_cycles_total``, the ``scheduler_phase_duration_seconds``
+observations of a device cycle) and hands it to the supervisor (the
+breaker's state and its counters). The JAX package also counts
+``oracle_pipeline_total``, a family its registry does not register, so
+its write is dropped; the port drops it too, and ``pipeline_stats``
+holds the same counts.
 
 The module-level ``cq_policy_cfg``, ``adm_padded`` and ``slot_maybe``
 are the numpy argument helpers of the fused-preemption cycle.
@@ -114,6 +134,20 @@ from kueue_tpu_torch.tensor.schema import (
 from kueue_tpu_torch.workload_info import namespace_selector_mismatch
 
 _HOST_BIG = np.int64(1) << 60
+
+
+def pipeline_enabled() -> bool:
+    """The speculation pipeline is on unless KUEUE_TPU_PIPELINE=0 or
+    KUEUE_TPU_PIPELINE_DEPTH is 0 (the slot is single, so any depth of 1
+    or more runs one cycle ahead), read per call as the JAX package
+    reads them."""
+    if os.environ.get("KUEUE_TPU_PIPELINE", "1") == "0":
+        return False
+    try:
+        depth = int(os.environ.get("KUEUE_TPU_PIPELINE_DEPTH", "1"))
+    except ValueError:
+        depth = 1
+    return depth > 0
 
 _POLICY_CODE = {
     PreemptionPolicy.NEVER: pops.POLICY_NEVER,
@@ -292,6 +326,7 @@ class OracleBridge:
         # cycles are refused up front in try_cycle until a half-open
         # probe re-promotes.
         self.supervisor = OracleSupervisor(
+            metrics=engine.registry,
             max_attempts=int(os.environ.get("KUEUE_TPU_ORACLE_RETRIES", "3")),
             threshold=int(os.environ.get("KUEUE_TPU_ORACLE_BREAKER_N", "3")),
             cooldown_cycles=int(os.environ.get(
@@ -314,6 +349,15 @@ class OracleBridge:
         self.tas_heads_per_launch: dict[int, int] = {}
         # Wall seconds of the last sim nomination's device calls.
         self.sim_seconds = 0.0
+        # The speculation slot: (state_token, enc) of the next cycle,
+        # encoded and run on the device, or ("error", exc) when that
+        # failed (raised at the next try_cycle); None when empty.
+        self._spec = None
+        self.pipeline_stats: dict[str, int] = {
+            "speculated": 0, "used": 0, "discarded": 0, "skipped": 0}
+        # Discards in a row, and end-of-cycles left to skip speculating.
+        self._spec_miss = 0
+        self._spec_backoff = 0
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -344,11 +388,23 @@ class OracleBridge:
     def _fallback(self, reason: str) -> None:
         self.fallback_reasons[reason] = \
             self.fallback_reasons.get(reason, 0) + 1
+        self._count("oracle_fallback_total", (reason,))
         return None
 
     def _host_root(self, reason: str, count: int = 1) -> None:
         self.host_root_reasons[reason] = \
             self.host_root_reasons.get(reason, 0) + count
+        self._count("oracle_host_root_total", (reason,), count)
+
+    def _count(self, family: str, labels: tuple,
+               amount: float = 1.0) -> None:
+        """Mirror a bridge counter into the engine's registry. A family
+        the registry does not register is dropped, as in the JAX
+        package."""
+        try:
+            self.engine.registry.counter(family).inc(labels, amount)
+        except KeyError:
+            pass
 
     def _exec_call(self, site: str, fn, *args, **kwargs):
         """Route one executor call through the supervisor: a
@@ -791,8 +847,10 @@ class OracleBridge:
         if not self.supervisor.allow_cycle(eng.cycle_seq):
             # Breaker open: the device path is known-bad; go straight to
             # the host path without paying retries or timeouts.
+            self._spec = None
             return self._fallback("breaker-open")
         if not self.world_is_fast_path_safe():
+            self._spec = None
             return self._fallback("world")
 
         if not any(pcq.items for pcq in
@@ -805,15 +863,88 @@ class OracleBridge:
             return CycleResult()
 
         t0 = time.perf_counter()
-        enc = self._encode_cycle()
-        if isinstance(enc, _CycleExit):
-            if enc.fallback_reason is not None:
-                return self._fallback(enc.fallback_reason)
-            return enc.value
+        enc = self._take_speculation()
+        if enc is None:
+            enc = self._encode_cycle()
+            if isinstance(enc, _CycleExit):
+                if enc.fallback_reason is not None:
+                    return self._fallback(enc.fallback_reason)
+                return enc.value
         t_encode = time.perf_counter()
-        enc.out = self._exec_call("cycle_step", self.executor.cycle_step,
-                                  enc.inputs, enc.statics)
-        return self._commit_cycle(enc, t0, t_encode)
+        result = self._commit_cycle(enc, t0, t_encode)
+        if result is not None:
+            self._maybe_speculate()
+        return result
+
+    # -- the speculation pipeline --
+
+    def _state_token(self) -> tuple:
+        """Everything _encode_cycle reads, versioned: a speculation is
+        used only if the token at its dispatch equals the token at use."""
+        eng = self.engine
+        return (eng.clock,
+                eng.cache.spec_version,
+                eng.cache.admitted_version,
+                eng.queues.rows.mutation_seq,
+                getattr(eng.journal, "writes_seq", 0),
+                len(eng.workloads),
+                len(eng.namespace_labels))
+
+    def _take_speculation(self):
+        """The speculated cycle if its token still holds, its deferred
+        counters applied; None for a fresh encode. A failed speculative
+        dispatch raises here, where the serial loop would have."""
+        slot = self._spec
+        if slot is None:
+            return None
+        self._spec = None
+        head, payload = slot
+        if head == "error":
+            raise payload
+        if head != self._state_token():
+            self.pipeline_stats["discarded"] += 1
+            self._count("oracle_pipeline_total", ("discarded",))
+            self._spec_miss += 1
+            if self._spec_miss >= 2:
+                self._spec_backoff = 1
+            return None
+        for fn, a in payload.deferred:
+            fn(*a)
+        payload.deferred = ()
+        self.pipeline_stats["used"] += 1
+        self._count("oracle_pipeline_total", ("used",))
+        self._spec_miss = 0
+        self._spec_backoff = 0
+        return payload
+
+    def _maybe_speculate(self) -> None:
+        """Encode the next cycle and run its device program now, its
+        counters deferred until it is used (a discarded one leaves them
+        as the serial loop would)."""
+        eng = self.engine
+        if not pipeline_enabled():
+            self._spec = None
+            return
+        if self._spec_backoff > 0:
+            self._spec_backoff -= 1
+            self.pipeline_stats["skipped"] += 1
+            self._spec = None
+            return
+        if not any(pcq.items for pcq in
+                   eng.queues.cluster_queues.values()):
+            self._spec = None
+            return
+        try:
+            enc = self._encode_cycle(defer_stats=True)
+        except Exception as e:  # noqa: BLE001 — raised at the next cycle
+            self._spec = ("error", e)
+            return
+        if isinstance(enc, _CycleExit):
+            self._spec = None
+            return
+        enc.speculative = True
+        self._spec = (self._state_token(), enc)
+        self.pipeline_stats["speculated"] += 1
 
     def _commit_tas_stats(self, tas_plan) -> None:
         st = self.tas_stats
@@ -830,13 +961,23 @@ class OracleBridge:
             self.tas_heads_per_launch[n] = \
                 self.tas_heads_per_launch.get(n, 0) + 1
 
-    def _encode_cycle(self):
+    def _encode_cycle(self, defer_stats: bool = False):
         """The encode phase: world + row tensors, head selection with
         hold-back, per-root host/device partitioning, batched TAS
-        nomination, the sim-augmented multi-flavor nomination, and the
-        cycle's device inputs. Returns
-        the encoded cycle for _commit_cycle, or a _CycleExit."""
+        nomination, the sim-augmented multi-flavor nomination, the
+        cycle's device inputs, and the executor's call. Returns the
+        encoded cycle, its device outputs in ``out``, for _commit_cycle,
+        or a _CycleExit. ``defer_stats`` (a speculation) buffers the
+        host-root counters and TAS stats into ``enc.deferred``."""
         eng = self.engine
+        t_start = time.perf_counter()
+        deferred: list = []
+        if defer_stats:
+            def emit(fn, *a):
+                deferred.append((fn, a))
+        else:
+            def emit(fn, *a):
+                fn(*a)
         now = eng.clock
         rows = eng.queues.rows
         rows.maybe_compact()
@@ -907,7 +1048,7 @@ class OracleBridge:
             roots = np.unique(root_of_cq[cq_mask])
             new = roots[~host_root[roots]]
             if new.size:
-                self._host_root(reason, int(new.size))
+                emit(self._host_root, reason, int(new.size))
                 host_root[new] = True
 
         demote(has_head & ~head_eligible, "head-ineligible")
@@ -970,7 +1111,7 @@ class OracleBridge:
                     m = np.zeros(C, bool)
                     m[closed] = True
                     demote(m, "tas-forest-shared")
-                self._commit_tas_stats(tas_plan)
+                emit(self._commit_tas_stats, tas_plan)
         t_tas = time.perf_counter() - t_tas0
         cq_on_device = ~host_root[root_of_cq]
 
@@ -1124,20 +1265,27 @@ class OracleBridge:
         inputs = dict(pending=self._tensor(device_w_padded),
                       inadmissible=self._tensor(np.zeros(Wp, bool)),
                       usage=self._tensor(w.usage), **args, **pre_kwargs)
+        t_call = time.perf_counter()
+        out = self._exec_call("cycle_step", self.executor.cycle_step,
+                              inputs, statics)
+        t_end = time.perf_counter()
         return SimpleNamespace(
-            inputs=inputs, statics=statics, out=None, w=w, wl=wl,
+            out=out, w=w, wl=wl,
             pending_infos=pending_infos, now=now, W=W, C=C,
             cq_safe_idx=cq_safe_idx, device_w=device_w,
             cq_on_device=cq_on_device, host_root=host_root,
             root_of_cq=root_of_cq, has_head=has_head, fused=fused,
             admitted=admitted, preempt_targets=preempt_targets,
-            tas_plan=tas_plan, t_tas=t_tas, t_sim=t_sim)
+            tas_plan=tas_plan, t_tas=t_tas, t_sim=t_sim,
+            device_s=t_end - t_call, encode_s=t_end - t_start,
+            deferred=deferred, speculative=False)
 
     def _commit_cycle(self, enc, t0: float,
                       t_encode: float) -> Optional[CycleResult]:
-        """Commit a device cycle: the TAS commit-order re-check, the
-        verdicts through the engine's assume path, then status
-        finalization, then the host tail."""
+        """Commit a device cycle (``enc`` fresh or the used
+        speculation): the TAS commit-order re-check, the verdicts
+        through the engine's assume path, then status finalization,
+        then the host tail."""
         from kueue_tpu_torch.tas import batched as _tb
 
         eng = self.engine
@@ -1260,11 +1408,30 @@ class OracleBridge:
         # device (the cycle's executor call, transfers included) / apply
         # (decode + cache assume) / finalize (status).
         t_final = time.perf_counter()
-        eng.last_cycle_phases = {
-            "encode": t_encode - t0 - enc.t_sim, "sim": enc.t_sim,
-            "device": t_device - t_encode,
-            "apply": t_apply - t_device, "finalize": t_final - t_apply,
-            "tas_place": enc.t_tas}
+        # A fresh cycle ran its device call inside the encode interval;
+        # a used speculation ran all of it in the previous cycle, whose
+        # wall holds ``spec_encode`` (device time included), and its
+        # encode here is the token check.
+        if enc.speculative:
+            encode_s, sim_s, device_s = t_encode - t0, 0.0, 0.0
+        else:
+            encode_s, sim_s, device_s = (
+                t_encode - t0 - enc.device_s - enc.t_sim, enc.t_sim,
+                enc.device_s)
+        phases = {"encode": encode_s, "sim": sim_s,
+                  "device": device_s + (t_device - t_encode),
+                  "apply": t_apply - t_device, "finalize": t_final - t_apply,
+                  "tas_place": enc.t_tas}
+        if enc.speculative:
+            phases["spec_encode"] = enc.encode_s
+        eng.last_cycle_phases = phases
+        # The registry's phase series are the JAX package's: its encode
+        # holds the sim nomination.
+        hist = eng.registry.histogram("scheduler_phase_duration_seconds")
+        for phase, dur in phases.items():
+            if phase == "sim":
+                continue
+            hist.observe(dur + sim_s if phase == "encode" else dur, (phase,))
 
         # --- host tail: sequential cycle over the host roots ---
         eng.last_cycle_mode = "device"
@@ -1293,6 +1460,7 @@ class OracleBridge:
                 for k, v in hst.preemption_skips.items():
                     st.preemption_skips[k] = \
                         st.preemption_skips.get(k, 0) + v
+        self._count("oracle_cycles_total", (eng.last_cycle_mode,))
         return result
 
     def _apply(self, w, wls, pending_infos, wl_admitted, parked,
@@ -1424,6 +1592,9 @@ class OracleBridge:
             for cq_name, skips in result.stats.preemption_skips.items():
                 m = eng.metrics.admission_cycle_preemption_skips
                 m[cq_name] = m.get(cq_name, 0) + skips
+                eng.registry.counter(
+                    "admission_cycle_preemption_skips").inc(
+                    (cq_name,), skips)
         # The whole cycle's admissions assumed in one flat engine pass;
         # status finalization is deferred to the finalize phase.
         return eng.bulk_assume_batch(admits, bulk)

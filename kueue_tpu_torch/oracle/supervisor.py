@@ -3,8 +3,9 @@ instead of an unstructured crash.
 
 A copy of ``kueue_tpu/oracle/supervisor.py``; the state machine, its
 jitter and its counters are the JAX package's, transition for
-transition. The port has no metrics registry, so ``metrics`` is
-optional and left ``None`` by the bridge.
+transition. The bridge hands it the engine's registry (``metrics``):
+``oracle_breaker_state``, ``oracle_breaker_transitions_total`` and
+``oracle_retry_total`` are written where the JAX package writes them.
 
 Three layers, all decision-neutral (they decide WHERE a cycle is
 decided, never WHAT it decides: the host path and the device path

@@ -16,9 +16,14 @@ kueue_tpu_torch.oracle.service``; ``off``: host cycles only), prints
 HOST:PORT ...``, and loops ``schedule_once`` then ``tick`` (the engine
 clock follows the wall clock), sleeping ``--tick`` seconds after an idle
 cycle. SIGTERM or SIGINT ends the loop; the process prints one JSON line
-(its heads kernel launches, cycle counts, and the wall seconds of its
-loop: in ``schedule_once``, of them in the journal's cycle-boundary
-sync, in ``tick``, waiting for the lock and asleep) and exits 0. ``--device``
+(its heads kernel launches, cycle counts, the bridge's
+``pipeline_stats``, and the wall seconds of its loop: in
+``schedule_once``, of them in the journal's cycle-boundary sync, in
+``tick``, waiting for the lock and asleep) and exits 0. The engine's
+metrics registry feeds ``/metrics`` and, through the bridge, the
+oracle supervisor's breaker families; the cycle loop runs the bridge's
+speculation pipeline and the columnar apply unless
+``KUEUE_TPU_PIPELINE=0`` or ``KUEUE_TPU_COLUMNAR=0``. ``--device``
 is where this process's engine and in-process programs run: CUDA unless
 ``cpu`` is asked for.
 
@@ -169,6 +174,7 @@ def main(argv=None) -> None:
         "heads_launches": heads.launches, "cycle_seq": eng.cycle_seq,
         "cycles_on_device": b.cycles_on_device if b else 0,
         "cycles_fallback": b.cycles_fallback if b else 0,
+        "pipeline_stats": dict(b.pipeline_stats) if b else {},
         "loop_s": loop}), flush=True)
 
 

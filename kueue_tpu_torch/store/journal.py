@@ -73,6 +73,9 @@ class Journal:
         # sync()'s flush and fsync.
         self._dirty = False
         self.sync_seconds = 0.0
+        # Lines written through this handle: the bridge's speculation
+        # token reads it, so any journaled write discards a speculation.
+        self.writes_seq = 0
         self._locked_repair()
         # Per-(kind, key) generation table and how far the file is read.
         self._generations: dict[tuple, int] = {}
@@ -263,6 +266,7 @@ class Journal:
         # Our own lines are already in the generation table: skip them on
         # the next refresh().
         self._read_offset += len(blob.encode("utf-8"))
+        self.writes_seq += len(lines)
 
     def sync(self) -> None:
         """Crash-safe cycle boundary: flush + fsync every append since

@@ -6,13 +6,14 @@ The port of ``kueue_tpu/visibility/http_server.py``, trimmed to:
   * POST ``/workloads``: a serde-tagged workload body (api/serde.py);
     400 on a bad body, 200 ``deduplicated`` for a known key, 201 when
     accepted;
-  * GET ``/healthz``, ``/debug/dump``, ``/capacity``, ``/cohorts``,
-    ``/oracle``, ``/clusterqueues``,
+  * GET ``/healthz``, ``/metrics`` (``sync_resource_metrics`` then the
+    registry's Prometheus text), ``/debug/dump``, ``/capacity``,
+    ``/cohorts``, ``/oracle``, ``/evictions``, ``/clusterqueues``,
     ``/clusterqueues/<cq>/pendingworkloads`` and ``/workloads``;
   * the bearer token (``auth_token``; ``/healthz`` stays open).
 
-The JAX package's other routes (``/metrics``, the ``/events`` stream,
-the dashboard, ``/evictions``, the trace, perf, SLO, HA, flow-control,
+The JAX package's other routes (the ``/events`` stream, the dashboard,
+the trace, perf, SLO, HA, flow-control,
 status, read-plane and federation routes) answer 404 with a body that
 names them as not ported; any other route answers 404 ``not found``.
 Also left out: API priority and fairness, TLS, HA and federation
@@ -26,7 +27,10 @@ JAX package takes no lock there, and its serving loop can die of it:
 (``RuntimeError: Set changed size during iteration``,
 ``kueue_tpu/tensor/rowcache.py:437``, reproduced with 200 POSTs a second
 against its serve process). A submit lands between two cycles either
-way, so the lock changes no decision.
+way, so the lock changes no decision. ``/metrics`` refreshes the
+resource gauges under the lock too, so it needs no escape for a refresh
+racing the loop (the JAX package serves the previous aggregates when its
+refresh raises ``RuntimeError``).
 """
 
 from __future__ import annotations
@@ -43,14 +47,15 @@ from kueue_tpu_torch.visibility.server import (
     capacity_summary,
     cohort_tree,
     dump_state,
+    eviction_summary,
     oracle_stats,
 )
 
 # The JAX package's routes that the port does not serve.
-NOT_PORTED_GET = ("", "/dashboard", "/metrics", "/events",
+NOT_PORTED_GET = ("", "/dashboard", "/events",
                   "/debug/flowcontrol", "/debug/trace", "/debug/perf",
                   "/debug/slo", "/debug/ha", "/debug/readplane",
-                  "/evictions", "/cells", "/debug/federation")
+                  "/cells", "/debug/federation")
 NOT_PORTED_PREFIXES = ("/read/", "/localqueues/")
 NOT_PORTED_POST = ("/federation/revoke",)
 
@@ -183,6 +188,8 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
             # wait for the JSON of a large dump.
             if view is None:
                 self._missing(path, "GET")
+            elif path == "/metrics":
+                self._send(view, content_type="text/plain")
             elif path == "/debug/dump":
                 self._send(json.dumps(view, indent=2))
             elif isinstance(view, tuple):
@@ -193,6 +200,12 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
         def _view(self, path: str, parts: list):
             """A GET view's JSON-able value, (value, code), or None for a
             route this endpoint does not serve."""
+            if path == "/metrics":
+                # The resource and cohort gauges refreshed, so a scrape
+                # sees current usage (the reference updates them on
+                # cache reconcile).
+                engine.sync_resource_metrics()
+                return engine.registry.render()
             if path == "/debug/dump":
                 return dump_state(engine)
             if path == "/capacity":
@@ -201,6 +214,8 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
                 return cohort_tree(engine)
             if path == "/oracle":
                 return oracle_stats(engine)
+            if path == "/evictions":
+                return eviction_summary(engine)
             if parts == ["clusterqueues"]:
                 from kueue_tpu_torch.cli.kueuectl import Kueuectl
                 return Kueuectl(engine).list_cluster_queues()

@@ -3,10 +3,8 @@ JSON views of a live engine.
 
 The port of ``kueue_tpu/visibility/server.py`` (pkg/visibility
 server.go:82, storage/pending_workloads_*.go and the debugger dump,
-pkg/debugger/debugger.go:42). ``dump_state`` leaves out the JAX
-package's ``unadmittedByReason``: the port has no unadmitted-workload
-tracker (it lives on the metrics registry, which is not ported). Left
-out with the registry, tracer and SLOs: ``eviction_summary``,
+pkg/debugger/debugger.go:42), with ``eviction_summary`` over the
+engine's registry. Left out with the tracer, perf telemetry and SLOs:
 ``trace_summary``, ``perf_summary`` and ``slo_summary``.
 """
 
@@ -123,9 +121,23 @@ def cohort_tree(engine) -> list:
     return out
 
 
+def eviction_summary(engine) -> list:
+    """Evictions by ClusterQueue x reason (evicted_workloads_total),
+    summed over the custom-label suffixes of the counter's keys."""
+    ctr = engine.registry.counter("evicted_workloads_total")
+    agg: dict[tuple, float] = {}
+    for labels, v in list(ctr.values.items()):
+        key = (labels[0] if labels else "",
+               labels[1] if len(labels) > 1 else "")
+        agg[key] = agg.get(key, 0.0) + v
+    return [{"clusterQueue": cq, "reason": reason, "count": v}
+            for (cq, reason), v in sorted(agg.items())]
+
+
 def oracle_stats(engine) -> dict:
     """Device-path diagnostics: cycle counts, fallback and host-root
-    reasons, the last cycle's phase split."""
+    reasons, the last cycle's phase split, and (beyond the JAX
+    package's view) the speculation pipeline's counts."""
     b = engine.oracle
     if b is None:
         return {"attached": False}
@@ -135,12 +147,14 @@ def oracle_stats(engine) -> dict:
             "cyclesHybrid": b.cycles_hybrid,
             "fallbackReasons": dict(b.fallback_reasons),
             "hostRootReasons": dict(b.host_root_reasons),
-            "lastCyclePhases": dict(engine.last_cycle_phases)}
+            "lastCyclePhases": dict(engine.last_cycle_phases),
+            "pipelineStats": dict(b.pipeline_stats)}
 
 
 def dump_state(engine) -> dict:
-    """pkg/debugger/debugger.go:42: the queues and the admitted set, and
-    the last cycle's phase timings."""
+    """pkg/debugger/debugger.go:42: the queues and the admitted set, the
+    last cycle's phase timings and the unadmitted workloads per
+    (ClusterQueue, reason, cause)."""
     queues = {}
     for name, pcq in engine.queues.cluster_queues.items():
         queues[name] = {
@@ -155,4 +169,6 @@ def dump_state(engine) -> dict:
                       for fr, q in info.usage().items()},
         }
     return {"queues": queues, "admitted": admitted,
-            "lastCyclePhases": dict(engine.last_cycle_phases)}
+            "lastCyclePhases": dict(engine.last_cycle_phases),
+            "unadmittedByReason": {
+                "/".join(k): v for k, v in engine.unadmitted.per_cq.items()}}

@@ -3,8 +3,11 @@
 engine, with its serial cycle loop, on the same worlds and calls as the
 port's engine. At full size (FULL) the JAX engine alone must give the
 numbers chip_smoke.py pins (slow: several minutes of XLA compiles and a
-50,000-workload engine); at QUARTER size both engines must give the
-numbers pinned here. Exact throughout."""
+50,000-workload engine), on the loop each run pins (the serial loop for
+phases 10-13, the default loop for DEFAULT_ARM, phases 22 and 23, the
+serial loop and the pipeline for OTHER_ARMS, phases 24 and 25); at
+QUARTER size both engines must give the numbers pinned here. Exact
+throughout."""
 
 import json
 import os
@@ -104,6 +107,23 @@ def test_port_runs_ignore_hash_seed(hash_seed, tmp_path):
 def test_full_runs_match_chip_smoke(jax_kit, name):
     assert pinned(ew.run(ew.FULL[name], kit=jax_kit)) == \
         chip_smoke.ENGINE_EXPECT[name]
+
+
+ARM_RUNS = {**ew.DEFAULT_ARM, **ew.OTHER_ARMS}
+ARM_EXPECT = {**chip_smoke.DEFAULT_ARM_EXPECT, **chip_smoke.OTHER_ARMS_EXPECT}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(ARM_RUNS))
+def test_default_arm_runs_match_chip_smoke(jax_kit, name):
+    """chip_smoke.py phases 22 to 25: the JAX engine on the loop arm each
+    run names (the run pins it, whatever the caller's environment): the
+    default loop, and preempt_churn with the per-entry assume on the
+    serial loop and on the pipeline; speculations and evictions pinned
+    too."""
+    got = ew.arm_pinned(ew.run(ARM_RUNS[name], kit=jax_kit))
+    print(f"{name}: {got}")
+    assert got == ARM_EXPECT[name]
 
 
 def test_runs_drive_every_path():

@@ -24,7 +24,11 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "kueue_tpu") or m.startswith(("jax.", "kueue_tpu.")))
 assert not bad, bad
-assert "kueue_tpu_torch.oracle.batched" in sys.modules
+for m in ("kueue_tpu_torch.oracle.batched",
+          "kueue_tpu_torch.metrics.registry",
+          "kueue_tpu_torch.cache.unadmitted",
+          "kueue_tpu_torch.controllers.colapply"):
+    assert m in sys.modules, m
 print("isolated")
 """
 

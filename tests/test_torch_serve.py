@@ -5,14 +5,17 @@ time (so pending positions stay to compare), it answers /healthz, takes
 the arrivals over POST /workloads (201, then 200 deduplicated for a
 known key, 400 for a bad body) and drains them, and every view it
 serves (/debug/dump but its wall-clock phases, /capacity, /cohorts,
-/clusterqueues, the pending positions and /workloads) equals the JAX
-package's view of a mirrored engine: the JAX engine rebuilt from the
-same journal, given the same arrivals and drained in-process. An
-unported route answers 404 naming itself, an unported flag exits 2, the
-bearer token guards every route but /healthz, and SIGTERM exits 0.
-The slow test recomputes chip_smoke.py's phase 19 constants from the
-JAX package. Exact throughout."""
+/clusterqueues, the pending positions, /workloads and /evictions)
+equals the JAX package's view of a mirrored engine: the JAX engine
+rebuilt from the same journal, given the same arrivals and drained
+in-process, both on the default serving loop. /metrics answers 200 with
+the JAX engine's admission, eviction and resource series. An unported
+route answers 404 naming itself, an unported flag exits 2, the bearer
+token guards every route but /healthz, and SIGTERM exits 0. The slow
+tests recompute chip_smoke.py's phase 19 and 21 constants from the JAX
+package. Exact throughout."""
 
+import itertools
 import json
 import os
 import shutil
@@ -57,7 +60,22 @@ def _seed(path) -> int:
 VIEWS = ["/debug/dump", "/capacity", "/cohorts", "/clusterqueues",
          "/clusterqueues/cq-0/pendingworkloads",
          "/clusterqueues/cq-1/pendingworkloads",
-         "/clusterqueues/arrivals/pendingworkloads", "/workloads"]
+         "/clusterqueues/arrivals/pendingworkloads", "/workloads",
+         "/evictions"]
+# The /metrics families whose series do not depend on how many loop
+# iterations (idle ones included) ran before the scrape: admission,
+# eviction and finish counts, and the gauges sync_resource_metrics
+# refreshes from the final state.
+METRIC_FAMILIES = (
+    "admitted_workloads_total", "quota_reserved_workloads_total",
+    "evicted_workloads_total", "finished_workloads_total",
+    "local_queue_admitted_workloads_total", "cluster_queue_info",
+    "cluster_queue_resource_usage", "cluster_queue_resource_reservation",
+    "cluster_queue_resource_pending", "cluster_queue_nominal_quota",
+    "reserving_active_workloads", "local_queue_pending_workloads",
+    "local_queue_resource_usage", "cohort_subtree_quota",
+    "cohort_subtree_resource_reservations",
+    "cohort_subtree_admitted_active_workloads", "oracle_breaker_state")
 
 
 def _jax_views(eng) -> dict:
@@ -68,7 +86,10 @@ def _jax_views(eng) -> dict:
         return {"clusterQueue": s.cluster_queue,
                 "items": [vars(i) for i in s.items]}
 
+    eng.sync_resource_metrics()
     out = {"/debug/dump": jvis.dump_state(eng),
+           "/evictions": jvis.eviction_summary(eng),
+           "/metrics": eng.registry.render(),
            "/capacity": jvis.capacity_summary(eng),
            "/cohorts": jvis.cohort_tree(eng),
            "/clusterqueues": jkueuectl.Kueuectl(eng).list_cluster_queues(),
@@ -80,8 +101,7 @@ def _jax_views(eng) -> dict:
 
 def _comparable(path, view):
     if path == "/debug/dump":
-        return {k: v for k, v in view.items()
-                if k not in ("lastCyclePhases", "unadmittedByReason")}
+        return {k: v for k, v in view.items() if k != "lastCyclePhases"}
     return view
 
 
@@ -111,14 +131,13 @@ def drained(served):
     idle = sw.wait_idle(url, 300, dump_every=0.3, settle=0.5,
                         held=len(HELD))
     got = {p: sw.get_json(url, p) for p in VIEWS}
+    got["/metrics"] = sw.get_text(url, "/metrics")[0]
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("KUEUE_TPU_PIPELINE", "0")
-        eng = jjournal.rebuild_engine(str(d / "jax.jsonl"))
-        eng.attach_oracle()
-        for b in bodies:
-            eng.submit(jserde.from_jsonable(json.loads(b)))
-        sw.drain_in_process(eng)
+    eng = jjournal.rebuild_engine(str(d / "jax.jsonl"))
+    eng.attach_oracle()
+    for b in bodies:
+        eng.submit(jserde.from_jsonable(json.loads(b)))
+    sw.drain_in_process(eng)
     want = _jax_views(eng)
     return posted, again, idle, got, want
 
@@ -149,6 +168,26 @@ def test_views_equal_jax(drained, path):
     assert _comparable(path, got[path]) == _comparable(path, want[path])
 
 
+def test_metrics_series_equal_jax(drained):
+    """/metrics: every family the JAX package registers, and its
+    admission, eviction and resource series; the bridge's counters agree
+    with the process's own /oracle view."""
+    _posted, _again, idle, got, want = drained
+    text = got["/metrics"]
+    families = [ln.split()[2] for ln in text.split("\n")
+                if ln.startswith("# TYPE ")]
+    assert families == [ln.split()[2] for ln in want["/metrics"].split("\n")
+                        if ln.startswith("# TYPE ")]
+    for fam in METRIC_FAMILIES:
+        assert sw.metric_lines(text, fam) == \
+            sw.metric_lines(want["/metrics"], fam), fam
+    assert sw.metric_values(text, "admitted_workloads_total")
+    cycles = sw.metric_values(text, "oracle_cycles_total")
+    assert cycles[("device",)] == idle["oracle"]["cyclesOnDevice"]
+    fallback = sw.metric_values(text, "oracle_fallback_total")
+    assert set(k[0] for k in fallback) <= {"all-host", "idle-inadmissible"}
+
+
 def test_drain_admits_every_arrival(drained):
     _posted, _again, idle, got, want = drained
     st = sw.final_state(got["/workloads"], got["/debug/dump"])
@@ -163,7 +202,7 @@ def test_drain_admits_every_arrival(drained):
     assert idle["phase_samples"]
 
 
-@pytest.mark.parametrize("path", ["/metrics", "/events", "/evictions",
+@pytest.mark.parametrize("path", ["/events",
                                   "/debug/trace", "/clusterqueues/cq-0/status",
                                   "/read/pending/cq-0", "/dashboard"])
 def test_unported_route_404(served, path):
@@ -239,38 +278,67 @@ def test_bearer_token(tmp_path):
         ep.stop()
 
 
-@pytest.mark.slow
-def test_full_serve_world_constants(tmp_path, monkeypatch):
-    """chip_smoke.py phase 19's constants from the JAX package alone:
-    the JAX engine builds the full-width world and writes it with the
-    JAX journal, rebuilds that journal and drains it with the 1,000
-    arrivals (built with the JAX types) submitted directly. The port's
-    seeded journal and POST bodies, which phase 19 serves, equal the
-    JAX package's byte for byte."""
+def _jax_serve_world(config, tmp_path, monkeypatch, arrivals=None):
+    """The JAX engine on serve_world's ``config`` at the defaults: it
+    builds the world and writes it with the JAX journal, rebuilds that
+    journal and drains it with the arrivals (built with the JAX types;
+    the first ``arrivals`` of them when given) submitted directly. The
+    port's seeded journal and POST bodies, which the phases serve, equal
+    the JAX package's byte for byte. Returns the engine and its final
+    state."""
     from kueue_tpu.api import types as jtypes
     from kueue_tpu.bench import scenario as jscenario
     from kueue_tpu.controllers.engine import Engine as JEngine
     from kueue_tpu_torch.bench import engine_worlds as ew
 
-    monkeypatch.setenv("KUEUE_TPU_PIPELINE", "0")
     jkit = ew.Kit(jtypes, jscenario, lambda fair=False: JEngine(
         enable_fair_sharing=fair), lambda eng: eng.attach_oracle())
+    # Both packages' uid counters from one value, whatever ran before in
+    # this process (journals are byte-identical only then, trap (ak)).
+    monkeypatch.setattr(jtypes, "_uid_counter", itertools.count(1))
+    monkeypatch.setattr(ptypes, "_uid_counter", itertools.count(1))
     jpath = tmp_path / "jax.jsonl"
-    sw.seed_journal(jpath, sw.FULL, kit=jkit, journal_module=jjournal)
+    sw.seed_journal(jpath, config, kit=jkit, journal_module=jjournal)
     ppath = tmp_path / "port.jsonl"
-    sw.seed_journal(ppath, sw.FULL)
+    sw.seed_journal(ppath, config)
     assert ppath.read_bytes() == jpath.read_bytes()
-    assert sw.arrival_bodies(sw.FULL) == sw.arrival_bodies(
-        sw.FULL, jkit, jserde)
+    assert sw.arrival_bodies(config) == sw.arrival_bodies(
+        config, jkit, jserde)
     eng = jjournal.rebuild_engine(str(jpath))
     eng.attach_oracle()
-    for wl in sw.arrivals(sw.FULL, jkit):
+    for wl in sw.arrivals(config, jkit)[:arrivals]:
         eng.submit(wl)
     cycles = sw.drain_in_process(eng)
     got = sw.final_state(*sw.engine_views(eng, jvis.dump_state, jkueuectl))
-    print(f"serve_world FULL: cycles={cycles} {got} "
+    print(f"serve_world: cycles={cycles} {got} "
           f"checksum=0x{got['checksum']:08x}")
+    return eng, got
+
+
+@pytest.mark.slow
+def test_full_serve_world_constants(tmp_path, monkeypatch):
+    """chip_smoke.py phase 19's constants from the JAX package alone, on
+    its default serving loop: the final state, and the /metrics series
+    phase 19 pins."""
+    monkeypatch.delenv("KUEUE_TPU_PIPELINE", raising=False)
+    monkeypatch.delenv("KUEUE_TPU_COLUMNAR", raising=False)
+    eng, got = _jax_serve_world(sw.FULL, tmp_path, monkeypatch)
+    eng.sync_resource_metrics()
+    metrics = chip_smoke.serve_metrics(sw, eng.registry.render())
+    print(f"metrics: {metrics}")
     assert got == chip_smoke.SERVE_EXPECT
+    assert metrics == chip_smoke.SERVE_METRICS_EXPECT
+
+
+@pytest.mark.slow
+def test_breaker_world_constants(tmp_path, monkeypatch):
+    """chip_smoke.py phase 21's final state (the full world with its
+    first 250 arrivals) from the JAX package alone."""
+    monkeypatch.delenv("KUEUE_TPU_PIPELINE", raising=False)
+    monkeypatch.delenv("KUEUE_TPU_COLUMNAR", raising=False)
+    _eng, got = _jax_serve_world(sw.FULL, tmp_path, monkeypatch,
+                                 arrivals=chip_smoke.BREAKER_ARRIVALS)
+    assert got == chip_smoke.SERVE_BREAKER_EXPECT
 
 
 def test_cycle_lock_excludes_and_serves_requests_first():
