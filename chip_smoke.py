@@ -145,17 +145,35 @@ Phases, in order; any failure raises and the script exits non-zero:
  24-25. the two arms with the per-entry assume (engine_worlds.OTHER_ARMS):
      cycle_latency on the serial loop (its apply against phase 10's
      columnar one) and preempt_churn on the speculation pipeline, gated
-     as phases 22 and 23 against the JAX engine's numbers on each arm.
+     as phases 22 and 23 against the JAX engine's numbers on each arm;
+ 26. TAS through node failures and foreign pods
+     (kueue_tpu_torch/bench/tas_engine_worlds.py FULL tas_lifecycle, on
+     the default loop): the tas_churn world with 160 DaemonSet pods
+     (observe_pod before the first cycle, one observe_pod_deleted per
+     churn cycle) and five node failures (mark_node_unhealthy) whose
+     lost pods the second pass re-places, with its backoff, at the top
+     of the following cycles; run with its TAS placements pinned to the
+     host descent and to the device program (the replacements with
+     them), the feasibility batch on; each arm against the JAX engine's
+     numbers (those of phase 16 plus the NodeUnhealthy and NodeReplaced
+     events, the second pass's retries and replacement placements, the
+     crc32 of those events and of every admitted workload's final
+     topology assignment) and pipeline_stats, with the heads kernel
+     launched once per dispatched device call and held against its plain
+     version on the world's first-cycle inputs; prints p50 and p95
+     s/cycle of the churn cycles, the second pass's wall per churn cycle
+     and the replacement placements by path.
 Before the kernel summary it prints each phase's wall seconds.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
 tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
 tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
-tests/test_torch_mixed_worlds.py and tests/test_torch_serve.py recompute
-them). Phases 19 to 21 read the heads launches of the process that
-launches them (the sidecar, or the restarted serve process), from the
-JSON line it prints when stopped. The last two lines are a JSON summary of the kernels
-and the result line. Timing helpers and the shared inputs come from
+tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py and
+tests/test_torch_tas_lifecycle_world.py recompute them). Phases 19 to 21
+read the heads launches of the process that launches them (the sidecar,
+or the restarted serve process), from the JSON line it prints when
+stopped. The last two lines are a JSON summary of the kernels and the
+result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
 
@@ -250,6 +268,18 @@ TAS_ENGINE_EXPECT = {
         host_root_reasons={"tas-commit-conflict": 13, "tas-no-fit": 32},
         placed=154, memo_hits=0, commit_drops=0, batch_calls=70),
 }
+# Phase 26 (tas_engine_worlds.FULL["tas_lifecycle"], on the default
+# loop): the JAX engine's numbers on the same world and calls, under
+# either TAS path pin (arm_expect splits the placements, batch calls and
+# replacement placements by path), and its pipeline_stats.
+LIFECYCLE_EXPECT = dict(
+    cycles=41, admitted=263, checksum=0xed7a2d86, placements=0xaa44addb,
+    on_device=10, hybrid=9, fallback=32,
+    host_root_reasons={"tas-commit-conflict": 9, "tas-no-fit": 31},
+    placed=114, memo_hits=13, commit_drops=0, batch_calls=56,
+    node_unhealthy=33, node_replaced=32, retries=5, replace_calls=37,
+    events_crc=0x851c408f, final_crc=0xc8fb35a8)
+LIFECYCLE_PIPELINE = dict(speculated=7, used=7, discarded=0, skipped=0)
 # The mixed serving worlds (kueue_tpu_torch/bench/mixed_worlds.py FULL):
 # the JAX engine's numbers on the same worlds and calls, with its serial
 # cycle loop (tests/test_torch_mixed_worlds.py recomputes them).
@@ -851,6 +881,77 @@ def phase_tas_engine(name, heads, pk, card, sms):
     return launches
 
 
+def phase_lifecycle(heads, pk, card, sms):
+    """Phase 26: tas_lifecycle through Engine.schedule_once on the
+    default loop, each TAS path pin against the JAX engine's numbers and
+    pipeline_stats, with the heads kernel launched once per dispatched
+    device call and held against its plain version on the world's
+    first-cycle inputs. Returns its heads launches over both arms."""
+    import torch
+
+    from kueue_tpu_torch.bench import tas_engine_worlds as tw
+
+    config = tw.FULL["tas_lifecycle"]
+    launches = 0
+    first = None
+    for path, feas in tw.ARMS["tas_lifecycle"]:
+        box = {}
+        heads.launches = 0
+        t0 = time.perf_counter()
+
+        def run(path=path, feas=feas, box=box):
+            box["r"] = tw.run(config, path, feas,
+                              sync=torch.cuda.synchronize)
+
+        if first is None:
+            first = pk.first_heads_inputs(run)
+        else:
+            run()
+        total_s = time.perf_counter() - t0
+        r = box["r"]
+        launches += heads.launches
+        got = tw.pinned_numbers(r)
+        want = tw.arm_expect(LIFECYCLE_EXPECT, path)
+        print(f"  [{path} feas={feas}] " + " ".join(
+            f"{k}=0x{v:08x}" if k in ("checksum", "placements",
+                                      "events_crc", "final_crc")
+            else f"{k}={v}" for k, v in got.items()))
+        if got != want:
+            raise AssertionError(f"tas_lifecycle {path}: got {got}, "
+                                 f"want {want}")
+        if r["pipeline_stats"] != LIFECYCLE_PIPELINE:
+            raise AssertionError(
+                f"tas_lifecycle {path}: pipeline_stats "
+                f"{r['pipeline_stats']}, want {LIFECYCLE_PIPELINE}")
+        if heads.launches != dispatched(r):
+            raise AssertionError(
+                f"tas_lifecycle {path}: heads kernel launched "
+                f"{heads.launches} times for {r['on_device']} device "
+                f"cycles and pipeline_stats {r['pipeline_stats']}")
+        if r["replace_device_placements"] != r["replace_device"]:
+            raise AssertionError(
+                f"tas_lifecycle {path}: {r['replace_device_placements']} "
+                f"replacement placements on the device program, "
+                f"{r['replace_device']} calls off the host descent")
+        times = sorted(r["cycle_seconds"])
+        p50 = times[len(times) // 2]
+        p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
+        sp_ms = [s * 1e3 for s in r["second_pass_s"]]
+        print(f"  [{path} feas={feas}] churn_cycles={len(times)} "
+              f"p50_s={p50:.4f} p95_s={p95:.4f} "
+              f"replacements: device={r['replace_device']} "
+              f"host={r['replace_host']} "
+              f"run_s={total_s:.2f} heads_launches={heads.launches} "
+              f"| {card}")
+        print(f"  [{path} feas={feas}] second_pass_ms per churn cycle: "
+              + ",".join(f"{v:.3f}" for v in sp_ms)
+              + f" (max {max(sp_ms):.3f}) | {card}")
+    eff_t, cq_t, C = first
+    check_heads(heads, f"tas_lifecycle first cycle w={eff_t.numel()} "
+                f"c={C}", eff_t, cq_t, C, sms)
+    return launches
+
+
 def phase_mixed(name, heads, pk, card, sms):
     """One run of kueue_tpu_torch/bench/mixed_worlds.py through
     Engine.schedule_once against the JAX engine's pinned numbers, with
@@ -1443,6 +1544,9 @@ def main() -> int:
         by_path[name] = phase_engine(name, ew.OTHER_ARMS[name],
                                      OTHER_ARMS_EXPECT[name], heads, pk,
                                      card, sms)
+    span("26")
+    print("[26] serving engine, TAS lifecycle: tas_lifecycle")
+    by_path["tas_lifecycle_engine"] = phase_lifecycle(heads, pk, card, sms)
     print(f"phase seconds: {spans_line()}")
     print(card)
     print(json.dumps({"kernels": [

@@ -32,8 +32,9 @@ class Kit:
     ``scenario`` (the scenario generators module), ``engine(fair)`` a
     new engine, ``attach(engine)`` attaching its oracle, ``tas`` the
     TAS snapshot module (its ``Node`` and ``HOSTNAME_LABEL``), ``afs``
-    the admission-fair-sharing module (``AfsManager``, ``_LqUsage``) and
-    ``admissionchecks`` the admission-checks module."""
+    the admission-fair-sharing module (``AfsManager``, ``_LqUsage``),
+    ``admissionchecks`` the admission-checks module and ``non_tas_usage``
+    the non-TAS pod usage module (its ``PodUsage``)."""
 
     types: ModuleType
     scenario: ModuleType
@@ -42,6 +43,7 @@ class Kit:
     tas: ModuleType = None
     afs: ModuleType = None
     admissionchecks: ModuleType = None
+    non_tas_usage: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
@@ -51,13 +53,13 @@ def port_kit(device=None) -> Kit:
     from kueue_tpu_torch.bench import scenario
     from kueue_tpu_torch.controllers import admissionchecks, afs
     from kueue_tpu_torch.controllers.engine import Engine
-    from kueue_tpu_torch.tas import snapshot
+    from kueue_tpu_torch.tas import non_tas_usage, snapshot
 
     return Kit(types, scenario,
                lambda fair=False: Engine(enable_fair_sharing=fair,
                                          device=device),
                lambda eng: eng.attach_oracle(device=device), snapshot,
-               afs, admissionchecks)
+               afs, admissionchecks, non_tas_usage)
 
 
 # The serving loop's arms: (KUEUE_TPU_PIPELINE, KUEUE_TPU_COLUMNAR).

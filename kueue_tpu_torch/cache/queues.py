@@ -322,6 +322,50 @@ class PendingClusterQueue:
         return len(self.items)
 
 
+class SecondPassQueue:
+    """pkg/cache/queue/second_pass_queue.go:36 — workloads whose admission
+    needs a delayed re-evaluation (TAS node replacement, delayed topology
+    requests). Two-step protocol: ``prequeue`` marks the intent, ``queue``
+    arms it; ``take_all_ready`` drains everything armed and due."""
+
+    INITIAL_BACKOFF = 1.0
+    BACKOFF_FACTOR = 2.0
+    MAX_BACKOFF = 30.0
+
+    def __init__(self) -> None:
+        self._prequeued: set[str] = set()
+        self._queued: dict[str, WorkloadInfo] = {}
+        self._ready_at: dict[str, float] = {}
+
+    def prequeue(self, key: str) -> None:
+        self._prequeued.add(key)
+
+    def queue(self, info: WorkloadInfo, now: float = 0.0,
+              iteration: int = 0) -> bool:
+        enqueued = info.key in self._prequeued
+        if enqueued:
+            self._queued[info.key] = info
+            self._ready_at[info.key] = now + self.next_delay(iteration)
+        self._prequeued.discard(info.key)
+        return enqueued
+
+    def delete(self, key: str) -> None:
+        self._queued.pop(key, None)
+        self._ready_at.pop(key, None)
+        self._prequeued.discard(key)
+
+    def next_delay(self, iteration: int) -> float:
+        return min(self.INITIAL_BACKOFF * self.BACKOFF_FACTOR ** iteration,
+                   self.MAX_BACKOFF) if iteration > 0 else 0.0
+
+    def take_all_ready(self, now: float) -> list[WorkloadInfo]:
+        ready = [k for k, t in self._ready_at.items() if t <= now]
+        out = [self._queued.pop(k) for k in ready]
+        for k in ready:
+            self._ready_at.pop(k, None)
+        return out
+
+
 class QueueManager:
     """pkg/cache/queue/manager.go:147 (Manager)."""
 
@@ -333,6 +377,7 @@ class QueueManager:
         # AFS hook: lq key -> decayed usage (manager.go:68), set by
         # controllers/afs.AfsManager.
         self.lq_usage_fn = None
+        self.second_pass = SecondPassQueue()
         # Incremental tensor rows over the pending world (the oracle
         # bridge's per-cycle encoding, tensor/rowcache.py).
         self.rows = WorkloadRowCache()
@@ -407,6 +452,7 @@ class QueueManager:
             for pcq in self.cluster_queues.values():
                 pcq.delete(key)
             self.rows.on_remove(key)
+        self.second_pass.delete(key)
 
     def requeue_workload(self, info: WorkloadInfo,
                          reason: RequeueReason) -> bool:

@@ -4,9 +4,8 @@ snapshots each cycle.
 Reference: pkg/cache/scheduler/cache.go:129 (Cache) — CQ/cohort/flavor
 registries, admitted-workload usage, assume/forget, snapshotting.
 Copied from ``kueue_tpu/cache/scheduler_cache.py`` without resource
-transformations; non-TAS pod usage is an empty
-per-node table (its controller is not ported). TAS forests are built on
-``tas_device`` (CUDA unless the engine asks for the CPU).
+transformations. TAS forests are built on ``tas_device`` (CUDA unless
+the engine asks for the CPU).
 """
 
 from __future__ import annotations
@@ -68,9 +67,9 @@ class Cache:
         self._tas_protos = None
         self.tas_device = None
         # Non-TAS pod usage (tas_non_tas_pod_cache.go): per-node totals
-        # subtracted from TAS leaf capacity at prototype build. Nothing
-        # fills it in the port.
-        self.non_tas_usage: dict[str, dict[str, int]] = {}
+        # subtracted from TAS leaf capacity at prototype build.
+        from kueue_tpu_torch.tas.non_tas_usage import NonTASUsageCache
+        self.non_tas_usage = NonTASUsageCache()
 
     # -- object lifecycle --
 
@@ -140,6 +139,17 @@ class Cache:
         self.nodes.pop(name, None)
         self._invalidate_tas_prototypes()
 
+    def set_node_ready(self, name: str, ready: bool) -> bool:
+        """In-place readiness flip WITH prototype invalidation — the
+        one sanctioned way to mutate a registered node (mutating the
+        object directly would leave stale TAS forests serving)."""
+        node = self.nodes.get(name)
+        if node is None:
+            return False
+        node.ready = ready
+        self._invalidate_tas_prototypes()
+        return True
+
     def set_tas_device(self, device) -> None:
         """Build the TAS forests on ``device`` from now on."""
         if device != self.tas_device:
@@ -167,7 +177,7 @@ class Cache:
                            for k, v in rf.node_labels.items()):
                         snap.add_node(
                             node,
-                            non_tas_usage=self.non_tas_usage.get(
+                            non_tas_usage=self.non_tas_usage.node_usage(
                                 node.name))
                 protos[rf.name] = snap
             # Prototypes carry the LIVE admitted usage from birth;

@@ -52,19 +52,20 @@ def _build(cls, mapping):
 
 def api_object(obj):
     """The port's API object with the field values of ``obj``, an object
-    of another package's API types (or TAS snapshot types: ``Node``,
-    ``TopologyAssignment``) of the same class names (dataclasses,
-    enums, and the tuples, lists and dicts holding them), converted
-    field by field. The ``uid`` is copied as it is: preemption candidates
-    break ties on it."""
+    of another package's API types (or TAS types: ``Node``,
+    ``TopologyAssignment``, ``PodUsage``) of the same class names
+    (dataclasses, enums, and the tuples, lists and dicts holding them),
+    converted field by field. The ``uid`` is copied as it is: preemption
+    candidates break ties on it."""
     from kueue_tpu_torch.api import types
-    from kueue_tpu_torch.tas import snapshot
+    from kueue_tpu_torch.tas import non_tas_usage, snapshot
 
     if isinstance(obj, enum.Enum):
         return getattr(types, type(obj).__name__)(obj.value)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         name = type(obj).__name__
-        cls = getattr(types, name, None) or getattr(snapshot, name)
+        cls = (getattr(types, name, None) or getattr(snapshot, name, None)
+               or getattr(non_tas_usage, name))
         init, rest = {}, {}
         for f in dataclasses.fields(cls):
             (init if f.init else rest)[f.name] = api_object(

@@ -1,7 +1,8 @@
-"""Feature gates the port reads, at their default values.
-
-The port has no gate overrides yet: each gate below reads as in
-``kueue_tpu/config/features.py`` with no override applied."""
+"""Feature gates the port reads, at the defaults of
+``kueue_tpu/config/features.py``, with its process-wide overrides
+(``set_feature``, ``apply``, ``reset``), so a test can set the same gate
+in both packages. Gates no ported path reads are left out; an unknown
+gate reads as off."""
 
 from __future__ import annotations
 
@@ -16,6 +17,22 @@ _DEFAULTS: dict[str, bool] = {
     "DeviceTAS": True,
     # Balanced placement for preferred TAS requests (host-only).
     "TASBalancedPlacement": False,
+    # Node failures record status.unhealthyNodes and arm the second
+    # pass, which re-places the lost pods (off: the node only stops
+    # taking new placements).
+    "TASFailedNodeReplacement": True,
+    # A failed replacement evicts instead of retrying with backoff.
+    "TASFailedNodeReplacementFailFast": False,
+    # The node-health controller's triggers beyond node deletion.
+    "TASReplaceNodeOnPodTermination": False,
+    "TASReplaceNodeOnNodeTaints": False,
+    "TASReplaceNodeNotReadyOverFixedTime": False,
+    # A single-pod-owned workload keeps its assignment on replacement.
+    "SkipReassignmentForPodOwnedWorkloads": True,
+    # Elastic workload slices (the job integrations that make them are
+    # not ported), and their delta-only TAS placement.
+    "ElasticJobsViaWorkloadSlices": False,
+    "ElasticJobsViaWorkloadSlicesWithTAS": True,
     # Multi-layer slice constraints beyond the outermost layer.
     "TASMultiLayerTopology": True,
     # Unconstrained TAS placements use the LeastFreeCapacity ordering.
@@ -33,5 +50,28 @@ _DEFAULTS: dict[str, bool] = {
 }
 
 
+_overrides: dict[str, bool] = {}
+
+
 def enabled(name: str) -> bool:
+    if name in _overrides:
+        return _overrides[name]
     return _DEFAULTS.get(name, False)
+
+
+def set_feature(name: str, value: bool) -> None:
+    _overrides[name] = value
+
+
+def apply(gates: dict[str, bool]) -> None:
+    _overrides.update(gates)
+
+
+def reset() -> None:
+    _overrides.clear()
+
+
+def all_gates() -> dict[str, bool]:
+    out = dict(_DEFAULTS)
+    out.update(_overrides)
+    return out

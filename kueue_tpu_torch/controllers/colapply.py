@@ -3,21 +3,22 @@
 A copy of ``kueue_tpu/controllers/colapply.py``. The serial assume path
 (Engine._assume_batch_serial) walks the batch one entry at a time: each
 admission pays its own rowcache release (four single-element numpy
-writes) and its own admitted-dirty mark. At 1k admissions a cycle those
-per-entry round trips dominate the apply span.
+writes), its own second-pass delete and its own admitted-dirty mark. At
+1k admissions a cycle those per-entry round trips dominate the apply
+span.
 
 This module applies the same diff in columns:
 
   * pending-world exits release their tensor rows through
     ``WorkloadRowCache.on_remove_batch``: four vectorized column writes
     for the whole batch instead of four numpy scalar writes per entry;
-  * admitted-dirty marks flush as one ``set.update``.
+  * admitted-dirty marks flush as one ``set.update``;
+  * the second-pass delete column is skipped when the delayed-reeval
+    queue is empty (the steady serving shape).
 
-The JAX package's two other columns are empty here, as its own are when
-their stores are: the port has no second-pass queue (node replacement
-is not ported) and no preemption-expectation store (evictions are
-observed synchronously, so the JAX store is empty at every assume and
-its column is skipped there too).
+The JAX package's preemption-expectation column has no store here:
+evictions are observed synchronously, so the JAX store is empty at every
+assume and its column is skipped there too.
 
 Every observable mutation lands in the same order and with the same
 values as the serial loop: the per-entry dict pops happen inline in
@@ -85,6 +86,7 @@ def columnar_assume_batch(eng, entries, bulk) -> list:
     cache = eng.cache
     queues = eng.queues
     rows = queues.rows
+    second_pass = queues.second_pass
     checks = eng.admission_checks
     tas_names = cache._tas_flavor_names()
     workloads_reg = cache.workloads
@@ -113,6 +115,13 @@ def columnar_assume_batch(eng, entries, bulk) -> list:
     psa_fly = psa_fly[1]
     if len(psa_fly) > 65536:
         psa_fly.clear()
+
+    # The second-pass column: when the delayed-reeval queue is empty the
+    # per-entry call is a guaranteed no-op, so the whole column is
+    # skipped. The engine is single-threaded within a cycle, so the
+    # emptiness snapshot cannot race an insert.
+    sp_live = bool(second_pass._prequeued or second_pass._queued
+                   or second_pass._ready_at)
 
     pairs: list = []
     slow: list = []
@@ -185,6 +194,8 @@ def columnar_assume_batch(eng, entries, bulk) -> list:
                 rows.on_remove_batch(row_batch)
                 row_batch = []
             queues.delete_workload(wl)
+        if sp_live:
+            second_pass.delete(key)
         # Cache assume (add_or_update_workload inlined; usage dict is
         # the assignment flyweight's — shared and never mutated by
         # accounting).

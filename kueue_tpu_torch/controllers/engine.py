@@ -25,14 +25,16 @@ sites with its values, in its order; ``unadmitted``, the per-reason
 unadmitted-workload gauges; ``sync_resource_metrics`` for the resource
 and cohort gauges; phases timed on ``wall_clock``) and the columnar
 apply of a device cycle's admitted batch (``controllers/colapply``,
-``KUEUE_TPU_COLUMNAR``). Decisions are the JAX package's engine's,
+``KUEUE_TPU_COLUMNAR``), and the TAS node lifecycle: non-TAS pod usage
+(``observe_pod`` / ``observe_pod_deleted``), node failures
+(``mark_node_unhealthy``, fed by ``controllers/tas_nodes``) and the
+second pass that re-places the lost pods at the top of the next cycle
+(``_process_second_pass``). Decisions are the JAX package's engine's,
 cycle by cycle. Left out: the journal's disk-budget gate, event
 listeners, the flight recorder, tracing, SLOs, pods-ready, MultiKueue,
-holds, LimitRanges and RuntimeClasses (pod templates), the preemption
-expectation store (evictions are observed synchronously), and of TAS
-non-TAS pod usage (``observe_pod``), node failure and replacement
-(``mark_node_unhealthy``), balanced placement and elastic slices, each
-raising NotImplementedError.
+holds, LimitRanges and RuntimeClasses (pod templates, which raise
+NotImplementedError), DRA and the preemption expectation store
+(evictions are observed synchronously).
 
 Lifecycle semantics mirrored from the reference:
   * admit: set QuotaReserved + Admitted, write Admission, assume in cache
@@ -47,7 +49,7 @@ Lifecycle semantics mirrored from the reference:
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
 from kueue_tpu_torch.api.types import (
@@ -67,7 +69,10 @@ from kueue_tpu_torch.scheduler.cycle import (
     RequeueReason,
     SchedulerCycle,
 )
-from kueue_tpu_torch.workload_info import admission_from_assignment
+from kueue_tpu_torch.workload_info import (
+    WorkloadInfo,
+    admission_from_assignment,
+)
 
 
 @dataclass
@@ -202,6 +207,8 @@ class Engine:
         self.workload_priority_classes: dict[str, int] = {}
         # OracleBridge (batched device path), via attach_oracle().
         self.oracle = None
+        # Second-pass retry bookkeeping (second_pass_queue.go backoff).
+        self._second_pass_attempts: dict[str, int] = {}
         # Namespace labels for CQ namespace-selector admissibility (none
         # are registered in the port: a non-empty selector matches no
         # namespace).
@@ -248,6 +255,13 @@ class Engine:
             return
         if wl.status.admission is not None:
             self.cache.add_or_update_workload(wl)
+            if wl.status.unhealthy_nodes:
+                # Pending node replacement: re-arm the second pass
+                # (mark_node_unhealthy had queued it before the restart).
+                info = WorkloadInfo.from_workload(
+                    wl, wl.status.admission.cluster_queue)
+                self.queues.second_pass.prequeue(wl.key)
+                self.queues.second_pass.queue(info, now=self.clock)
         elif wl.active:
             self.queues.add_or_update_workload(wl)
 
@@ -284,18 +298,139 @@ class Engine:
         self.queues.queue_inadmissible_workloads()
         self._journal_obj("node", node)
 
+    def observe_pod(self, pod) -> None:
+        """Non-TAS pod usage intake (tas/non_tas_usage_controller.go):
+        pods not managed by TAS consume node capacity that the TAS
+        placement must not double-book. Re-queues inadmissible TAS
+        workloads only when totals actually moved."""
+        from kueue_tpu_torch.tas.non_tas_usage import NonTASUsageController
+        if NonTASUsageController(self.cache).pod_event(pod):
+            self.queues.queue_inadmissible_workloads()
+
+    def observe_pod_deleted(self, namespace: str, name: str) -> None:
+        from kueue_tpu_torch.tas.non_tas_usage import NonTASUsageController
+        if NonTASUsageController(self.cache).pod_deleted(namespace, name):
+            self.queues.queue_inadmissible_workloads()
+
     def delete_node(self, name: str) -> None:
         self.cache.delete_node(name)
         self.queues.queue_inadmissible_workloads()
         if self.journal is not None:
             self.journal.delete("node", name, ts=self.clock)
 
-    def observe_pod(self, pod) -> None:
-        raise NotImplementedError("non-TAS pod usage is not ported")
-
     def mark_node_unhealthy(self, name: str, reason: str = "") -> None:
-        raise NotImplementedError(
-            "node failure and replacement are not ported")
+        """tas/node_controller.go: a node failed — record it on every
+        admitted TAS workload placed there (status.unhealthyNodes,
+        workload_types.go:766) and arm the second-pass queue so the next
+        scheduling pass runs the replacement algorithm.
+
+        kube_features.go TASFailedNodeReplacement (the parent gate of
+        the per-trigger TASReplaceNode* gates) disables only the
+        replacement machinery — the node stops receiving new placements
+        either way."""
+        from kueue_tpu_torch.config import features
+        if not features.enabled("TASFailedNodeReplacement"):
+            self.cache.set_node_ready(name, False)
+            # Persist the not-ready state: a restart must not resurrect
+            # the dead node as placeable.
+            node = self.cache.nodes.get(name)
+            if node is not None:
+                self._journal_obj("node", node)
+            self._event("NodeUnhealthy", "", detail=name)
+            return
+        self.cache.delete_node(name)
+        if self.journal is not None:
+            self.journal.delete("node", name, ts=self.clock)
+        for wl in self.workloads.values():
+            if wl.is_finished or wl.status.admission is None:
+                continue
+            touched = any(
+                dom.values[-1] == name
+                for psa in wl.status.admission.pod_set_assignments
+                if psa.topology_assignment is not None
+                for dom in psa.topology_assignment.domains)
+            if touched and name not in wl.status.unhealthy_nodes:
+                wl.status.unhealthy_nodes = \
+                    wl.status.unhealthy_nodes + (name,)
+                info = WorkloadInfo.from_workload(
+                    wl, wl.status.admission.cluster_queue)
+                self.queues.second_pass.prequeue(wl.key)
+                self.queues.second_pass.queue(info, now=self.clock)
+                self._event("NodeUnhealthy", wl.key,
+                            cluster_queue=info.cluster_queue,
+                            detail=f"{name}: {reason}")
+        self.queues.queue_inadmissible_workloads()
+
+    def _process_second_pass(self) -> None:
+        """Replacement pass for workloads with unhealthy nodes
+        (scheduler.go second-pass handling + tas_flavor_snapshot.go:747).
+        On success the admission's TopologyAssignments are patched in
+        place (pods on healthy nodes keep running); on failure either
+        fail-fast evict (TASFailedNodeReplacementFailFast) or retry with
+        backoff. The replacement places through find_topology_assignments,
+        so on the device program when the TAS path says so."""
+        from kueue_tpu_torch.config import features
+        from kueue_tpu_torch.tas.snapshot import TASPodSetRequest
+
+        for info in self.queues.second_pass.take_all_ready(self.clock):
+            wl = self.workloads.get(info.key)
+            if wl is None or wl.is_finished \
+                    or wl.status.admission is None \
+                    or not wl.status.unhealthy_nodes:
+                continue
+            snapshot = self.cache.snapshot()
+            by_flavor: dict[str, list[TASPodSetRequest]] = {}
+            for i, psa in enumerate(wl.status.admission.pod_set_assignments):
+                if psa.topology_assignment is None:
+                    continue
+                flavor = next((f for f in psa.flavors.values()
+                               if f in snapshot.tas_flavors), None)
+                if flavor is None:
+                    continue
+                by_flavor.setdefault(flavor, []).append(TASPodSetRequest(
+                    wl.pod_sets[i],
+                    info.total_requests[i].single_pod_requests(),
+                    psa.count))
+            reason = ""
+            patches: dict[str, object] = {}
+            try:
+                for flavor in sorted(by_flavor):
+                    # One grouped call per flavor: the replacement path
+                    # threads a shared assumed-usage dict across the
+                    # workload's pod sets so two replacements can't
+                    # double-book one free slot.
+                    results, reason = snapshot.tas_flavors[flavor] \
+                        .find_topology_assignments_for_flavor(
+                            by_flavor[flavor], workload=wl)
+                    if reason:
+                        break
+                    patches.update(results)
+            finally:
+                snapshot.close()
+            if reason:
+                if features.enabled("TASFailedNodeReplacementFailFast"):
+                    # Clear before evicting so the journaled eviction
+                    # state is final.
+                    wl.status.unhealthy_nodes = ()
+                    self.evict(wl, "NodeFailureReplacementFailed")
+                else:
+                    attempt = self._second_pass_attempts.get(info.key, 0) + 1
+                    self._second_pass_attempts[info.key] = attempt
+                    self.queues.second_pass.prequeue(info.key)
+                    self.queues.second_pass.queue(info, now=self.clock,
+                                                  iteration=attempt)
+                continue
+            adm = wl.status.admission
+            wl.status.admission = replace(adm, pod_set_assignments=tuple(
+                replace(psa, topology_assignment=patches[psa.name])
+                if psa.name in patches else psa
+                for psa in adm.pod_set_assignments))
+            self._second_pass_attempts.pop(info.key, None)
+            replaced = ", ".join(wl.status.unhealthy_nodes)
+            wl.status.unhealthy_nodes = ()
+            self.cache.add_or_update_workload(wl)
+            self._event("NodeReplaced", wl.key,
+                        cluster_queue=info.cluster_queue, detail=replaced)
 
     # -- workload lifecycle --
 
@@ -473,6 +608,7 @@ class Engine:
         return result
 
     def _schedule_once_impl(self) -> Optional[CycleResult]:
+        self._process_second_pass()
         if self.oracle is not None:
             from kueue_tpu_torch.oracle.service import RemoteOracleError
 
@@ -794,6 +930,7 @@ class Engine:
             return []
         cache = self.cache
         queues = self.queues
+        second_pass = queues.second_pass
         checks = self.admission_checks
         tas_names = cache._tas_flavor_names()
         workloads_reg = cache.workloads
@@ -849,6 +986,7 @@ class Engine:
                 pcq.delete_lazy(key)  # releases the tensor row too
             else:
                 queues.delete_workload(wl)
+            second_pass.delete(key)
             # Cache assume (add_or_update_workload inlined; the usage
             # dict is the assignment flyweight's, never mutated).
             if cq_name in live_cqs:

@@ -17,14 +17,17 @@ descent otherwise and on the corners the device program does not take.
 Host work is Python/numpy; the device tensors live on ``device`` (CUDA
 unless the caller asks for the CPU).
 
-Left out, each raising ``NotImplementedError``: balanced placement (the
-TASBalancedPlacement gate is off in the port), elastic workload slices
-and unhealthy-node replacement.
+Also ported: unhealthy-node replacement (``find_replacement_assignment``,
+which re-places only the lost pods, through the device program under
+the device pin), elastic workload slices (``_handle_elastic_workload``:
+the scale-up delta goes through ``find_topology_assignments``) and
+balanced placement (``tas/balanced.py``, host-only as in the JAX
+package).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 from kueue_tpu_torch.api.types import (
@@ -69,6 +72,37 @@ class TopologyAssignment:
     domains: tuple[TopologyDomainAssignment, ...]
 
 
+def merge_topology_assignments(a: TopologyAssignment,
+                               b: TopologyAssignment
+                               ) -> TopologyAssignment:
+    """mergeTopologyAssignments: sum counts per domain, sorted by
+    domain values (the canonical order)."""
+    counts: dict[tuple, int] = {}
+    for ta in (a, b):
+        for dom in ta.domains:
+            counts[tuple(dom.values)] = \
+                counts.get(tuple(dom.values), 0) + dom.count
+    return TopologyAssignment(
+        levels=a.levels,
+        domains=tuple(TopologyDomainAssignment(values, count)
+                      for values, count in sorted(counts.items())))
+
+
+def truncate_assignment(prev: TopologyAssignment,
+                        count: int) -> TopologyAssignment:
+    """utiltas.TruncateAssignment: keep the first ``count`` pods in
+    domain order (scale-down removes from the tail)."""
+    kept = []
+    remaining = count
+    for dom in prev.domains:
+        if remaining <= 0:
+            break
+        take = min(dom.count, remaining)
+        kept.append(TopologyDomainAssignment(dom.values, take))
+        remaining -= take
+    return TopologyAssignment(levels=prev.levels, domains=tuple(kept))
+
+
 class _Domain:
     __slots__ = ("id", "values", "parent", "children", "state",
                  "slice_state", "state_with_leader",
@@ -93,6 +127,43 @@ class _Domain:
         # :1830 — taints, full label set for selectors/affinity).
         self.node_labels: dict[str, str] = {}
         self.node_taints: tuple = ()
+
+    def clear_state(self):
+        """tas_balanced_placement.go clearState."""
+        self.state = 0
+        self.slice_state = 0
+        self.state_with_leader = 0
+        self.slice_state_with_leader = 0
+        self.leader_state = 0
+        for c in self.children:
+            c.clear_state()
+
+    def clear_leader_capacity(self):
+        """tas_balanced_placement.go clearLeaderCapacity."""
+        self.state_with_leader = 0
+        self.slice_state_with_leader = 0
+        self.leader_state = 0
+        for c in self.children:
+            c.clear_leader_capacity()
+
+
+def clone_domains(domains: list[_Domain]) -> list[_Domain]:
+    """Deep-clone a forest of domains (tas_balanced_placement.go
+    cloneDomains) so what-if pruning never mutates phase-1 state."""
+    def clone(d: _Domain, parent) -> _Domain:
+        c = _Domain(d.id, d.values)
+        c.parent = parent
+        c.state = d.state
+        c.slice_state = d.slice_state
+        c.state_with_leader = d.state_with_leader
+        c.slice_state_with_leader = d.slice_state_with_leader
+        c.leader_state = d.leader_state
+        c.free_capacity = d.free_capacity
+        c.tas_usage = d.tas_usage
+        c.node_name = d.node_name
+        c.children = [clone(ch, c) for ch in d.children]
+        return c
+    return [clone(d, None) for d in domains]
 
 
 def slice_topology_constraints(tr) -> tuple:
@@ -546,6 +617,19 @@ class TASFlavorSnapshot:
             parent.children.append(domain)
         return domain
 
+    def remove_node(self, node: Node) -> None:
+        """Node deletion / NotReady transition (tas_nodes_cache.go): the
+        leaf domain disappears, making assignments on it stale."""
+        values = tuple(node.labels.get(k, "") for k in self.level_keys)
+        leaf = self.leaves.pop(values, None)
+        if leaf is None:
+            return
+        self._version += 1
+        self.domains.pop(values, None)
+        self.domains_per_level[len(values) - 1].pop(values, None)
+        if leaf.parent is not None:
+            leaf.parent.children.remove(leaf)
+
     # -- usage accounting (updateTASUsage) --
 
     def _touch_used(self, leaf) -> None:
@@ -621,8 +705,6 @@ class TASFlavorSnapshot:
 
     # -- the placement entry points --
 
-    # -- the placement entry points --
-
     def find_topology_assignments_for_flavor(
         self,
         requests: list[TASPodSetRequest],
@@ -632,10 +714,9 @@ class TASFlavorSnapshot:
     ) -> tuple[dict[str, TopologyAssignment], str]:
         """FindTopologyAssignmentsForFlavor (tas_flavor_snapshot.go:642):
         group pod sets by topology group, pick leader+workers per group
-        (findLeaderAndWorkers :729). Returns ({name: assignment},
-        failure_reason); partial results on failure. Workloads reporting
-        unhealthy nodes (replacement) and elastic slices raise
-        NotImplementedError."""
+        (findLeaderAndWorkers :729), route to the replacement path when the
+        workload reports unhealthy nodes. Returns ({name: assignment},
+        failure_reason); partial results on failure."""
         assumed = assumed_usage if assumed_usage is not None else {}
         groups: dict[str, list[TASPodSetRequest]] = {}
         order: list[str] = []
@@ -646,18 +727,51 @@ class TASFlavorSnapshot:
                 order.append(key)
             groups.setdefault(key, []).append(tr)
 
-        if getattr(getattr(workload, "status", None), "unhealthy_nodes",
-                   ()):
-            raise NotImplementedError(
-                "unhealthy-node replacement is not ported")
+        unhealthy = tuple(getattr(
+            getattr(workload, "status", None), "unhealthy_nodes", ()) or ())
 
         results: dict[str, TopologyAssignment] = {}
         for key in order:
             trs = groups[key]
+            if unhealthy:
+                for tr in trs:
+                    existing = _existing_assignment(workload,
+                                                   tr.pod_set.name)
+                    if existing is None:
+                        continue
+                    if features.enabled(
+                            "SkipReassignmentForPodOwnedWorkloads") \
+                            and owned_by_single_pod(workload):
+                        # The pod cannot relocate and the Workload cannot
+                        # outlive it; keep the existing assignment so
+                        # admit clears UnhealthyNodes without diverging
+                        # from the node the pod actually runs on
+                        # (tas_flavor_snapshot.go:679).
+                        results[tr.pod_set.name] = existing
+                        continue
+                    new_assignment, repl, reason = \
+                        self.find_replacement_assignment(
+                            tr, existing, unhealthy, assumed)
+                    if reason:
+                        return results, reason
+                    results[tr.pod_set.name] = new_assignment
+                    _add_assumed(assumed, repl, tr)
+                continue
             leader, workers = _find_leader_and_workers(trs)
-            if workers.previous_assignment is not None:
-                raise NotImplementedError(
-                    "elastic workload slices are not ported")
+            if (workers.previous_assignment is not None
+                    and features.enabled(
+                        "ElasticJobsViaWorkloadSlicesWithTAS")):
+                # Delta-only elastic placement is its own sub-gate
+                # (kube_features.go ElasticJobsViaWorkloadSlicesWithTAS);
+                # off = the replacement places from scratch.
+                applied, elastic, reason = self._handle_elastic_workload(
+                    workers, leader, assumed,
+                    simulate_empty=simulate_empty)
+                if applied:
+                    if reason:
+                        return results, reason
+                    results.update(elastic)
+                    continue
             assignments, reason = self.find_topology_assignments(
                 workers, leader, simulate_empty=simulate_empty,
                 assumed_usage=assumed)
@@ -669,6 +783,71 @@ class TASFlavorSnapshot:
                     results[tr.pod_set.name] = ta
                     _add_assumed(assumed, ta, tr)
         return results, ""
+
+    def _handle_elastic_workload(
+        self, workers: TASPodSetRequest,
+        leader: Optional[TASPodSetRequest],
+        assumed: dict, simulate_empty: bool = False,
+    ) -> tuple[bool, dict[str, "TopologyAssignment"], str]:
+        """tas_elastic_workloads.go:35 (handleElasticWorkload): keep the
+        previous slice's pods fixed — scale-up places only the delta and
+        merges, scale-down truncates, same-count reuses. Returns
+        (applied, results, failure_reason); applied=False falls back to
+        standard placement (stale previous assignment)."""
+        prev = workers.previous_assignment
+        stale, _domain = self.is_topology_assignment_stale(prev)
+        if stale:
+            return False, {}, ""
+        prev_count = sum(d.count for d in prev.domains)
+        results: dict[str, TopologyAssignment] = {}
+        if workers.count > prev_count:
+            # handleScaleUp (:67): previous pods consume capacity, only
+            # the delta is placed fresh, then merged.
+            delta = replace(workers, count=workers.count - prev_count,
+                            previous_assignment=None)
+            _add_assumed(assumed, prev, workers)
+            assignments, reason = self.find_topology_assignments(
+                delta, leader, simulate_empty=simulate_empty,
+                assumed_usage=assumed)
+            if reason:
+                return True, {}, reason
+            merged = merge_topology_assignments(
+                assignments[workers.pod_set.name], prev)
+            results[workers.pod_set.name] = merged
+            _add_assumed(assumed, assignments[workers.pod_set.name],
+                         workers)
+            if leader is not None:
+                lta = assignments.get(leader.pod_set.name)
+                if lta is not None:
+                    results[leader.pod_set.name] = lta
+                    _add_assumed(assumed, lta, leader)
+            return True, results, ""
+        if workers.count < prev_count:
+            # handleScaleDown (:105): truncate, keep placement.
+            kept = truncate_assignment(prev, workers.count)
+        else:
+            kept = prev
+        results[workers.pod_set.name] = kept
+        _add_assumed(assumed, kept, workers)
+        if leader is not None and leader.previous_assignment is not None:
+            results[leader.pod_set.name] = leader.previous_assignment
+            _add_assumed(assumed, leader.previous_assignment, leader)
+        return True, results, ""
+
+    def find_topology_assignment(
+        self,
+        request: TASPodSetRequest,
+        simulate_empty: bool = False,
+        assumed_usage: Optional[dict[tuple, dict[str, int]]] = None,
+    ) -> tuple[Optional[TopologyAssignment], str]:
+        """Single-pod-set compatibility wrapper over
+        find_topology_assignments."""
+        assignments, reason = self.find_topology_assignments(
+            request, None, simulate_empty=simulate_empty,
+            assumed_usage=assumed_usage)
+        if reason:
+            return None, reason
+        return assignments[request.pod_set.name], ""
 
     def find_topology_assignments(
         self,
@@ -1040,17 +1219,14 @@ class TASFlavorSnapshot:
             workers.pod_set, per_pod, simulate_empty, assumed,
             required_replacement_domain)
 
-        # Balanced placement (preferred mode under the
-        # TASBalancedPlacement gate) is not ported.
-        if (features.enabled("TASBalancedPlacement")
-                and not state.required and not state.unconstrained):
-            raise NotImplementedError("balanced placement is not ported")
-
         # Phase 1: per-domain fit counts — memoized across the heads of
-        # a cycle (_Phase1Memo).
+        # a cycle (_Phase1Memo). Balanced-placement candidates are
+        # excluded because balanced.apply re-aggregates clones through
+        # bubble_up, stomping counts outside any selected subtree.
         p1 = None
-        if (leader is None and not assumed
-                and not required_replacement_domain):
+        if (leader is None and not assumed and not required_replacement_domain
+                and not (features.enabled("TASBalancedPlacement")
+                         and not state.required and not state.unconstrained)):
             excluded = self._match_excluded(workers.pod_set)
             p1_key = (
                 self._version, bool(simulate_empty),
@@ -1084,13 +1260,25 @@ class TASFlavorSnapshot:
         unconstrained = state.unconstrained
         slice_count = count // slice_size
 
-        # Phase 2a: find the level with fitting domains
-        # (tas_flavor_snapshot.go:1060-1087).
-        fit_level_idx, fit_domains, reason = self._find_level_with_fit(
-            state.requested_level_idx, slice_count, state,
-            sort_cache=p1.sorts if p1 is not None else None)
-        if reason:
-            return None, reason
+        # Phase 2a: balanced placement (preferred mode only), else find
+        # the level with fitting domains (tas_flavor_snapshot.go:1060-1087).
+        fit_domains = None
+        fit_level_idx = 0
+        used_balanced = False
+        if (features.enabled("TASBalancedPlacement")
+                and not state.required and not unconstrained):
+            from kueue_tpu_torch.tas import balanced
+            cand, threshold = balanced.find_best_domains(self, state)
+            if threshold > 0:
+                fit_domains, fit_level_idx, reason = balanced.apply(
+                    self, state, threshold, cand)
+                used_balanced = not reason
+        if not used_balanced:
+            fit_level_idx, fit_domains, reason = self._find_level_with_fit(
+                state.requested_level_idx, slice_count, state,
+                sort_cache=p1.sorts if p1 is not None else None)
+            if reason:
+                return None, reason
 
         # Phase 2b: minimize the chosen domains, then descend
         # (tas_flavor_snapshot.go:1085-1130). The descent always orders
@@ -1105,7 +1293,8 @@ class TASFlavorSnapshot:
         if fit_domains is None:
             return None, "internal: assignment accounting underflow"
         level = fit_level_idx
-        while level < min(len(self.level_keys) - 1, slice_level_idx):
+        while level < min(len(self.level_keys) - 1, slice_level_idx) \
+                and not used_balanced:
             children = [c for d in fit_domains for c in d.children]
             if p1 is not None:
                 p1.save_list(children)
@@ -1117,7 +1306,8 @@ class TASFlavorSnapshot:
                 return None, "internal: assignment accounting underflow"
             level += 1
         while level < len(self.level_keys) - 1:
-            # At/below the slice level, pods are distributed per parent domain
+            # At/below the slice level (or after balanced placement), pods
+            # are distributed per parent domain
             # (tas_flavor_snapshot.go:1095-1130); inner multi-layer
             # constraints re-anchor the slice size per level.
             if level >= slice_level_idx:
@@ -1169,6 +1359,105 @@ class TASFlavorSnapshot:
         return assignments, ""
 
     # -- unhealthy-node replacement (tas_flavor_snapshot.go:747) --
+
+    def is_topology_assignment_stale(
+            self, assignment: TopologyAssignment) -> tuple[bool, str]:
+        """IsTopologyAssignmentStale :878 — domains that no longer exist
+        (node deleted / NotReady)."""
+        for dom in assignment.domains:
+            if tuple(dom.values) not in self.domains:
+                return True, dom.values[0]
+        return False, ""
+
+    def find_replacement_assignment(
+        self,
+        tr: TASPodSetRequest,
+        existing: TopologyAssignment,
+        unhealthy_nodes,
+        assumed_usage: dict,
+    ) -> tuple[Optional[TopologyAssignment], Optional[TopologyAssignment],
+               str]:
+        """findReplacementAssignment :747: drop the unhealthy nodes'
+        domains from the existing assignment, re-place only the affected
+        pods (pinned to the required replacement domain when
+        slices/required demand it), and merge. Unlike the reference (one
+        node per pass), all currently-unhealthy nodes are replaced in one
+        shot — in our model a failed node leaves the topology immediately,
+        so a second dead node would otherwise trip the staleness check
+        forever. Returns (new_full_assignment, replacement_only,
+        reason)."""
+        if isinstance(unhealthy_nodes, str):
+            unhealthy_nodes = (unhealthy_nodes,)
+        kept, affected = _delete_domains(existing, unhealthy_nodes)
+        stale, stale_domain = self.is_topology_assignment_stale(kept)
+        if stale:
+            return None, None, (
+                "cannot replace the node: existing topologyAssignment "
+                f"contains the stale domain {stale_domain!r}")
+        if affected == 0:
+            return kept, TopologyAssignment(existing.levels, ()), ""
+        required_domain = self._required_replacement_domain(tr, kept,
+                                                           affected)
+        tr_copy = TASPodSetRequest(tr.pod_set, tr.single_pod_requests,
+                                   affected)
+        treq = tr.pod_set.topology_request
+        slice_size = (treq.slice_size or 1) if treq else 1
+        if slice_size > 1 and required_domain and affected % slice_size != 0:
+            # The replacement alone is not whole slices; keep leaf-level
+            # grouping by dropping the slice constraint for the re-find
+            # (the innermost dividing constraint, :768-789).
+            tr_copy = TASPodSetRequest(
+                replace(tr.pod_set,
+                        topology_request=replace(treq, slice_size=None,
+                                                 slice_level=None)),
+                tr.single_pod_requests, affected)
+        assignments, reason = self.find_topology_assignments(
+            tr_copy, None, assumed_usage=assumed_usage,
+            required_replacement_domain=required_domain)
+        if reason:
+            return None, None, reason
+        repl = assignments[tr.pod_set.name]
+        if not repl.domains:
+            return None, None, (
+                f"cannot find replacement assignment for unhealthy "
+                f"node(s): {', '.join(unhealthy_nodes)}")
+        merged = _merge_assignments(repl, kept)
+        return merged, repl, ""
+
+    def _required_replacement_domain(self, tr: TASPodSetRequest,
+                                     kept: TopologyAssignment,
+                                     missing: int) -> tuple:
+        """requiredReplacementDomain :826: the domain the replacement must
+        stay inside — the incomplete-slice domain for sliced pod sets, or
+        the original required-level domain for required mode."""
+        treq = tr.pod_set.topology_request
+        if treq is None or not kept.domains:
+            return ()
+        slice_size = treq.slice_size or 1
+        remaining = sum(d.count for d in kept.domains)
+        if slice_size > 1 and (remaining + missing) % slice_size == 0 \
+                and remaining % slice_size != 0:
+            # findIncompleteSliceDomain :905: the slice-level domain whose
+            # pod count needs topping up to a whole slice.
+            slice_key = treq.slice_level or self.level_keys[-1]
+            if slice_key not in self.level_keys:
+                return ()
+            slice_idx = self.level_keys.index(slice_key)
+            usage: dict[tuple, int] = {}
+            for dom in kept.domains:
+                usage[tuple(dom.values[:slice_idx + 1])] = \
+                    usage.get(tuple(dom.values[:slice_idx + 1]), 0) \
+                    + dom.count
+            for values, count in sorted(usage.items()):
+                if (count + missing) % slice_size == 0:
+                    return values
+            return ()
+        if treq.mode != TopologyMode.REQUIRED or treq.level is None:
+            return ()
+        if treq.level not in self.level_keys:
+            return ()
+        level_idx = self.level_keys.index(treq.level)
+        return tuple(kept.domains[0].values[:level_idx + 1])
 
     def _leaf_fits(self, pod_set: PodSet, per_pod: dict[str, int],
                    leader_per_pod: Optional[dict[str, int]],
@@ -1734,7 +2023,6 @@ def _best_fit_for_pods(sorted_domains: list, count: int, leader_count: int):
     return _best_fit_by(sorted_domains, count, lambda d: d.state)
 
 
-
 def _find_leader_and_workers(trs: list[TASPodSetRequest]):
     """findLeaderAndWorkers :729 — in a 2-pod-set group the smaller-count
     pod set is the leader."""
@@ -1746,6 +2034,74 @@ def _find_leader_and_workers(trs: list[TASPodSetRequest]):
             leader, workers = workers, leader
     return leader, workers
 
+
+def _add_assumed(assumed: dict, assignment: TopologyAssignment,
+                 tr: TASPodSetRequest) -> None:
+    """addAssumedUsage :799."""
+    if assignment is None:
+        return
+    for dom in assignment.domains:
+        bucket = assumed.setdefault(tuple(dom.values), {})
+        for res, per_pod in tr.single_pod_requests.items():
+            bucket[res] = bucket.get(res, 0) + per_pod * dom.count
+        bucket["pods"] = bucket.get("pods", 0) + dom.count
+
+
+IS_GROUP_WORKLOAD_ANNOTATION = "kueue.x-k8s.io/is-group-workload"
+
+
+def owned_by_single_pod(workload) -> bool:
+    """workload.OwnedBySinglePod (pkg/workload/workload.go:1309): one
+    core/v1 Pod owner and not a pod-group workload."""
+    if workload is None:
+        return False
+    refs = tuple(getattr(workload, "owner_references", ()) or ())
+    if len(refs) != 1:
+        return False
+    anns = getattr(workload, "annotations", {}) or {}
+    if anns.get(IS_GROUP_WORKLOAD_ANNOTATION) == "true":
+        return False
+    api_version, kind = refs[0][0], refs[0][1]
+    return kind == "Pod" and api_version == "v1"
+
+
+def _existing_assignment(workload, pod_set_name: str):
+    """findPSA :810."""
+    status = getattr(workload, "status", None)
+    admission = getattr(status, "admission", None)
+    if admission is None:
+        return None
+    for psa in admission.pod_set_assignments:
+        if psa.name == pod_set_name and psa.topology_assignment is not None:
+            return psa.topology_assignment
+    return None
+
+
+def _delete_domains(assignment: TopologyAssignment,
+                    unhealthy_nodes) -> tuple[TopologyAssignment, int]:
+    """deleteDomain :884 — drop the domains whose leaf value is an
+    unhealthy node; return (kept, affected_pod_count)."""
+    failed = set(unhealthy_nodes)
+    kept = []
+    affected = 0
+    for dom in assignment.domains:
+        if dom.values[-1] in failed:
+            affected += dom.count
+        else:
+            kept.append(dom)
+    return TopologyAssignment(assignment.levels, tuple(kept)), affected
+
+
+def _merge_assignments(repl: TopologyAssignment,
+                       kept: TopologyAssignment) -> TopologyAssignment:
+    """mergeTopologyAssignments — sum counts per domain, lex order."""
+    counts: dict[tuple, int] = {}
+    for dom in list(kept.domains) + list(repl.domains):
+        counts[tuple(dom.values)] = counts.get(tuple(dom.values), 0) \
+            + dom.count
+    return TopologyAssignment(kept.levels, tuple(
+        TopologyDomainAssignment(values, count)
+        for values, count in sorted(counts.items())))
 
 
 def _add_assumed(assumed: dict, assignment: TopologyAssignment,

@@ -3,16 +3,18 @@ its OracleBridge over a TorchExecutor on the CPU) against the JAX
 package's engine, cycle by cycle.
 
 ``MirroredEngine`` is the JAX engine with a port engine beside it: every
-create_*, delete_node, submit, finish, tick, attach_oracle and clock
-change a test makes is made on both (API objects carried across with
-their uid), and every schedule_once runs both and asserts, in order,
+create_*, delete_node, submit, finish, tick, attach_oracle, observe_pod,
+observe_pod_deleted, mark_node_unhealthy and clock change a test makes
+is made on both (API objects carried across with their uid), and every
+schedule_once runs both and asserts, in order,
 equal decision streams (admitted entries with their flavors and
 topology placements, preempted keys, stats), the same path (device,
 hybrid or sequential) and equal bridge counters, reasons and TAS
 planner stats. Patched in as the reference tests' ``Engine``, it runs
 their own worlds and call sequences; when the test ends, every workload's
-outcome (check states and backoff included), the event streams and the
-admission-fair-sharing usage must be equal too. Exact throughout.
+outcome (check states, backoff and unhealthy nodes included), the event
+streams, the second-pass queues and the admission-fair-sharing usage
+must be equal too. Exact throughout.
 
 ``MirroredAfsManager``, ``MirroredCheckManager`` and
 ``MirroredProvisioningController`` do the same for the managers that
@@ -85,7 +87,8 @@ def outcome(wl):
                  _topology(psa))
                 for psa in adm.pod_set_assignments)),
             tuple(sorted((c.value, cond.status, cond.reason)
-                         for c, cond in wl.status.conditions.items())))
+                         for c, cond in wl.status.conditions.items())),
+            tuple(wl.status.unhealthy_nodes))
 
 
 class MirroredEngine(JEngine):
@@ -139,6 +142,35 @@ class MirroredEngine(JEngine):
         super().create_workload_priority_class(name, value)
         self.port.create_workload_priority_class(name, value)
 
+    def _same_non_tas_usage(self, call, *args):
+        """Make a non-TAS pod usage call on both engines: the same node
+        totals and version after it, and the TAS prototypes dropped in
+        both or in neither."""
+        jprotos, pprotos = self.cache._tas_protos, self.port.cache._tas_protos
+        getattr(super(), call)(*args)
+        getattr(self.port, call)(*(carry.api_object(a) for a in args))
+        jusage = self.cache.non_tas_usage
+        pusage = self.port.cache.non_tas_usage
+        assert pusage.nodes() == jusage.nodes()
+        assert pusage.version == jusage.version
+        assert (self.port.cache._tas_protos is pprotos) == \
+            (self.cache._tas_protos is jprotos)
+
+    def observe_pod(self, pod):
+        self._same_non_tas_usage("observe_pod", pod)
+
+    def observe_pod_deleted(self, namespace, name):
+        self._same_non_tas_usage("observe_pod_deleted", namespace, name)
+
+    def mark_node_unhealthy(self, name, reason=""):
+        """A test's own node failure is made on both engines; those the
+        JAX package's node-health controller makes are its own (its port
+        twin makes the port's)."""
+        super().mark_node_unhealthy(name, reason=reason)
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        if not caller.startswith("kueue_tpu."):
+            self.port.mark_node_unhealthy(name, reason=reason)
+
     def evict(self, wl, reason, requeue=True, backoff_seconds=0.0,
               bulk=None):
         """A test's own eviction is made on both engines; the JAX
@@ -159,8 +191,13 @@ class MirroredEngine(JEngine):
         return got
 
     def finish(self, key):
+        """A test's own finish is made on both engines; the JAX engine's
+        finishes from inside its package (a replaced workload slice) are
+        its own."""
         super().finish(key)
-        self.port.finish(key)
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        if not caller.startswith("kueue_tpu."):
+            self.port.finish(key)
 
     def tick(self, dt):
         before = self.clock
@@ -198,6 +235,11 @@ class MirroredEngine(JEngine):
             (e.time, e.kind, e.workload, e.cluster_queue, e.detail)
             for e in self.events
             if e.kind not in ("Inadmissible", "OnHold", "HoldCleared")]
+        jsp, psp = self.queues.second_pass, self.port.queues.second_pass
+        assert (psp._prequeued, list(psp._queued),
+                list(psp._ready_at.items())) == \
+            (jsp._prequeued, list(jsp._queued), list(jsp._ready_at.items()))
+        assert self.port._second_pass_attempts == self._second_pass_attempts
         if self.afs is not None:
             assert {k: (u.value, u.last_update)
                     for k, u in self.port.afs.usage.items()} == {
@@ -577,9 +619,11 @@ def test_executor_error_propagates():
 
 
 def test_topologies_are_refused():
-    """Topologies, TAS flavors, nodes and topology requests are taken;
-    what the port leaves out of TAS (non-TAS pod usage, node failure and
-    replacement, elastic slices, balanced placement) raises."""
+    """Topologies, TAS flavors, nodes and topology requests are taken, and
+    since the TAS node lifecycle was ported so are non-TAS pod usage,
+    node failures and elastic slices (tests/test_torch_tas_lifecycle.py
+    holds them against the JAX engine); what the engine still refuses is
+    a pod template."""
     from kueue_tpu_torch.api.types import (
         PodSet,
         PodSetTopologyRequest,
@@ -588,6 +632,7 @@ def test_topologies_are_refused():
         TopologyLevel,
         Workload,
     )
+    from kueue_tpu_torch.tas.non_tas_usage import PodUsage
     from kueue_tpu_torch.tas.snapshot import (
         HOSTNAME_LABEL,
         Node,
@@ -607,17 +652,23 @@ def test_topologies_are_refused():
     assert "default/t" in eng.workloads
     eng.delete_node("n0")
     assert "n0" not in eng.cache.nodes
-    with pytest.raises(NotImplementedError):
-        eng.observe_pod(object())
-    with pytest.raises(NotImplementedError):
-        eng.mark_node_unhealthy("n0")
+    eng.observe_pod(PodUsage("kube-system", "ds", node_name="n0",
+                             requests={"cpu": 1}))
+    assert eng.cache.non_tas_usage.node_usage("n0") == {"cpu": 1, "pods": 1}
+    eng.observe_pod_deleted("kube-system", "ds")
+    assert len(eng.cache.non_tas_usage) == 0
+    eng.mark_node_unhealthy("n0")
+    assert not eng.queues.second_pass._queued  # nothing was placed there
     snap = TASFlavorSnapshot(Topology("topo", (
         TopologyLevel(HOSTNAME_LABEL),)), device="cpu")
     elastic = TASPodSetRequest(
         PodSet("main", 1, {"cpu": 1}), {"cpu": 1}, 1,
         previous_assignment=TopologyAssignment((HOSTNAME_LABEL,), ()))
+    results, reason = snap.find_topology_assignments_for_flavor([elastic])
+    assert reason and not results  # an empty forest places nothing
     with pytest.raises(NotImplementedError):
-        snap.find_topology_assignments_for_flavor([elastic])
+        eng.submit(Workload(name="p", pod_sets=(PodSet(
+            "main", 1, {"cpu": 1}, template=object()),)))
 
 
 def test_admission_fair_sharing_is_refused():

@@ -27,7 +27,11 @@ assert not bad, bad
 for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.metrics.registry",
           "kueue_tpu_torch.cache.unadmitted",
-          "kueue_tpu_torch.controllers.colapply"):
+          "kueue_tpu_torch.controllers.colapply",
+          "kueue_tpu_torch.controllers.tas_nodes",
+          "kueue_tpu_torch.tas.non_tas_usage",
+          "kueue_tpu_torch.tas.ungater",
+          "kueue_tpu_torch.tas.balanced"):
     assert m in sys.modules, m
 print("isolated")
 """

@@ -21,6 +21,7 @@ from test_torch_drain import to_port
 from kueue_tpu.api import types as jtypes
 from kueue_tpu.tas import device as jdevice
 from kueue_tpu.tas import snapshot as jsnapshot
+from kueue_tpu_torch import carry
 from kueue_tpu_torch.api import types as ptypes
 from kueue_tpu_torch.cache.queues import scheduling_hash
 from kueue_tpu_torch.tas import snapshot as psnapshot
@@ -214,8 +215,8 @@ def test_leader_requests_raise(seed):
 
 def test_unported_corners_raise():
     """Multi-layer slices take the host descent (the JAX package's
-    result); elastic slices and balanced placement are left out and
-    raise."""
+    result); an elastic slice's scale-up places only its delta, on the
+    device program, with the JAX package's result."""
     jsnap = ref.random_world(random.Random(5), ref.TOPOLOGY3)
     psnap = port_snapshot(jsnap)
     jmulti = jtypes.PodSet("main", 8, {"cpu": 100},
@@ -228,11 +229,22 @@ def test_unported_corners_raise():
     jreq = jsnapshot.TASPodSetRequest(jmulti, {"cpu": 100}, 8)
     assert plain(psnap.find_topology_assignments(port_request(jreq))) \
         == plain(jsnap.find_topology_assignments_host(jreq))
-    elastic = psnapshot.TASPodSetRequest(
-        ptypes.PodSet("main", 2, {"cpu": 100}), {"cpu": 100}, 2,
-        previous_assignment=psnapshot.TopologyAssignment((), ()))
-    with pytest.raises(NotImplementedError):
-        psnap.find_topology_assignments_for_flavor([elastic])
+    leaf = sorted(jsnap.leaves)[0]
+    jprev = jsnapshot.TopologyAssignment(
+        tuple(jsnap.level_keys),
+        (jsnapshot.TopologyDomainAssignment(leaf, 1),))
+    jelastic = jsnapshot.TASPodSetRequest(
+        jtypes.PodSet("main", 3, {"cpu": 100}), {"cpu": 100}, 3,
+        previous_assignment=jprev)
+    pelastic = psnapshot.TASPodSetRequest(
+        to_port(jelastic.pod_set), {"cpu": 100}, 3,
+        previous_assignment=carry.api_object(jprev))
+    before = psnap.device_placements
+    got = psnap.find_topology_assignments_for_flavor([pelastic])
+    assert psnap.device_placements == before + 1
+    want = jsnap.find_topology_assignments_for_flavor([jelastic])
+    assert plain(got) == plain(want)
+    assert sum(d.count for d in got[0]["main"].domains) == 3
 
 
 def test_resolution_failures_match():

@@ -94,8 +94,8 @@ class MirroredSnapshot(jsnapshot.TASFlavorSnapshot):
         want = super().find_topology_assignments_for_flavor(
             requests, workload, simulate_empty, assumed_usage)
         got = self.port.find_topology_assignments_for_flavor(
-            [_port_req(r) for r in requests], workload, simulate_empty,
-            before)
+            [_port_req(r) for r in requests], carry.api_object(workload),
+            simulate_empty, before)
         assert _plain_flavor(got) == _plain_flavor(want)
         return want
 
