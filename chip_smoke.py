@@ -112,17 +112,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      new device cycle), frame bytes per device call each way, POST p50
      and p95 latency, the drain seconds, the serve loop's wall split,
      its pipeline_stats and the scrape's bytes and seconds;
- 20. crash and restart: the same world with ``--oracle local``, the
-     serve process SIGKILLed after 30 device cycles while the arrivals
-     are POSTed, restarted on the same journal, the arrivals POSTed again
-     (200 deduplicated or 201) and the loop drained. Gated on
-     invariants: the torn tail repaired, every admission the journal
-     held before the kill present after the restart, no key admitted
-     twice, no ClusterQueue's or cohort's usage above its cohort's
-     quota, every arrival admitted, the restarted process's heads
-     launches equal to its dispatched device calls, and the port's
-     rebuild_engine of the final journal (drained to idle on the host)
-     giving the live engine's dump_state. Prints the restart seconds;
+ 20. crash and restart with bounded-time recovery: the same world with
+     ``--oracle local``, checkpoints every 12 non-idle cycles (2 kept),
+     segments of 20,000 records and a disk budget of 1 MiB free; the
+     serve process SIGKILLed after 30 device cycles, once retention has
+     deleted segment 0 (the seeded genesis records), while the arrivals
+     are POSTed, restarted on the same journal with checkpoints every
+     250 cycles, the arrivals POSTed again (200 deduplicated or 201) and
+     the loop drained. Gated on invariants: segment 0 gone before the
+     restart, the first boot from genesis and the restart from a
+     checkpoint (its base and suffix counts printed), no checkpoint
+     failure, every checkpoint file loading clean (CRC and count), the
+     torn tail repaired, every admission the journal held before the
+     kill present after the restart, no key admitted twice (both read
+     from the genesis chain: each sealed segment is hard-linked aside as
+     it appears, so retention's deletions leave it whole), no
+     ClusterQueue's or cohort's usage above its cohort's quota, every
+     arrival admitted, the restarted process's heads launches equal to
+     its dispatched device calls, the port's recover_engine of the whole
+     journal set (every segment, the active file, the checkpoints)
+     coming through a checkpoint with the admitted-state digest of the
+     genesis replay (prove_genesis), and its rebuild_engine coming
+     through a checkpoint and, drained to idle on the host, giving the
+     live engine's dump_state. Prints both boots' seconds (genesis and
+     checkpoint), the checkpoints written, their write seconds (mean and
+     maximum) and bytes, the segments sealed and left, the disk
+     budget's statvfs checks and cost, and two ways to check a written
+     checkpoint: a load of it (parse and count) against a read-back of
+     its bytes;
  21. (beside phase 20: both are gates on processes of their own) the
      breaker on the card, posting the first 250 arrivals (a quarter) to
      a copy of the journal: the sidecar run as ``--fault crash-after:3`` and
@@ -1162,34 +1179,140 @@ def check_usage(capacity, cohorts):
                                  f"{row['usage']} of {k}")
 
 
+# Phase 20's recovery flags: the first process seals the seeded active
+# file at its first non-idle sync, checkpoints every 12 non-idle cycles
+# and deletes segment 0 once its first checkpoint (in segment 1) is
+# written; the restarted one checkpoints every RESTART_CKPT_INTERVAL.
+RECOVERY_FLAGS = ("--checkpoint-keep", "2", "--segment-records", "20000",
+                  "--min-free-bytes", "1048576")
+FIRST_CKPT_INTERVAL = 12
+RESTART_CKPT_INTERVAL = 250
+
+
+class SegmentKeeper:
+    """Hard-links each sealed segment of the journal at ``path`` into
+    ``side`` as it appears (every 20 ms, in a thread): a link keeps the
+    segment's inode after the journal's retention unlinks its name, so
+    the genesis chain stays readable."""
+
+    def __init__(self, path, side):
+        self.path, self.side = Path(path), Path(side)
+        self.side.mkdir()
+        self.missed = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def sweep(self):
+        import os
+
+        base = self.path.name + ".seg"
+        with self._lock:
+            for src in self.path.parent.glob(base + "*"):
+                dst = self.side / src.name
+                if not src.name[len(base):].isdigit() or dst.exists():
+                    continue
+                try:
+                    os.link(src, dst)
+                except FileNotFoundError:
+                    self.missed.append(src.name)
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.sweep()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        self.sweep()
+
+    def chain(self, dest):
+        """``dest``/<journal name>: every sealed segment kept (linked)
+        and a copy of the active file, the whole genesis chain. Fails
+        when a sealed ordinal was not kept."""
+        import os
+
+        from kueue_tpu_torch.store.journal import read_active_ordinal
+
+        self.sweep()
+        kept = sorted(self.side.iterdir())
+        want = [f"{self.path.name}.seg{o:06d}"
+                for o in range(read_active_ordinal(str(self.path)))]
+        if [k.name for k in kept] != want or self.missed:
+            raise AssertionError(f"segments kept {[k.name for k in kept]}, "
+                                 f"sealed {want}, missed {self.missed}")
+        dest = Path(dest)
+        dest.mkdir()
+        for k in kept:
+            os.link(k, dest / k.name)
+        shutil.copy(self.path, dest / self.path.name)
+        return dest / self.path.name
+
+
+def statvfs_s(path, n=20_000) -> float:
+    """Mean wall seconds of one os.statvfs on ``path``'s filesystem."""
+    import os
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        os.statvfs(path)
+    return (time.perf_counter() - t0) / n
+
+
 def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
-    """Phase 20: SIGKILL the serve process (oracle in-process) after
-    ``kill_after`` device cycles, restart it on the same journal, check
-    the invariants. Returns the restarted process's heads launches."""
+    """Phase 20: the serve process (oracle in-process) with checkpoints,
+    segment rotation and the disk budget on, SIGKILLed after
+    ``kill_after`` device cycles once retention deleted segment 0, and
+    restarted on the same journal, which it can only recover through a
+    checkpoint; checks the invariants. Returns the restarted process's
+    heads launches."""
+    import os
+
     from kueue_tpu_torch.bench import serve_world as sw
-    from kueue_tpu_torch.store.journal import rebuild_engine
+    from kueue_tpu_torch.store.checkpoint import (
+        CheckpointStore,
+        recover_engine,
+    )
+    from kueue_tpu_torch.store.journal import (
+        read_active_ordinal,
+        rebuild_engine,
+    )
     from kueue_tpu_torch.visibility.server import dump_state
 
     path = work / "p20.jsonl"
+    seg0 = work / "p20.jsonl.seg000000"
     shutil.copy(seed, path)
+    store = CheckpointStore.for_journal(str(path))
+    keeper = SegmentKeeper(path, work / "p20-kept")
     procs = []
     try:
-        serve, url, boot = sw.start_serve(path, "local", "cuda")
+        serve, url, boot = sw.start_serve(
+            path, "local", "cuda", extra=RECOVERY_FLAGS + (
+                "--checkpoint-interval", str(FIRST_CKPT_INTERVAL)))
         procs.append(serve)
         box = {}
         poster = threading.Thread(target=lambda: box.update(
             r=sw.post_arrivals(url, bodies, sw.FULL["rate"])))
         poster.start()
         deadline = time.monotonic() + 600
-        while sw.get_json(url, "/oracle")["cyclesOnDevice"] < kill_after:
+        while (sw.get_json(url, "/oracle")["cyclesOnDevice"] < kill_after
+               or seg0.exists()):
             if time.monotonic() > deadline:
-                raise TimeoutError("serve loop too slow to kill")
+                raise TimeoutError("serve loop too slow to kill, or "
+                                   "segment 0 never deleted")
             time.sleep(0.02)
         rc, _ = serve.stop(signal.SIGKILL)
         poster.join()
+        seg0_gone = not seg0.exists()
+        first_ckpts = store._indexed()[-1][0] if store._indexed() else 0
         torn = sw.torn_tail(path)
-        before = sw.journal_state(path)
-        serve2, url2, boot2 = sw.start_serve(path, "local", "cuda")
+        # What the journal held at the kill, read from its genesis chain
+        # (the kept segments and the killed process's active file).
+        before = sw.journal_state(keeper.chain(work / "p20-kill"))
+        serve2, url2, boot2 = sw.start_serve(
+            path, "local", "cuda", extra=RECOVERY_FLAGS + (
+                "--checkpoint-interval", str(RESTART_CKPT_INTERVAL)))
         procs.append(serve2)
         reposted = sw.post_arrivals(url2, bodies, sw.FULL["rate"])
         sw.wait_idle(url2, 900, dump_every=15.0)
@@ -1199,13 +1322,55 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
         rc2, last2 = serve2.stop()
     finally:
         stop_all(procs)
+        keeper.stop()
     if rc != -signal.SIGKILL or rc2 != 0:
         raise AssertionError(f"exit codes {rc}, {rc2}")
+    if not seg0_gone:
+        raise AssertionError("segment 0 still there at the kill")
+    if boot["source"] != "genesis" or boot2["source"] != "checkpoint" \
+            or not boot2["base"] or boot2["records"] != \
+            boot2["base"] + boot2["suffix"]:
+        raise AssertionError(f"boots {boot}, {boot2}: the restart did not "
+                             f"come through a checkpoint")
+    if last2["checkpoint_failures"] or not last2["checkpoints_written"]:
+        raise AssertionError(
+            f"restarted serve: {last2['checkpoints_written']} checkpoints "
+            f"written, {last2['checkpoint_failures']} failed")
+    # Every checkpoint file loads clean. Each load is also what the JAX
+    # package's write does to check a checkpoint it wrote, and what its
+    # retention does for each file (live_metas); the port reads the
+    # bytes back, and reads the headers for retention: both timed here.
+    ckpts = store._indexed()
+    bad, load_s, readback_s = [], [], []
+    for i, p in ckpts:
+        data = Path(p).read_bytes()
+        t0 = time.perf_counter()
+        loaded = store.load(i, p)
+        t1 = time.perf_counter()
+        with open(p, "rb") as fh:
+            same = fh.read() == data
+        readback_s.append(time.perf_counter() - t1)
+        load_s.append(t1 - t0)
+        if loaded is None or not same:
+            bad.append(p)
+    if not ckpts or bad:
+        raise AssertionError(f"checkpoints {ckpts}: {bad} do not load")
+    t0 = time.perf_counter()
+    metas = store.live_metas()
+    live_metas_s = time.perf_counter() - t0
+    if [m.index for m in metas] != [i for i, _p in reversed(ckpts)]:
+        raise AssertionError(f"live_metas {metas} against files {ckpts}")
     if set(reposted["codes"]) - {200, 201}:
         raise AssertionError(f"re-POST codes {sorted(set(reposted['codes']))}")
     if sw.torn_tail(path):
         raise AssertionError("the journal's torn tail was not repaired")
-    after = check_arrivals_once(sw, path, "arrivals", len(bodies))
+    # The whole journal set: every segment the two processes sealed
+    # (kept aside), the active file, and, once the genesis chain has
+    # been read, the checkpoints.
+    sealed = read_active_ordinal(str(path))
+    left = sorted(s.name[-6:] for s in work.glob("p20.jsonl.seg*"))
+    copy = keeper.chain(work / "p20-rebuild")
+    after = check_arrivals_once(sw, copy, "arrivals", len(bodies))
     lost = before["admitted"] - set(views[1]["admitted"])
     if lost or not before["admitted"] <= after["admitted"]:
         raise AssertionError(f"{len(lost)} admissions lost in the restart")
@@ -1222,14 +1387,24 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
                              f"{last2['heads_launches']}, device cycles "
                              f"{last2['cycles_on_device']}, pipeline_stats "
                              f"{last2['pipeline_stats']}")
-    # The port's rebuild of the final journal, drained to idle on the
-    # host (the parked workloads it re-activates park again), gives the
-    # live engine's dump.
-    copy = work / "p20-rebuild.jsonl"
-    shutil.copy(path, copy)
+    shutil.copytree(store.directory, copy.parent / "p20.jsonl.ckpt")
+    # Checkpoint plus suffix against the genesis replay of every record.
+    t0 = time.perf_counter()
+    _eng, report = recover_engine(str(copy), {"device": "cpu"},
+                                  prove_genesis=True)
+    prove_s = time.perf_counter() - t0
+    del _eng
+    if report["source"] != "checkpoint" or not report["identical"]:
+        raise AssertionError(f"recover_engine(prove_genesis=True): "
+                             f"{report}")
+    # The port's rebuild_engine of the same set, drained to idle on the
+    # host (the parked workloads it re-activates park again), comes
+    # through a checkpoint and gives the live engine's dump.
     t0 = time.perf_counter()
     eng = rebuild_engine(str(copy), device="cpu")
     rebuild_s = time.perf_counter() - t0
+    if eng.rebuild_source != "checkpoint":
+        raise AssertionError(f"final rebuild from {eng.rebuild_source}")
     sw.drain_in_process(eng)
     eng.journal.close()
     rebuilt = json.loads(json.dumps(dump_state(eng)))
@@ -1240,20 +1415,47 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
         d.pop("lastCyclePhases")
         d.pop("unadmittedByReason")
     if rebuilt != live:
-        raise AssertionError("rebuild_engine of the final journal differs "
-                             "from the live engine's dump_state")
+        raise AssertionError("rebuild_engine of the final journal set "
+                             "differs from the live engine's dump_state")
+    per_statvfs = statvfs_s(str(work))
     say(f"  killed after {kill_after} device cycles: torn_tail={torn} "
-          f"admitted_before_kill={len(before['admitted'])} "
-          f"final: checksum=0x{got['checksum']:08x} "
-          f"admitted={got['admitted']}")
-    say(f"  restart: journal_bytes={boot2['bytes']} "
-          f"records={boot2['records']} rebuild_s={boot2['rebuild_s']:.3f} "
-          f"boot_wall_s={boot2['wall_s']:.3f} (first boot "
-          f"{boot['rebuild_s']:.3f} / {boot['wall_s']:.3f}); in-process "
-          f"rebuild_s={rebuild_s:.3f}")
+        f"admitted_before_kill={len(before['admitted'])} "
+        f"seg000000_deleted={seg0_gone} checkpoints_written_before_kill="
+        f"{first_ckpts} final: checksum=0x{got['checksum']:08x} "
+        f"admitted={got['admitted']}")
+    say(f"  restart: source={boot2['source']} base={boot2['base']} "
+        f"suffix={boot2['suffix']} active_bytes={boot2['bytes']} "
+        f"rebuild_s={boot2['rebuild_s']:.3f} boot_wall_s="
+        f"{boot2['wall_s']:.3f} (first boot, genesis: records="
+        f"{boot['records']} rebuild_s={boot['rebuild_s']:.3f} boot_wall_s="
+        f"{boot['wall_s']:.3f}); final in-process rebuild: source="
+        f"{eng.rebuild_source} base={eng.rebuild_base_records} suffix="
+        f"{eng.rebuild_suffix_records} rebuild_s={rebuild_s:.3f}; "
+        f"recover_engine(prove_genesis=True): base="
+        f"{report['base_records']} suffix={report['suffix_records']} "
+        f"identical={report['identical']} state={report['state']} "
+        f"s={prove_s:.3f}")
+    say(f"  checkpoints: restarted serve wrote "
+        f"{last2['checkpoints_written']} (interval "
+        f"{RESTART_CKPT_INTERVAL}) failures={last2['checkpoint_failures']} "
+        f"write_s mean={last2['checkpoint_write_mean_s']:.3f} "
+        f"max={last2['checkpoint_write_max_s']:.3f}; files "
+        f"{[i for i, _p in ckpts]} bytes "
+        f"{[os.path.getsize(p) for _i, p in ckpts]}; segments sealed="
+        f"{sealed} on disk={left}")
+    say(f"  checking a written checkpoint (files {[i for i, _p in ckpts]}): "
+        f"load s={[round(t, 6) for t in load_s]} read-back s="
+        f"{[round(t, 6) for t in readback_s]}; retention's headers: "
+        f"live_metas s={live_metas_s:.6f}, a load of each file s="
+        f"{sum(load_s):.6f}")
+    say(f"  disk budget: {last2['disk_budget_checks']} free-space checks in "
+        f"the restarted serve, statvfs {per_statvfs * 1e6:.2f} us each "
+        f"(~{last2['disk_budget_checks'] * per_statvfs:.3f} s); journal "
+        f"sync s={last2['loop_s']['journal_sync']:.3f} schedule_once s="
+        f"{last2['loop_s']['schedule_once']:.3f}")
     say(f"  heads_launches={last2['heads_launches']} (restarted serve, "
-          f"{last2['cycles_on_device']} device cycles, pipeline_stats "
-          f"{last2['pipeline_stats']}) | {card}")
+        f"{last2['cycles_on_device']} device cycles, pipeline_stats "
+        f"{last2['pipeline_stats']}) | {card}")
     return last2["heads_launches"]
 
 

@@ -291,23 +291,27 @@ def start_sidecar(device, port=0, fault=None, env=None,
                      .rsplit(":", 1)[1])
 
 
-def start_serve(journal, oracle, device, env=None,
-                timeout=600.0) -> tuple:
-    """``python -m kueue_tpu_torch.serve`` on a journal; returns (Proc,
-    base URL, boot) once it serves, ``boot`` holding the records, bytes
-    and rebuild seconds it printed and ``wall_s`` from spawn to
-    serving."""
+def start_serve(journal, oracle, device, env=None, timeout=600.0,
+                extra=()) -> tuple:
+    """``python -m kueue_tpu_torch.serve`` on a journal, with the serve
+    arguments ``extra`` after the usual ones; returns (Proc, base URL,
+    boot) once it serves, ``boot`` holding the records, bytes, rebuild
+    seconds, recovery source and base and suffix records it printed and
+    ``wall_s`` from spawn to serving."""
     t0 = time.perf_counter()
     proc = Proc(["-m", "kueue_tpu_torch.serve", "--journal", str(journal),
                  "--oracle", oracle, "--device", device,
-                 "--http", "127.0.0.1:0", "--tick", "0.05"], env)
+                 "--http", "127.0.0.1:0", "--tick", "0.05", *extra], env)
     rebuilt = proc.wait_line("rebuilt ", timeout).split()
     line = proc.wait_line("serving on ", timeout)
     wall = time.perf_counter() - t0
     hostport = line.split("serving on ")[1].split()[0]
+    tagged = dict(w.split("=", 1) for w in rebuilt[8:])
     return proc, f"http://{hostport}", {
         "records": int(rebuilt[1]), "bytes": int(rebuilt[3].lstrip("(")),
-        "rebuild_s": float(rebuilt[6]), "wall_s": wall}
+        "rebuild_s": float(rebuilt[6]), "source": tagged["source"],
+        "base": int(tagged["base"]), "suffix": int(tagged["suffix"]),
+        "wall_s": wall}
 
 
 # -- HTTP --
@@ -463,12 +467,19 @@ def wait_idle(url: str, timeout: float, dump_every: float = 2.0,
 def journal_state(path) -> dict:
     """Per workload key in a journal (the port's replay, a torn final
     line skipped): whether its last record is admitted, and how many
-    times its records went from not admitted to admitted."""
-    from kueue_tpu_torch.store.journal import read_records
+    times its records went from not admitted to admitted. When the
+    journal has a valid checkpoint, the records read are its base and
+    the suffix past it (``store/checkpoint.recover_records``): retention
+    may have deleted the segments before it, and the base's record of a
+    key counts as its first."""
+    from kueue_tpu_torch.store.checkpoint import recover_records_at
+    from kueue_tpu_torch.store.journal import read_chain
 
+    base, suffix, meta = recover_records_at(str(path))
+    records = base + suffix if meta is not None else read_chain(str(path))
     admitted: dict[str, bool] = {}
     transitions: dict[str, int] = {}
-    for rec in read_records(str(path)):
+    for rec in records:
         if rec["kind"] != "workload" or rec["op"] != "apply":
             continue
         obj = rec["obj"]

@@ -29,12 +29,15 @@ apply of a device cycle's admitted batch (``controllers/colapply``,
 (``observe_pod`` / ``observe_pod_deleted``), node failures
 (``mark_node_unhealthy``, fed by ``controllers/tas_nodes``) and the
 second pass that re-places the lost pods at the top of the next cycle
-(``_process_second_pass``). Decisions are the JAX package's engine's,
-cycle by cycle. Left out: the journal's disk-budget gate, event
-listeners, the flight recorder, tracing, SLOs, pods-ready, MultiKueue,
-holds, LimitRanges and RuntimeClasses (pod templates, which raise
-NotImplementedError), DRA and the preemption expectation store
-(evictions are observed synchronously).
+(``_process_second_pass``). ``schedule_once`` has the JAX engine's
+capture points (``pre_cycle_hooks``, ``pre_sync_hooks``,
+``cycle_listeners``) and its disk-budget gate (the journal's
+``writable()`` parks a cycle). Decisions are the JAX package's
+engine's, cycle by cycle. Left out: event listeners, the flight
+recorder, tracing, SLOs, pods-ready, MultiKueue, holds, LimitRanges
+and RuntimeClasses (pod templates, which raise NotImplementedError),
+DRA and the preemption expectation store (evictions are observed
+synchronously).
 
 Lifecycle semantics mirrored from the reference:
   * admit: set QuotaReserved + Admitted, write Admission, assume in cache
@@ -73,6 +76,17 @@ from kueue_tpu_torch.workload_info import (
     WorkloadInfo,
     admission_from_assignment,
 )
+
+
+def _call_observer(what: str, fn, seq: int, result) -> None:
+    """Run a pre-sync hook or cycle listener: an observer that raises
+    must not unwind the scheduling loop, so its error becomes a
+    warning."""
+    try:
+        fn(seq, result)
+    except Exception as e:  # noqa: BLE001 — observers only
+        import warnings
+        warnings.warn(f"{what} {fn!r} raised: {e!r}")
 
 
 @dataclass
@@ -194,8 +208,20 @@ class Engine:
         self.last_cycle_mode: str = ""
         # Cycles attempted (idle ones included): the supervisor's clock.
         self.cycle_seq: int = 0
-        # Durable store (store/journal.py), via attach_journal().
+        # Capture points around schedule_once: pre_cycle_hooks fire with
+        # (seq, engine) before each attempt; pre_sync_hooks with (seq,
+        # result) after a non-idle cycle, before journal.sync(), so what
+        # they append rides inside the cycle's fsync; cycle_listeners
+        # with (seq, result) after the sync, result None for an idle or
+        # parked cycle (store/checkpoint.Checkpointer listens here).
+        self.pre_cycle_hooks: list[Callable] = []
+        self.pre_sync_hooks: list[Callable] = []
+        self.cycle_listeners: list[Callable] = []
+        # Durable store (store/journal.py), via attach_journal(), and the
+        # periodic checkpoint writer (store/checkpoint.Checkpointer
+        # attaches itself here).
         self.journal = None
+        self.checkpointer = None
         self.workloads: dict[str, Workload] = {}
         # hook: called with (workload, admission) after each admission.
         self.on_admit: Optional[Callable] = None
@@ -586,9 +612,23 @@ class Engine:
         self.oracle = OracleBridge(self, executor, max_depth=max_depth)
 
     def schedule_once(self) -> Optional[CycleResult]:
-        """One schedule() cycle (scheduler.go:286), then the journal's
-        crash-safe cycle-boundary sync after a non-idle cycle."""
-        if not self._serving_gc:
+        """One schedule() cycle (scheduler.go:286), bracketed as the JAX
+        engine brackets it: the pre-cycle hooks; the journal's
+        ``writable()`` gate, which parks the cycle as idle while the
+        disk budget is degraded (``cycle_seq`` still advances and the
+        listeners still run, with None); the cycle; after a non-idle
+        cycle the pre-sync hooks and the journal's crash-safe sync; then
+        the cycle listeners. A hook or listener that raises becomes a
+        warning."""
+        seq = self.cycle_seq
+        for fn in tuple(self.pre_cycle_hooks):
+            fn(seq, self)
+        writable = getattr(self.journal, "writable", None)
+        if writable is not None and not writable():
+            # Scheduling would admit workloads the journal cannot
+            # record: park, and let the next gate probe re-arm.
+            result = None
+        elif not self._serving_gc:
             result = self._schedule_once_impl()
         else:
             try:
@@ -599,12 +639,16 @@ class Engine:
                 import gc
                 gc.collect(0)
                 gc.freeze()
-        self.cycle_seq += 1
+        self.cycle_seq = seq + 1
         if result is not None and self.journal is not None:
+            for fn in tuple(self.pre_sync_hooks):
+                _call_observer("pre-sync hook", fn, seq, result)
             # Every record this cycle wrote reaches the disk before the
             # decisions take further effect: a SIGKILL between cycles
             # never loses an applied admission.
             self.journal.sync()
+        for fn in tuple(self.cycle_listeners):
+            _call_observer("cycle listener", fn, seq, result)
         return result
 
     def _schedule_once_impl(self) -> Optional[CycleResult]:

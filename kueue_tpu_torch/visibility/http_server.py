@@ -4,8 +4,9 @@ debug views over stdlib HTTP.
 The port of ``kueue_tpu/visibility/http_server.py``, trimmed to:
 
   * POST ``/workloads``: a serde-tagged workload body (api/serde.py);
-    400 on a bad body, 200 ``deduplicated`` for a known key, 201 when
-    accepted;
+    400 on a bad body, 200 ``deduplicated`` for a known key, 503 with a
+    ``Retry-After`` while the journal's disk budget is degraded, 201
+    when accepted;
   * GET ``/healthz``, ``/metrics`` (``sync_resource_metrics`` then the
     registry's Prometheus text), ``/debug/dump``, ``/capacity``,
     ``/cohorts``, ``/oracle``, ``/evictions``, ``/clusterqueues``,
@@ -168,9 +169,31 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
                         "accepted": True, "deduplicated": True,
                         "workload": wl.name}), code=200)
                     return
+                journal = engine.journal
+                if journal is not None and journal.degraded:
+                    # The disk budget holds the journal read-only: an
+                    # accepted submit could not be journaled.
+                    self._degraded()
+                    return
                 engine.submit(wl)
             self._send(json.dumps({"accepted": True, "workload": wl.name}),
                        code=201)
+
+        def _degraded(self) -> None:
+            """503 with the JAX front door's body and Retry-After."""
+            from kueue_tpu_torch.ha.shedder import clamped_retry_after
+
+            hint = clamped_retry_after(1.0)
+            data = json.dumps({
+                "accepted": False,
+                "reason": "journal degraded: disk budget exhausted",
+                "retryAfter": hint}).encode()
+            self.send_response(503)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Retry-After", str(max(1, int(hint))))
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
 
         def do_GET(self):  # noqa: N802
             if not self._authorized():

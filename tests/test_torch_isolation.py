@@ -31,7 +31,11 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.controllers.tas_nodes",
           "kueue_tpu_torch.tas.non_tas_usage",
           "kueue_tpu_torch.tas.ungater",
-          "kueue_tpu_torch.tas.balanced"):
+          "kueue_tpu_torch.tas.balanced",
+          "kueue_tpu_torch.store.checkpoint",
+          "kueue_tpu_torch.store.diskguard",
+          "kueue_tpu_torch.ha.digest",
+          "kueue_tpu_torch.ha.shedder"):
     assert m in sys.modules, m
 print("isolated")
 """

@@ -31,6 +31,7 @@ from kueue_tpu_torch.api import types as ptypes
 from kueue_tpu_torch.bench import engine_worlds as ew
 from kueue_tpu_torch.bench import serve_world as sw
 from kueue_tpu_torch.cli import kueuectl as pkueuectl
+from kueue_tpu_torch.controllers.engine import Engine as PEngine
 from kueue_tpu_torch.store import journal as pjournal
 from kueue_tpu_torch.visibility import server as pvis
 
@@ -370,3 +371,268 @@ def test_sigkill_mid_drain_rebuilds_alike(kits, tmp_path):
         assert max(after["transitions"].values()) == 1
     assert states["port"] == states["jax"]
     assert 0 < len(before["admitted"]) < states["port"][0]["admitted"]
+
+
+# -- the cycle boundary, compaction and restarts under load, in both
+#    packages (tests/test_durability.py, tests/test_restart_under_load.py)
+
+PKGS = {"jax": (jtypes, JEngine, jjournal, {}),
+        "port": (ptypes, lambda: PEngine(device="cpu"), pjournal,
+                 {"device": "cpu"})}
+
+
+def _three_queues(eng, t, preemption=False):
+    eng.create_resource_flavor(t.ResourceFlavor("default"))
+    for c in range(3 if preemption else 1):
+        eng.create_cohort(t.Cohort(f"co{c}" if preemption else "co"))
+    for i in range(9 if preemption else 3):
+        eng.create_cluster_queue(t.ClusterQueue(
+            name=f"cq{i}", cohort=f"co{i % 3}" if preemption else "co",
+            preemption=t.ClusterQueuePreemption(
+                within_cluster_queue=t.PreemptionPolicy.LOWER_PRIORITY,
+                reclaim_within_cohort=t.PreemptionPolicy.LOWER_PRIORITY)
+            if preemption else t.ClusterQueuePreemption(),
+            resource_groups=(t.ResourceGroup(
+                ("cpu",), (t.FlavorQuotas(
+                    "default", {"cpu": t.ResourceQuota(
+                        4000 if preemption else 2000)}),)),)))
+        eng.create_local_queue(t.LocalQueue(f"lq{i}", "default", f"cq{i}"))
+
+
+def fingerprint(eng) -> dict:
+    wls = {key: (wl.is_admitted, wl.is_evicted, wl.is_finished,
+                 wl.status.requeue_count, wl.status.requeue_at,
+                 None if wl.status.admission is None else
+                 [(psa.name, sorted(psa.flavors.items()), psa.count)
+                  for psa in wl.status.admission.pod_set_assignments])
+           for key, wl in sorted(eng.workloads.items())}
+    usage = {name: sorted((str(fr), v) for fr, v in u.items() if v)
+             for name, u in sorted(eng.cache.cq_usage.items()) if u}
+    return json.loads(json.dumps({"workloads": wls, "usage": usage}))
+
+
+def test_sync_on_cycle_boundary(tmp_path):
+    """A non-idle cycle syncs (flush + fsync) what it appended; an idle
+    cycle leaves the journal alone: the same dirty flags in both."""
+    logs = {}
+    for name, (t, engine, jmod, _kw) in PKGS.items():
+        eng = engine()
+        _three_queues(eng, t)
+        journal = jmod.attach_new_journal(eng, str(tmp_path / name))
+        journal.sync()
+        with aligned_uids():
+            eng.submit(t.Workload(name="w", queue_name="lq0",
+                                  pod_sets=(t.PodSet("main", 1,
+                                                     {"cpu": 500}),)))
+        log = [journal._dirty]
+        log.append(eng.schedule_once() is not None)
+        log.append(journal._dirty)
+        log.append(eng.schedule_once() is None)
+        log.append(journal._dirty)
+        journal.close()
+        logs[name] = log
+    assert logs["port"] == logs["jax"] == [True, True, False, True, False]
+    assert open(tmp_path / "port", "rb").read() == \
+        open(tmp_path / "jax", "rb").read()
+
+
+def test_compact_preserves_rebuild(tmp_path):
+    """compact() keeps the last record per key in first-seen order under
+    a new lineage: the compacted files are byte-identical, shorter, and
+    rebuild (in either package) to the state before compaction."""
+    got = {}
+    for name, (t, engine, jmod, _kw) in PKGS.items():
+        eng = engine()
+        _three_queues(eng, t)
+        path = str(tmp_path / f"{name}.jsonl")
+        journal = jmod.attach_new_journal(eng, path)
+        with aligned_uids():
+            for i in range(6):
+                eng.clock += 1
+                eng.submit(t.Workload(
+                    name=f"w{i}", queue_name=f"lq{i % 3}",
+                    pod_sets=(t.PodSet("main", 1, {"cpu": 600}),)))
+                eng.schedule_once()
+        eng.finish("default/w0")
+        n_before = sum(1 for _ in journal.replay())
+        journal.compact()
+        n_after = sum(1 for _ in journal.replay())
+        assert n_after < n_before
+        journal.close()
+        got[name] = (fingerprint(eng), n_before, n_after, journal.lineage)
+    assert got["port"] == got["jax"]
+    data = {n: open(tmp_path / f"{n}.jsonl", "rb").read() for n in PKGS}
+    assert data["port"] == data["jax"]
+    assert data["port"].startswith(b'{"op": "meta"')
+    for name, (_t, _engine, jmod, kw) in PKGS.items():
+        for src in PKGS:
+            copy = str(tmp_path / f"{name}-of-{src}.jsonl")
+            shutil.copy(tmp_path / f"{src}.jsonl", copy)
+            reb = jmod.rebuild_engine(copy, **kw)
+            assert fingerprint(reb) == got["jax"][0]
+            reb.journal.close()
+
+
+def _churn_engine(t, engine, jmod, path=None):
+    """tests/test_restart_under_load.py's world, stopped mid-churn:
+    preemptions issued, victims evicted, replacements pending."""
+    rng = random.Random(3)
+    eng = engine()
+    _three_queues(eng, t, preemption=True)
+    if path:
+        jmod.attach_new_journal(eng, path)
+    for i in range(24):
+        eng.clock += 0.01
+        eng.submit(t.Workload(
+            name=f"low{i}", queue_name=f"lq{rng.randrange(9)}", priority=0,
+            pod_sets=(t.PodSet("main", 1, {"cpu": 1000}),)))
+    for _ in range(6):
+        eng.schedule_once()
+    for i in range(18):
+        eng.clock += 0.01
+        eng.submit(t.Workload(
+            name=f"high{i}", queue_name=f"lq{rng.randrange(9)}",
+            priority=10, pod_sets=(t.PodSet("main", 1, {"cpu": 2000}),)))
+    for _ in range(2):
+        eng.schedule_once()
+        eng.tick(0.0)
+    return eng
+
+
+def _drain_churn(eng, cycles=60):
+    for _ in range(cycles):
+        r = eng.schedule_once()
+        if r is None:
+            break
+        if r.stats.preempting:
+            eng.tick(0.0)
+        elif not r.stats.admitted:
+            break
+
+
+def test_restart_mid_churn_preserves_state_and_progress(tmp_path):
+    """A crash mid-churn with a torn record: each package's rebuild holds
+    the live state, and its drain admits more of the high-priority wave,
+    to the same state in both."""
+    got = {}
+    for name, (t, engine, jmod, kw) in PKGS.items():
+        path = str(tmp_path / f"{name}.jsonl")
+        with aligned_uids():
+            live = _churn_engine(t, engine, jmod, path)
+        live.journal.close()
+        with open(path, "a", encoding="utf-8") as fh:
+            fh.write('{"op": "apply", "kind": "workload", "ts": 9.9, "obj"')
+        rebuilt = jmod.rebuild_engine(path, **kw)
+        assert fingerprint(rebuilt) == fingerprint(live)
+        before = sum(1 for wl in rebuilt.workloads.values()
+                     if wl.priority == 10 and wl.is_admitted)
+        _drain_churn(rebuilt)
+        after = sum(1 for wl in rebuilt.workloads.values()
+                    if wl.priority == 10 and wl.is_admitted)
+        assert after > before
+        rebuilt.journal.close()
+        got[name] = (fingerprint(live), fingerprint(rebuilt), before, after)
+    assert got["port"] == got["jax"]
+    assert open(tmp_path / "port.jsonl", "rb").read() == \
+        open(tmp_path / "jax.jsonl", "rb").read()
+
+
+def test_restart_matches_uncrashed_continuation(tmp_path):
+    """Crash, rebuild and drain land where the never-crashed engine's
+    drain lands, in both packages alike."""
+    got = {}
+    for name, (t, engine, jmod, kw) in PKGS.items():
+        path = str(tmp_path / f"{name}.jsonl")
+        with aligned_uids():
+            crashed = _churn_engine(t, engine, jmod, path)
+        crashed.journal.close()
+        with aligned_uids():
+            reference = _churn_engine(t, engine, jmod)
+        rebuilt = jmod.rebuild_engine(path, **kw)
+        _drain_churn(rebuilt)
+        _drain_churn(reference)
+        assert fingerprint(rebuilt) == fingerprint(reference)
+        rebuilt.journal.close()
+        got[name] = fingerprint(rebuilt)
+    assert got["port"] == got["jax"]
+
+
+def test_capture_points_fire_in_the_jax_order(tmp_path):
+    """pre_cycle_hooks, then the cycle, then (after a non-idle cycle)
+    pre_sync_hooks before the journal's sync, then cycle_listeners with
+    None for an idle cycle; a raising hook or listener becomes a warning
+    and the next one still runs."""
+    logs = {}
+    for name, (t, engine, jmod, _kw) in PKGS.items():
+        eng = engine()
+        _three_queues(eng, t)
+        journal = jmod.attach_new_journal(eng, str(tmp_path / name))
+        log = []
+        real_sync = journal.sync
+        journal.sync = lambda: (log.append("sync"), real_sync())
+
+        def boom(seq, result):
+            raise RuntimeError("observer")
+
+        eng.pre_cycle_hooks.append(
+            lambda seq, e: log.append(("pre", seq, e is eng)))
+        eng.pre_sync_hooks.extend([boom, lambda seq, r: log.append(
+            ("pre_sync", seq, r is not None))])
+        eng.cycle_listeners.extend([boom, lambda seq, r: log.append(
+            ("listener", seq, r is None))])
+        with aligned_uids():
+            eng.submit(t.Workload(name="w", queue_name="lq0",
+                                  pod_sets=(t.PodSet("main", 1,
+                                                     {"cpu": 500}),)))
+        with pytest.warns(UserWarning) as caught:
+            eng.schedule_once()
+            eng.schedule_once()
+        log.append(sorted({str(w.message).split(" ")[0] for w in caught}))
+        log.append((eng.cycle_seq, eng.checkpointer))
+        journal.close()
+        logs[name] = log
+    assert logs["port"] == logs["jax"]
+    assert logs["port"][:4] == [("pre", 0, True), ("pre_sync", 0, True),
+                                "sync", ("listener", 0, False)]
+
+
+def test_meta_lines_are_skipped(tmp_path):
+    """A rotated active file starts with a meta line: read_records and
+    engine_from_records skip it, as the JAX replay does."""
+    path = str(tmp_path / "j.jsonl")
+    eng = PEngine(device="cpu")
+    pjournal.attach_new_journal(eng, path, rotate_records=3)
+    _three_queues(eng, ptypes)
+    with aligned_uids():
+        eng.submit(ptypes.Workload(name="w", queue_name="lq0",
+                                   pod_sets=(ptypes.PodSet(
+                                       "main", 1, {"cpu": 500}),)))
+        eng.schedule_once()
+        eng.submit(ptypes.Workload(name="v", queue_name="lq1",
+                                   pod_sets=(ptypes.PodSet(
+                                       "main", 1, {"cpu": 500}),)))
+    eng.journal.close()
+    assert open(path, "rb").readline().startswith(b'{"op": "meta"')
+    recs = list(pjournal.read_records(path))
+    assert recs and all(r["op"] != "meta" for r in recs)
+    assert recs == list(jjournal.Journal(path).replay())[-len(recs):]
+    raw = [json.loads(line) for line in open(path)]
+    assert raw[0]["op"] == "meta"
+    rebuilt = pjournal.engine_from_records(raw, device="cpu")
+    assert set(rebuilt.workloads) == {"default/v"}
+
+
+def test_fsync_per_append_as_jax(tmp_path):
+    """``Journal(fsync=True)`` fsyncs each append, so nothing is left for
+    the cycle boundary's sync; the files are the same bytes."""
+    got = {}
+    for name, (t, _engine, jmod, _kw) in PKGS.items():
+        path = str(tmp_path / f"{name}.jsonl")
+        j = jmod.Journal(path, fsync=True)
+        j.apply("cohort", t.Cohort("a"), ts=1.0)
+        j.apply_many("cohort", [t.Cohort("b"), t.Cohort("a")], ts=2.0)
+        got[name] = (j._dirty, j.writes_seq, j.writable())
+        j.close()
+        got[name] += (open(path, "rb").read(),)
+    assert got["port"] == got["jax"]
+    assert got["port"][:3] == (False, 3, True)

@@ -11,10 +11,16 @@ rebuilt from the same journal, given the same arrivals and drained
 in-process, both on the default serving loop. /metrics answers 200 with
 the JAX engine's admission, eviction and resource series. An unported
 route answers 404 naming itself, an unported flag exits 2, the bearer
-token guards every route but /healthz, and SIGTERM exits 0. The slow
+token guards every route but /healthz, and SIGTERM exits 0. Bounded-time
+recovery: each of the five recovery flags (and its environment
+variable) reaches the journal or the Checkpointer, the process with all
+five serves the JAX serve process's final state, a SIGKILL after
+retention deleted segment 0 restarts through a checkpoint, and a
+degraded journal answers POST with the JAX front door's 503. The slow
 tests recompute chip_smoke.py's phase 19 and 21 constants from the JAX
 package. Exact throughout."""
 
+import http.client
 import itertools
 import json
 import os
@@ -22,6 +28,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -236,9 +243,7 @@ def test_sigterm_exits_0(served, drained):
 @pytest.mark.parametrize("argv", [
     ["--ha"], ["--federate", "a=http://x"], ["--read-replica"],
     ["--record", "t.jsonl"], ["--fault", "sigkill@admission:4"],
-    ["--trace"], ["--checkpoint-interval", "5"],
-    ["--segment-records", "100"], ["--min-free-bytes", "1"],
-    ["--watchdog-deadline", "1"], ["--shed-rate", "5"]])
+    ["--trace"], ["--watchdog-deadline", "1"], ["--shed-rate", "5"]])
 def test_unported_flag_exits_2(argv, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--journal", "unused.jsonl", *argv])
@@ -400,3 +405,253 @@ def test_cycle_lock_excludes_and_serves_requests_first():
     tr.join(10)
     tc.join(10)
     assert order == ["request", "cycle"]
+
+
+# -- bounded-time recovery and the disk budget --
+
+RECOVERY = {
+    "--checkpoint-interval": ("KUEUE_TPU_CKPT_INTERVAL", "7",
+                              lambda eng, ck: ck.interval),
+    "--checkpoint-keep": ("KUEUE_TPU_CKPT_KEEP", "5",
+                          lambda eng, ck: ck.keep),
+    "--segment-records": ("KUEUE_TPU_SEGMENT_RECORDS", "100",
+                          lambda eng, ck: eng.journal.rotate_records),
+    "--segment-bytes": ("KUEUE_TPU_SEGMENT_BYTES", "4096",
+                        lambda eng, ck: eng.journal.rotate_bytes),
+    "--min-free-bytes": ("KUEUE_TPU_MIN_FREE_BYTES", "1",
+                         lambda eng, ck: (eng.journal.budget.min_free_bytes,
+                                          ck.store.budget.min_free_bytes)),
+}
+
+
+def _small_journal(path, arrivals=True) -> None:
+    """serve_world.SMALL with its arrivals already submitted, journaled
+    (no POSTs: the JAX serve process's loop takes no lock)."""
+    eng = sw.build_world(sw.SMALL)
+    if arrivals:
+        for wl in sw.arrivals(sw.SMALL):
+            eng.submit(wl)
+    pjournal.attach_new_journal(eng, str(path)).close()
+
+
+@pytest.mark.parametrize("how", ["flag", "env"])
+@pytest.mark.parametrize("flag", list(RECOVERY))
+def test_recovery_flag_reaches_the_journal_or_checkpointer(
+        tmp_path, monkeypatch, flag, how):
+    env, value, read = RECOVERY[flag]
+    path = tmp_path / "j.jsonl"
+    _small_journal(path, arrivals=False)
+    argv = ["--journal", str(path), "--device", "cpu",
+            "--checkpoint-interval", "3"]
+    if how == "flag":
+        argv += [flag, value]
+    else:
+        monkeypatch.setenv(env, value)
+        if flag == "--checkpoint-interval":
+            argv = argv[:-2]
+    eng, ck = serve.boot(serve._parse(argv))
+    want = int(value)
+    assert read(eng, ck) == (want if flag != "--min-free-bytes"
+                             else (want, want))
+    assert eng.checkpointer is ck and ck._hook in eng.cycle_listeners
+    assert eng.rebuild_source == "genesis"
+    eng.journal.close()
+
+
+def test_recovery_defaults_are_the_jax_defaults(tmp_path):
+    """All off (keep 2): no Checkpointer, no rotation, no budget."""
+    path = tmp_path / "j.jsonl"
+    _small_journal(path, arrivals=False)
+    args = serve._parse(["--journal", str(path), "--device", "cpu"])
+    assert (args.checkpoint_interval, args.checkpoint_keep,
+            args.segment_records, args.segment_bytes,
+            args.min_free_bytes) == (0, 2, 0, 0, 0)
+    eng, ck = serve.boot(args)
+    assert ck is None and eng.checkpointer is None
+    assert (eng.journal.rotate_records, eng.journal.rotate_bytes,
+            eng.journal.budget.enabled) == (0, 0, False)
+    eng.journal.close()
+
+
+SERVE_RECOVERY_ARGS = ("--checkpoint-interval", "2", "--checkpoint-keep", "2",
+                       "--segment-records", "300", "--segment-bytes",
+                       "50000000", "--min-free-bytes", "1048576")
+
+
+def _journal_set(path) -> dict:
+    d = path.parent
+    return {"segments": sorted(p.name for p in d.glob(path.name + ".seg*")),
+            "checkpoints": sorted(p.name for p in (d / (path.name + ".ckpt"))
+                                  .glob("ckpt-*.json"))}
+
+
+def _idle_state(url, dropped_ok=False):
+    """The final state of a serve process once its loop is idle. The JAX
+    package's process reads its engine for a GET without a lock, so a
+    view that races its loop can raise in the request thread, which then
+    drops the connection: with ``dropped_ok`` such a GET is made again
+    (at most twice). The port's views run under the cycle lock and get
+    no second try."""
+    for attempt in range(3 if dropped_ok else 1):
+        try:
+            sw.wait_idle(url, 300, dump_every=0.3, settle=0.5)
+            return sw.final_state(sw.get_json(url, "/workloads"),
+                                  sw.get_json(url, "/debug/dump"))
+        except http.client.RemoteDisconnected:
+            if attempt == (2 if dropped_ok else 0):
+                raise
+
+
+def test_recovery_flags_serve_as_the_jax_serve_process(tmp_path):
+    """The SMALL world, its arrivals journaled pending, served with all
+    five flags by the port's process and by the JAX package's (``--oracle
+    local`` on the CPU): the same final state, and both journals rotated
+    and checkpointed."""
+    ppath, jpath = tmp_path / "port" / "j.jsonl", tmp_path / "jax" / "j.jsonl"
+    for p in (ppath, jpath):
+        p.parent.mkdir()
+    _small_journal(ppath)
+    shutil.copy(ppath, jpath)
+    procs = []
+    try:
+        port, purl, boot = sw.start_serve(ppath, "local", "cpu",
+                                          timeout=300,
+                                          extra=SERVE_RECOVERY_ARGS)
+        procs.append(port)
+        jax = sw.Proc(["-m", "kueue_tpu.serve", "--journal", str(jpath),
+                       "--oracle", "local", "--http", "127.0.0.1:0",
+                       "--tick", "0.05", *SERVE_RECOVERY_ARGS],
+                      env=sw.child_env(JAX_PLATFORMS="cpu"))
+        procs.append(jax)
+        line = jax.wait_line("serving on ", 300)
+        jurl = "http://" + line.split("serving on ")[1].split()[0]
+        states = {"port": _idle_state(purl),
+                  "jax": _idle_state(jurl, dropped_ok=True)}
+        rc, last = port.stop()
+        jrc, _ = jax.stop()
+    finally:
+        for p in procs:
+            if p.p.poll() is None:
+                p.stop(signal.SIGKILL)
+    assert states["port"] == states["jax"]
+    assert states["port"]["arrivals_admitted"] == sw.SMALL["arrivals"]
+    assert (rc, jrc) == (0, 0)
+    assert boot["source"] == "genesis"
+    assert last["checkpoints_written"] >= 2
+    assert last["checkpoint_failures"] == 0
+    assert last["disk_budget_checks"] > 0
+    for p in (ppath, jpath):
+        # Rotated (the active file starts with a meta line past segment
+        # 0), checkpointed, and retention kept at most two checkpoints
+        # and no segment they cover.
+        meta = json.loads(p.open().readline())
+        assert meta["op"] == "meta" and meta["seg"] >= 1
+        got = _journal_set(p)
+        assert 1 <= len(got["checkpoints"]) <= 2
+        assert "j.jsonl.seg000000" not in got["segments"]
+
+
+def test_kill_and_restart_boot_from_a_checkpoint(tmp_path):
+    """SIGKILL once retention deleted segment 0 (the genesis records), and
+    the restart on the same journal set can only come through a
+    checkpoint: source ``checkpoint``, its base and suffix printed, and
+    after the drain the JAX package's final state of the same world."""
+    path = tmp_path / "j.jsonl"
+    _small_journal(path)
+    args = ("--checkpoint-interval", "2", "--checkpoint-keep", "1",
+            "--segment-records", "300")
+    seg0 = tmp_path / "j.jsonl.seg000000"
+    procs = []
+    try:
+        first, url, boot = sw.start_serve(path, "local", "cpu", timeout=300,
+                                          extra=args)
+        procs.append(first)
+        deadline = time.monotonic() + 300
+        while seg0.exists() or not _journal_set(path)["checkpoints"]:
+            assert time.monotonic() < deadline, first.tail()
+            time.sleep(0.01)
+        first.stop(signal.SIGKILL)
+        assert not seg0.exists()
+        second, url2, boot2 = sw.start_serve(path, "local", "cpu",
+                                             timeout=300, extra=args)
+        procs.append(second)
+        sw.wait_idle(url2, 300, dump_every=0.3, settle=0.5)
+        got = sw.final_state(sw.get_json(url2, "/workloads"),
+                             sw.get_json(url2, "/debug/dump"))
+        rc, last = second.stop()
+    finally:
+        for p in procs:
+            if p.p.poll() is None:
+                p.stop(signal.SIGKILL)
+    assert boot["source"] == "genesis"
+    assert boot2["source"] == "checkpoint" and boot2["base"] > 1000
+    assert boot2["records"] == boot2["base"] + boot2["suffix"]
+    assert rc == 0 and last["checkpoint_failures"] == 0
+    assert got == _jax_small_final_state()
+
+
+def _jax_small_final_state() -> dict:
+    """The JAX engine's final state of SMALL with its arrivals."""
+    from kueue_tpu.api import types as jtypes
+    from kueue_tpu.bench import scenario as jscenario
+    from kueue_tpu.controllers.engine import Engine as JEngine
+    from kueue_tpu_torch.bench import engine_worlds as ew
+
+    jkit = ew.Kit(jtypes, jscenario, lambda fair=False: JEngine(
+        enable_fair_sharing=fair), lambda eng: eng.attach_oracle())
+    eng = sw.build_world(sw.SMALL, jkit)
+    eng.attach_oracle()
+    for wl in sw.arrivals(sw.SMALL, jkit):
+        eng.submit(wl)
+    sw.drain_in_process(eng)
+    return sw.final_state(*sw.engine_views(eng, jvis.dump_state, jkueuectl))
+
+
+def test_degraded_journal_answers_503(tmp_path):
+    """POST /workloads while the disk budget holds the journal read-only:
+    503 with the JAX front door's body and a Retry-After of 1 (the
+    clamped 1 s hint, as a JAX engine without a shedder gives), a known
+    key still answers 200 first, and once space returns 201."""
+    from kueue_tpu.controllers.engine import Engine as JEngine
+    from kueue_tpu.store import diskguard as jguard
+    from kueue_tpu.visibility import http_server as jhttp
+    from kueue_tpu_torch.controllers.engine import Engine
+    from kueue_tpu_torch.store import diskguard as pguard
+
+    bodies = sw.arrival_bodies(sw.SMALL)
+    got = {}
+    for name, eng, jmod, guard, ep_mod in (
+            ("port", Engine(device="cpu"), pjournal, pguard, http_server),
+            ("jax", JEngine(), jjournal, jguard, jhttp)):
+        jmod.attach_new_journal(eng, str(tmp_path / f"{name}.jsonl"),
+                                min_free_bytes=1000)
+        free = [10 ** 9]
+        guard.FREE_BYTES_PROBE = lambda _p: free[0]
+        ep = ep_mod.ServingEndpoint(eng)
+        ep.start()
+        url = f"http://127.0.0.1:{ep.port}"
+        log = []
+        try:
+            log.append(sw.post(url, "/workloads", bodies[0])[0])
+            free[0] = 10
+            assert not eng.journal.writable()
+            c = sw._conn(url, 30)
+            c.request("POST", "/workloads", body=bodies[1],
+                      headers={"Content-Type": "application/json"})
+            r = c.getresponse()
+            body = json.loads(r.read())
+            log.append((r.status, r.getheader("Retry-After"),
+                        sorted(body), body["accepted"], body["reason"]))
+            assert 0.5 <= body["retryAfter"] <= 1.5
+            log.append(sw.post(url, "/workloads", bodies[0]))
+            free[0] = 10 ** 9
+            assert eng.journal.rearm_probe()
+            log.append(sw.post(url, "/workloads", bodies[1])[0])
+        finally:
+            ep.stop()
+            guard.FREE_BYTES_PROBE = None
+            eng.journal.close()
+        got[name] = log
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == 201 and got["port"][1][:2] == (503, "1")
+    assert got["port"][2][0] == 200 and got["port"][3] == 201
