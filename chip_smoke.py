@@ -179,7 +179,42 @@ Phases, in order; any failure raises and the script exits non-zero:
      launched once per dispatched device call and held against its plain
      version on the world's first-cycle inputs; prints p50 and p95
      s/cycle of the churn cycles, the second pass's wall per churn cycle
-     and the replacement placements by path.
+     and the replacement placements by path;
+ 27. the serving engine traced (kueue_tpu_torch/bench/obs_worlds.py over
+     engine_worlds.DEFAULT_ARM cycle_latency, uncut: 1 + 8 cycles, 9,000
+     admitted at 1,000 ClusterQueues x 50,000 workloads, the heads
+     kernel on the card) with the tracer (ring 64), the perf recorder,
+     the SLO engine, the cycle watchdog (deadline 30 s, hang 120 s) and
+     a fanout hub of 2 shards with one draining subscriber attached,
+     every cycle inside ``Engine.profiled`` (a torch.profiler Chrome
+     trace). Gated on phase 22's JAX numbers (traced decides as
+     untraced), 9 cycles traced with the JAX package's cid chain, its
+     committed device calls, host-to-device and device-to-host bytes and
+     shape-signature hit/miss sequence, the heads kernel launched once
+     per dispatched call (10), the Chrome trace holding the bridge's
+     phase ranges and one heads-kernel device event per launch of the
+     window, the subscriber seeing every event of the window in order,
+     and the watchdog closed with no demotion anywhere. Prints the
+     traced p50 and p95 beside phase 22's and the per-cycle medians of
+     the apply and encode sub-phases;
+ 28. (after phase 27, which runs alone on the card) the deployed
+     process traced (kueue_tpu_torch/bench/serve_traced.py, whose main
+     runs the same schedule untraced beside it): ``python -m
+     kueue_tpu_torch.serve`` with the sidecar on the card and ``--trace
+     64 --watchdog-deadline 30 --watchdog-hang 120`` on its own copy of
+     phase 19's journal, phase 21's first 250 arrivals POSTed at 200 a
+     second once the seeded backlog has drained, one SSE client on
+     ``/events`` from then on. Gated on phase 21's JAX final state
+     (``0x638086c7``, 50,187 holding quota), each arrival admitted once
+     in the journal and seen admitted on the stream, the traced cycles
+     (``/debug/trace``, the SIGTERM line) equal to the journal's
+     ``cycle_trace`` records, the stream's ``cycle_trace`` events equal
+     to those traced after it joined, with the ladder at rung 0 and the
+     watchdog closed (``/debug/slo``), ``/debug/perf`` answering
+     ``{"enabled": false}`` as the JAX serve's does, ``/`` and
+     ``/dashboard`` answering 200, and the sidecar's heads launches
+     equal to the dispatched device calls. Prints POST
+     p50 and p95 and the wall per device cycle beside phases 19 and 21.
 Before the kernel summary it prints each phase's wall seconds.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
@@ -373,6 +408,21 @@ OTHER_ARMS_EXPECT = {
         pipeline_stats=dict(speculated=38, used=37, discarded=0,
                             skipped=0)),
 }
+# Phase 27 (obs_worlds.run of DEFAULT_ARM cycle_latency): the JAX
+# engine's obs numbers on the same run (tests/test_torch_obs_worlds.py
+# recomputes them): the cid of every traced cycle, the committed device
+# calls, their bytes each way and the signature cache's (hits, misses)
+# per cycle.
+TRACED_EXPECT = dict(
+    cycles_traced=9,
+    cids=["000000-b4d15ee7", "000001-7e6faf68", "000002-79aa0dd3",
+          "000003-5c3f591a", "000004-99c92531", "000005-ff4b5638",
+          "000006-f950e287", "000007-6bdfcc11", "000008-86496ffa"],
+    launches=9, h2d_bytes=31920048, d2h_bytes=1999881,
+    jit=[(0, 1)] + [(1, 0)] * 8)
+# The heads kernel's device functions, one of which every call launches
+# (heads.cu: the cluster kernel, or the atomic kernel past shared memory).
+HEADS_DEVICE_KERNELS = ("heads_cluster_kernel", "heads_atomic_kernel")
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
                   feasibility_empty=0x76cebe8a,
@@ -381,6 +431,11 @@ TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
 
 # Start times of the script's phases, for the wall split it prints.
 _SPANS: list = []
+# What phases 22, 19 and 21 measured, for phases 27 and 28 to print
+# beside their own: (name, arm) -> (p50, p95) s a cycle; phase -> POST
+# p50 and p95 and wall seconds per device cycle.
+ENGINE_TIMES: dict = {}
+SERVE_TIMES: dict = {}
 
 
 def span(label: str) -> None:
@@ -816,6 +871,7 @@ def phase_engine(name, config, expect, heads, pk, card, sms):
     times = sorted(r["cycle_seconds"])
     p50 = times[len(times) // 2]
     p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
+    ENGINE_TIMES[name, config.get("arm")] = (p50, p95)
     mean = {ph: sum(p.get(ph, 0.0) for p in r["phases"]) / len(r["phases"])
             for ph in ("encode", "sim", "device", "apply", "finalize",
                        "spec_encode")}
@@ -1140,6 +1196,7 @@ def phase_serve(seed, work, bodies, card):
             f"replies {side_last['compute_replies']}, device cycles "
             f"{cycles}, pipeline_stats {last['pipeline_stats']}")
     lat = posted["latencies"]
+    SERVE_TIMES["19"] = (pct(lat, 0.5), pct(lat, 0.95), drain_s / cycles)
     print(f"  restart: journal_bytes={boot['bytes']} "
           f"records={boot['records']} rebuild_s={boot['rebuild_s']:.3f} "
           f"boot_wall_s={boot['wall_s']:.3f}")
@@ -1479,6 +1536,7 @@ def phase_breaker(seed, work, bodies, card, say=print):
         box = {}
         poster = threading.Thread(target=lambda: box.update(
             r=sw.post_arrivals(url, bodies, sw.FULL["rate"])))
+        t_post = time.perf_counter()
         poster.start()
         deadline = time.monotonic() + 600
         while True:
@@ -1496,6 +1554,7 @@ def phase_breaker(seed, work, bodies, card, say=print):
                             until=lambda s: s["cyclesOnDevice"]
                             > demoted["cyclesOnDevice"])
         poster.join()
+        drain_s = time.perf_counter() - t_post
         views = serve_views(sw, url)
         rc, last = serve.stop()
         rc2, side2_last = side2.stop()
@@ -1525,6 +1584,9 @@ def phase_breaker(seed, work, bodies, card, say=print):
             f"after re-promotion {calls} ({served} device cycles)")
     check_serve_state(sw, views, "final state", say,
                       expect=SERVE_BREAKER_EXPECT)
+    lat = box["r"]["latencies"]
+    SERVE_TIMES["21"] = (pct(lat, 0.5), pct(lat, 0.95),
+                         drain_s / last["cycles_on_device"])
     say(f"  heads_launches={side2_last['heads_launches']} (restarted "
           f"sidecar, {served} device cycles after re-promotion, "
           f"pipeline_stats {last['pipeline_stats']}) | {card}")
@@ -1547,7 +1609,8 @@ def check_serve_heads(seed, heads, pk, sms, say=print):
 
 
 def phases_serve(card, by_path, heads, pk, sms):
-    """Phases 19 to 21 on one seeded journal."""
+    """Phases 19 to 21 on one seeded journal; returns (seed journal, work
+    directory, arrival bodies) for phase 28, which removes them."""
     from kueue_tpu_torch.bench import serve_world as sw
 
     work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
@@ -1600,7 +1663,199 @@ def phases_serve(card, by_path, heads, pk, sms):
             raise done[name]
         if name != "serve_heads":
             by_path[name] = done[name]
-    shutil.rmtree(work, ignore_errors=True)
+    return seed, work, bodies
+
+
+def heads_trace_events(trace_dir) -> tuple:
+    """(heads-kernel device events, names of every range) of the one
+    Chrome trace ``Engine.profiled`` wrote into ``trace_dir``."""
+    (path,) = sorted(Path(trace_dir).glob("*.json"))
+    with open(path, encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                  and any(k in e.get("name", "")
+                          for k in HEADS_DEVICE_KERNELS))
+    return kernels, {e.get("name") for e in events}, path.stat().st_size
+
+
+def phase_traced_engine(heads, card):
+    """Phase 27: DEFAULT_ARM cycle_latency with the obs layer attached
+    and every cycle profiled. Returns the heads kernel's launches."""
+    from contextlib import contextmanager
+
+    from kueue_tpu_torch.bench import engine_worlds as ew
+    from kueue_tpu_torch.bench import obs_worlds as ow
+
+    trace_dir = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
+        "_build" / "traced"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    box = {}
+
+    @contextmanager
+    def extra(eng):
+        box["eng"] = eng
+        heads.launches = 0
+        with ow.attached(eng, hub=True, watchdog=(30.0, 120.0),
+                         profile_dir=str(trace_dir)) as got:
+            box["got"] = got
+            yield
+        box["launches"] = heads.launches
+
+    t0 = time.perf_counter()
+    r, probe = ow.run(ew.DEFAULT_ARM["cycle_latency"], extra=extra)
+    run_s = time.perf_counter() - t0
+    launches, got = box["launches"], box["got"]
+    pinned = ew.arm_pinned(r)
+    print("  " + " ".join(
+        f"{k}=0x{v:08x}" if k == "checksum" else f"{k}={v}"
+        for k, v in pinned.items()))
+    if pinned != DEFAULT_ARM_EXPECT["cycle_latency"]:
+        raise AssertionError(f"traced cycle_latency: got {pinned}, want "
+                             f"{DEFAULT_ARM_EXPECT['cycle_latency']}")
+    numbers = ow.obs_numbers(probe)
+    print(f"  cycles_traced={numbers['cycles_traced']} "
+          f"cids={numbers['cids'][0]}..{numbers['cids'][-1]} "
+          f"launches={numbers['launches']} h2d={numbers['h2d_bytes']} "
+          f"d2h={numbers['d2h_bytes']} jit={numbers['jit']}")
+    want = dict(TRACED_EXPECT, jit=[tuple(j) for j in TRACED_EXPECT["jit"]])
+    if numbers != want:
+        raise AssertionError(f"traced obs numbers: got {numbers}, want "
+                             f"{want}")
+    if launches != dispatched(r) or launches != 10:
+        raise AssertionError(
+            f"traced: heads kernel launched {launches} times, dispatched "
+            f"{dispatched(r)} ({r['pipeline_stats']})")
+    t1 = time.perf_counter()
+    kernel_events, names, trace_bytes = heads_trace_events(trace_dir)
+    parse_s = time.perf_counter() - t1
+    ranges = [f"kueue_tpu_torch.oracle.{p}"
+              for p in ("encode", "device", "apply", "finalize")]
+    missing = [n for n in ranges if n not in names]
+    print(f"  chrome trace: bytes={trace_bytes} parse_s={parse_s:.2f} "
+          f"heads_device_events={kernel_events} heads_launches={launches} "
+          f"phase_ranges_missing={missing}")
+    if missing:
+        raise AssertionError(f"the trace lacks the phase ranges {missing}")
+    if kernel_events != launches:
+        raise AssertionError(
+            f"the trace holds {kernel_events} heads-kernel device events "
+            f"for {launches} launches in its window")
+    want_events = [(e.kind, e.workload, e.cluster_queue, e.detail, e.time)
+                   for e in got["events"]]
+    seen = []
+    for kind, data in got["seen"]:
+        d = json.loads(data)
+        seen.append((kind, d["workload"], d["clusterQueue"], d["detail"],
+                     d["time"]))
+    print(f"  subscriber: events={len(seen)} of {len(want_events)} "
+          f"hub={got['hub']}")
+    if seen != want_events or not seen:
+        raise AssertionError(f"the subscriber saw {len(seen)} events, the "
+                             f"window had {len(want_events)}")
+    wd, sup = got["watchdog"], box["eng"].oracle.supervisor
+    print(f"  watchdog: state={wd['state']} overruns={wd['overruns']} "
+          f"demotions={wd['demotions']}; supervisor: state={sup.state} "
+          f"demotions={sup.demotions}")
+    if wd["state"] != "closed" or wd["demotions"] or sup.state != \
+            "closed" or sup.demotions:
+        raise AssertionError("a demotion happened: the run did not "
+                             "measure the device path")
+    times = sorted(r["cycle_seconds"])
+    untraced = ENGINE_TIMES.get(("cycle_latency", "full"), (0.0, 0.0))
+    subs = ow.subphase_seconds(probe)
+    print(f"  traced p50_s={pct(times, 0.5):.4f} "
+          f"p95_s={pct(times, 0.95):.4f} against phase 22's untraced "
+          f"p50_s={untraced[0]:.4f} p95_s={untraced[1]:.4f} "
+          f"(this run profiled, alone on the card)")
+    print("  sub-phase medians ms per cycle: " + ",".join(
+        f"{k}={pct(v, 0.5) * 1e3:.3f}" for k, v in sorted(subs.items())
+        if k.startswith(("apply.", "encode."))))
+    print(f"  run_s={run_s:.2f} heads_launches={launches} | {card}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return launches
+
+
+def phase_serve_traced(seed, work, bodies, card):
+    """Phase 28: the serve process traced, with the watchdog, behind the
+    sidecar on the card; one SSE client from the arrivals on. Returns the
+    sidecar's heads launches."""
+    from kueue_tpu_torch.bench import serve_traced as st
+    from kueue_tpu_torch.bench import serve_world as sw
+    from kueue_tpu_torch.store import journal
+
+    r = st.run(seed, work, bodies[:BREAKER_ARRIVALS], st.TRACE_FLAGS, "p28")
+    path, stream, last, side_last = (r["path"], r["stream"], r["last"],
+                                     r["side_last"])
+    if set(r["posted"]["codes"]) != {201}:
+        raise AssertionError(
+            f"POST codes {sorted(set(r['posted']['codes']))}")
+    check_serve_state(sw, r["views"], "final state",
+                      expect=SERVE_BREAKER_EXPECT)
+    check_arrivals_once(sw, path, "arrivals", BREAKER_ARRIVALS)
+    if (r["rc"], r["side_rc"]) != (0, 0):
+        raise AssertionError(f"exit codes serve={r['rc']} "
+                             f"sidecar={r['side_rc']}")
+    fb = r["idle"]["fallbackReasons"]
+    if any(not k.startswith("idle-") for k in fb):
+        raise AssertionError(f"fallback cycles {fb}")
+    admitted = {d["workload"] for k, d in stream if k == "Admitted"
+                and d["workload"].startswith("default/arrival-")}
+    traces = [d for k, d in stream if k == "cycle_trace"]
+    records = sum(1 for rec in journal.read_records(str(path))
+                  if rec.get("kind") == "cycle_trace")
+    trace, perf, traced0 = r["trace"], r["perf"], r["traced0"]
+    ladder, wd = r["slo"]["ladder"], r["slo"]["watchdog"]
+    print(f"  backlog: device_cycles={r['backlog']['cyclesOnDevice']} "
+          f"traced={traced0} before the client joined")
+    print(f"  stream: events={len(stream)} arrivals_admitted="
+          f"{len(admitted)} cycle_trace={len(traces)}; /debug/trace "
+          f"cyclesTraced={trace['cyclesTraced']} retained="
+          f"{len(trace['cycles'])}; journal cycle_trace={records}; "
+          f"sigterm cycles_traced={last['cycles_traced']}")
+    print(f"  /debug/slo: ladder rung={ladder['rung']} transitions="
+          f"{ladder['transitions']} watchdog={wd['state']} overruns="
+          f"{wd['overruns']} demotions={wd['demotions']}; /debug/perf="
+          f"{perf}; page bytes={r['pages']}")
+    if len(admitted) != BREAKER_ARRIVALS:
+        raise AssertionError(f"the stream saw {len(admitted)} arrivals "
+                             "admitted")
+    if ladder["rung"] or ladder["transitions"] or wd["state"] != "closed":
+        raise AssertionError(
+            f"ladder rung {ladder['rung']} ({ladder['transitions']} "
+            f"transitions), watchdog {wd['state']}: the ladder sheds "
+            "tracing, so the traced counts need not agree")
+    counts = dict(debug_trace=trace["cyclesTraced"], journal=records,
+                  sigterm=last["cycles_traced"])
+    if (len(set(counts.values())) != 1 or not len(traces)
+            or len(traces) != records - traced0):
+        raise AssertionError(
+            f"traced cycles disagree: {counts}; the stream saw "
+            f"{len(traces)} of the {records - traced0} after it joined")
+    if perf != {"enabled": False}:
+        raise AssertionError(f"/debug/perf answered {perf}")
+    calls = dispatched(dict(on_device=last["cycles_on_device"],
+                            pipeline_stats=last["pipeline_stats"]))
+    if not (side_last["heads_launches"] == side_last["compute_replies"]
+            == calls > 0):
+        raise AssertionError(
+            f"sidecar heads launches {side_last['heads_launches']}, "
+            f"replies {side_last['compute_replies']}, dispatched {calls}")
+    got = st.summary(r)
+    print(f"  POST p50_s={got['post_p50_s']:.5f} "
+          f"p95_s={got['post_p95_s']:.5f} wall_per_device_cycle_s="
+          f"{got['wall_per_device_cycle_s']:.5f} (arrival device_cycles="
+          f"{got['device_cycles']} drain_s={got['drain_s']:.3f}; boot "
+          f"rebuild_s={r['boot']['rebuild_s']:.3f}; phases 19 and 21 post "
+          "while the backlog drains; kueue_tpu_torch.bench.serve_traced "
+          "runs this schedule untraced)")
+    for ph in ("19", "21"):
+        if ph in SERVE_TIMES:
+            p50, p95, per = SERVE_TIMES[ph]
+            print(f"  phase {ph}: POST p50_s={p50:.5f} p95_s={p95:.5f} "
+                  f"wall_per_device_cycle_s={per:.5f}")
+    print(f"  heads_launches={side_last['heads_launches']} (sidecar) "
+          f"| {card}")
+    return side_last["heads_launches"]
 
 
 def drain(scenario_kw, device=None):
@@ -1733,7 +1988,7 @@ def main() -> int:
         print(f"[{i}] serving engine, mixed: {name}")
         by_path[name] = phase_mixed(name, heads, pk, card, sms)
     span("19-21 setup")
-    phases_serve(card, by_path, heads, pk, sms)
+    serve_seed = phases_serve(card, by_path, heads, pk, sms)
     for i, name in enumerate(("cycle_latency", "preempt_churn"), start=22):
         span(str(i))
         print(f"[{i}] serving engine, default loop: {name}")
@@ -1749,6 +2004,13 @@ def main() -> int:
     span("26")
     print("[26] serving engine, TAS lifecycle: tas_lifecycle")
     by_path["tas_lifecycle_engine"] = phase_lifecycle(heads, pk, card, sms)
+    span("27")
+    print("[27] serving engine traced: cycle_latency, default loop")
+    by_path["cycle_latency_traced"] = phase_traced_engine(heads, card)
+    span("28")
+    print("[28] deployed control plane traced: serve + sidecar, /events")
+    by_path["serve_traced"] = phase_serve_traced(*serve_seed, card)
+    shutil.rmtree(serve_seed[1], ignore_errors=True)
     print(f"phase seconds: {spans_line()}")
     print(card)
     print(json.dumps({"kernels": [

@@ -20,7 +20,7 @@ import os
 import random
 import time
 import zlib
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from types import ModuleType
 from typing import Callable
@@ -384,10 +384,13 @@ def _instrument(eng, out):
     eng.schedule_once = schedule_once
 
 
-def run(config: dict, kit=None) -> dict:
+def run(config: dict, kit=None, obs=None) -> dict:
     """Drive one engine run of ``config`` (an entry of FULL, QUARTER,
     DEFAULT_ARM or OTHER_ARMS) on its loop arm (``config["arm"]``, see
-    loop_arm). Returns the PINNED numbers (cycles that decided something,
+    loop_arm). ``obs(engine)``, for a ``cycles`` run, returns a context
+    manager that the run's cycles go inside, entered once the world is
+    built and its oracle attached (bench/obs_worlds.py attaches the obs
+    layer there). Returns the PINNED numbers (cycles that decided something,
     admitted and preempting entries, preemptions issued, the crc32 of every
     cycle's decision stream, the bridge's device / hybrid / fallback
     cycles, cycles with slot overrides), ``pipeline_stats`` (summed over
@@ -397,11 +400,13 @@ def run(config: dict, kit=None) -> dict:
     cycle: all but the first of a cycle run, the wave's of the churn,
     every one of the multi-flavor worlds), ``calls`` and ``engine_s``
     (every schedule_once and their wall seconds) and ``engines``."""
+    if obs is not None and config["kind"] != "cycles":
+        raise ValueError("obs= applies to a cycles run")
     with loop_arm(config.get("arm")):
-        return _run(config, kit or port_kit())
+        return _run(config, kit or port_kit(), obs)
 
 
-def _run(config: dict, kit) -> dict:
+def _run(config: dict, kit, obs=None) -> dict:
     out = dict.fromkeys(PINNED, 0)
     out.update(cycle_seconds=[], phases=[], timing=False, calls=0,
                engine_s=0.0, pipeline=[], pipeline_stats={})
@@ -421,12 +426,13 @@ def _run(config: dict, kit) -> dict:
         engines = [eng]
         eng.apply_serving_gc_posture()
         try:
-            for k in range(config["cycles"] + 1):
-                out["timing"] = k > 0  # the first cycle encodes every row
-                r = eng.schedule_once()
-                on_cycle(r)
-                if r is None or not r.stats.admitted:
-                    break
+            with obs(eng) if obs is not None else nullcontext():
+                for k in range(config["cycles"] + 1):
+                    out["timing"] = k > 0  # the first encodes every row
+                    r = eng.schedule_once()
+                    on_cycle(r)
+                    if r is None or not r.stats.admitted:
+                        break
         finally:
             gc.enable()
             gc.unfreeze()

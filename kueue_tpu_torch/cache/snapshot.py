@@ -42,6 +42,7 @@ from kueue_tpu_torch.api.types import (
     sat_add,
     sat_sub,
 )
+from kueue_tpu_torch.obs import perf as _perf
 from kueue_tpu_torch.workload_info import WorkloadInfo
 
 
@@ -386,6 +387,7 @@ class Snapshot:
         prototypes, reverting in-cycle usage mutations. Idempotent;
         no-op for from-scratch TAS forests (their scopes were never
         opened, and their mutations die with this object)."""
+        _pt = _perf.begin()
         seen = set()
         for tas in self.tas_flavors.values():
             if id(tas) in seen:
@@ -394,6 +396,7 @@ class Snapshot:
             end = getattr(tas, "end_cycle", None)
             if end is not None:
                 end()
+        _perf.end("apply.undo_log_commit", _pt)
 
     # -- workload add/remove (snapshot.go AddWorkload/RemoveWorkload) --
 

@@ -84,14 +84,16 @@ def api_object(obj):
 def configuration(cfg):
     """The port's ``config.api.Configuration`` carrying the
     ``metrics_custom_labels`` of ``cfg`` (another package's
-    Configuration) as the port's ``CustomLabelEntry``s."""
+    Configuration) as the port's ``CustomLabelEntry``s, and its
+    ``profile_dir``."""
     from kueue_tpu_torch.config.api import Configuration
     from kueue_tpu_torch.metrics.registry import CustomLabelEntry
 
     return Configuration(metrics_custom_labels=[
         CustomLabelEntry(name=e.name, source_label_key=e.source_label_key,
                          source_annotation_key=e.source_annotation_key)
-        for e in cfg.metrics_custom_labels])
+        for e in cfg.metrics_custom_labels],
+        profile_dir=getattr(cfg, "profile_dir", None))
 
 
 def world_tensors(mapping) -> WorldTensors:

@@ -4,12 +4,13 @@ reads.
 A trimmed copy of ``kueue_tpu/config/api.py``: admission fair sharing's
 settings (apis/config/v1beta2/configuration_types.go
 AdmissionFairSharing) and, of the manager's ``Configuration``, the
-metrics' custom labels (``metrics.customLabels``), with the same field
-names and defaults."""
+metrics' custom labels (``metrics.customLabels``) and the profiler
+directory (``profileDir``), with the same field names and defaults."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass
@@ -23,6 +24,9 @@ class AdmissionFairSharingConfig:
 class Configuration:
     """The part of the manager's Configuration the engine reads:
     ``metrics_custom_labels``, a list of
-    ``metrics.registry.CustomLabelEntry``."""
+    ``metrics.registry.CustomLabelEntry``, and ``profile_dir``, where
+    ``Engine.profiled`` writes its profiler trace when the caller names
+    no directory."""
 
     metrics_custom_labels: list = field(default_factory=list)
+    profile_dir: Optional[str] = None

@@ -47,6 +47,10 @@ _DEFAULTS: dict[str, bool] = {
     "MetricsForCohorts": True,
     # Extra metric labels from ClusterQueue metadata.
     "CustomMetricLabels": True,
+    # DRA: ResourceClaims resolve to quota-space requests through the
+    # DeviceClass -> extended-resource mapping (controllers/dra.py).
+    "KueueDRAIntegration": True,
+    "KueueDRAIntegrationExtendedResource": True,
 }
 
 

@@ -32,12 +32,17 @@ second pass that re-places the lost pods at the top of the next cycle
 (``_process_second_pass``). ``schedule_once`` has the JAX engine's
 capture points (``pre_cycle_hooks``, ``pre_sync_hooks``,
 ``cycle_listeners``) and its disk-budget gate (the journal's
-``writable()`` parks a cycle). Decisions are the JAX package's
-engine's, cycle by cycle. Left out: event listeners, the flight
-recorder, tracing, SLOs, pods-ready, MultiKueue, holds, LimitRanges
-and RuntimeClasses (pod templates, which raise NotImplementedError),
-DRA and the preemption expectation store (evictions are observed
-synchronously).
+``writable()`` parks a cycle), the event listeners (``event_listeners``,
+fired with each EngineEvent as the JAX engine fires them; a listener
+that raises only warns) and the observability slots the obs layer
+attaches to (``attach_tracer``, ``attach_perf``, ``attach_slo``,
+``profiled``; ``watchdog``, ``ladder``, ``fanout`` and ``shedder``
+attach themselves), with the JAX engine's perf scopes around the apply's
+sub-steps. Decisions are the JAX package's engine's, cycle by cycle, and
+nothing the obs layer records feeds back into one. Left out: the flight
+recorder, pods-ready, MultiKueue, holds, LimitRanges and RuntimeClasses
+(pod templates, which raise NotImplementedError) and the preemption
+expectation store (evictions are observed synchronously).
 
 Lifecycle semantics mirrored from the reference:
   * admit: set QuotaReserved + Admitted, write Admission, assume in cache
@@ -52,6 +57,7 @@ Lifecycle semantics mirrored from the reference:
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
@@ -66,6 +72,7 @@ from kueue_tpu_torch.api.types import (
 )
 from kueue_tpu_torch.cache.queues import QueueManager
 from kueue_tpu_torch.cache.scheduler_cache import Cache
+from kueue_tpu_torch.obs import perf as _perf
 from kueue_tpu_torch.scheduler.cycle import (
     CycleResult,
     EntryStatus,
@@ -87,6 +94,17 @@ def _call_observer(what: str, fn, seq: int, result) -> None:
     except Exception as e:  # noqa: BLE001 — observers only
         import warnings
         warnings.warn(f"{what} {fn!r} raised: {e!r}")
+
+
+def _call_listener(fn, ev) -> None:
+    """Run one event listener: a handler that raises must not unwind the
+    scheduling cycle (client-go informers isolate handler panics the
+    same way), so its error becomes a warning."""
+    try:
+        fn(ev)
+    except Exception as e:  # noqa: BLE001 — listeners only
+        import warnings
+        warnings.warn(f"event listener {fn!r} raised: {e!r}")
 
 
 @dataclass
@@ -185,6 +203,9 @@ class Engine:
         import time as _time
         self.wall_clock: Callable[[], float] = _time.perf_counter
         self.events: list[EngineEvent] = []
+        # Watch fan-out (client-go informer analog): called with each
+        # EngineEvent as it is recorded.
+        self.event_listeners: list[Callable] = []
         self.metrics = EngineMetrics()
         from kueue_tpu_torch.cache.unadmitted import UnadmittedWorkloads
         from kueue_tpu_torch.metrics.registry import (
@@ -217,6 +238,18 @@ class Engine:
         self.pre_cycle_hooks: list[Callable] = []
         self.pre_sync_hooks: list[Callable] = []
         self.cycle_listeners: list[Callable] = []
+        # The obs layer attaches itself here: the admission tracer
+        # (obs.tracer.CycleTracer), perf telemetry (obs.perf), the SLO
+        # engine (obs.slo), the cycle watchdog (obs.watchdog), the
+        # degradation ladder (ha.ladder), the SSE fanout hub
+        # (visibility.fanout) and the submit-path shedder (ha.shedder).
+        self.tracer = None
+        self.perf = None
+        self.slo = None
+        self.watchdog = None
+        self.ladder = None
+        self.fanout = None
+        self.shedder = None
         # Durable store (store/journal.py), via attach_journal(), and the
         # periodic checkpoint writer (store/checkpoint.Checkpointer
         # attaches itself here).
@@ -611,6 +644,44 @@ class Engine:
             executor = TorchExecutor(self.device)
         self.oracle = OracleBridge(self, executor, max_depth=max_depth)
 
+    def attach_tracer(self, retain: int = 64, **kwargs):
+        """Enable admission tracing: per-cycle span trees with decision
+        rationale (obs.CycleTracer), retained in a bounded ring and
+        served at /debug/trace and by ``obs.explain``."""
+        from kueue_tpu_torch.obs import attach_tracer
+        return attach_tracer(self, retain=retain, **kwargs)
+
+    def attach_perf(self):
+        """Enable perf telemetry (obs.perf.PerfRecorder): apply-phase
+        sub-step histograms and device-side counters, on /metrics."""
+        from kueue_tpu_torch.obs.perf import attach_perf
+        return attach_perf(self)
+
+    def attach_slo(self, **kwargs):
+        """Enable the SLO engine (obs.slo.SLOEngine): declarative
+        objectives evaluated over multi-window burn rates, on /metrics
+        and /debug/slo."""
+        from kueue_tpu_torch.obs.slo import attach_slo
+        return attach_slo(self, **kwargs)
+
+    @contextmanager
+    def profiled(self, trace_dir: Optional[str] = None):
+        """Context manager: a ``torch.profiler`` session around
+        everything inside, written as a Chrome trace into the directory
+        (utils.structlog.device_trace; CUDA kernels included unless the
+        engine runs on the CPU). Directory precedence: explicit arg >
+        Configuration.profile_dir > KUEUE_TPU_PROFILE; none of them
+        set, it profiles nothing."""
+        import os as _os
+
+        from kueue_tpu_torch.utils.structlog import device_trace
+
+        trace_dir = (trace_dir
+                     or (self.config.profile_dir if self.config else None)
+                     or _os.environ.get("KUEUE_TPU_PROFILE"))
+        with device_trace(trace_dir or None, device=self.device):
+            yield
+
     def schedule_once(self) -> Optional[CycleResult]:
         """One schedule() cycle (scheduler.go:286), bracketed as the JAX
         engine brackets it: the pre-cycle hooks; the journal's
@@ -946,10 +1017,12 @@ class Engine:
             self.unadmitted.remove_many(ctx.removed_unadmitted)
         if self.journal is None:
             return
+        _pt = _perf.begin()
         wls = [wl for wl in (self.workloads.get(key)
                              for key in dict.fromkeys(ctx.journal_keys))
                if wl is not None]
         self.journal.apply_many("workload", wls, ts=self.clock)
+        _perf.end("apply.journal_append", _pt)
 
     def bulk_assume_batch(self, entries, bulk: _BulkAdmitCtx) -> list:
         """In-cycle half of a device cycle's admitted batch: remove the
@@ -1076,6 +1149,9 @@ class Engine:
         reset_conds = bulk.reset_conds
         lq_on = self._lq_metrics_on()
         events = self.events
+        # Snapshot: SSE handler threads append/remove listeners while
+        # cycles iterate (client-go informers snapshot the same way).
+        listeners = tuple(self.event_listeners)
         on_admit = self.on_admit
         journal_on = self.journal is not None
         QR = WorkloadConditionType.QUOTA_RESERVED
@@ -1085,6 +1161,7 @@ class Engine:
         removed_unadmitted = bulk.removed_unadmitted
         journal_keys = bulk.journal_keys
         n_admitted = 0
+        _pt = _perf.begin()
         for entry, admission in pairs:
             info = entry.info
             wl = info.obj
@@ -1106,7 +1183,8 @@ class Engine:
                 pc = conds.get(ctype)
                 if pc is not None and pc.status:
                     conds[ctype] = cond
-            events.append(EngineEvent(now, "QuotaReserved", key, cq_name))
+            ev_qr = EngineEvent(now, "QuotaReserved", key, cq_name)
+            events.append(ev_qr)
             if journal_on:
                 journal_keys.append(key)
             adm_cond_prev = conds.get(ADM)
@@ -1122,6 +1200,8 @@ class Engine:
                     bulk.wait(
                         "local_queue_quota_reserved_wait_time_seconds",
                         lq_l, max(0.0, now - wl.creation_time))
+                for fn in listeners:
+                    _call_listener(fn, ev_qr)
                 continue
             conds[ADM] = adm_cond
             n_admitted += 1
@@ -1138,11 +1218,17 @@ class Engine:
             if checks_wait > 0.0:
                 a[2].append(checks_wait)
             removed_unadmitted.append(key)
-            events.append(EngineEvent(now, "Admitted", key, cq_name))
+            ev_adm = EngineEvent(now, "Admitted", key, cq_name)
+            events.append(ev_adm)
+            for fn in listeners:
+                _call_listener(fn, ev_qr)
+            for fn in listeners:
+                _call_listener(fn, ev_adm)
             if on_admit is not None:
                 on_admit(wl, admission)
         self.metrics.admissions_total += n_admitted
         self._flush_admission_metrics(agg, lq_on)
+        _perf.end("apply.listener_fanout", _pt)
 
     def _flush_admission_metrics(self, agg: dict, lq_on: bool) -> None:
         """Direct registry writes for a batch's admission metric series:
@@ -1215,6 +1301,7 @@ class Engine:
         Admitted condition follows only when all AdmissionChecks are Ready
         (prepareWorkload :912)."""
         wl = entry.obj
+        _pt = _perf.begin()
         if bulk is not None:
             akey = (entry.info.cluster_queue, id(entry.assignment))
             admission = bulk.admissions.get(akey)
@@ -1247,9 +1334,12 @@ class Engine:
                     wl.set_condition(ctype, False, reason="QuotaReserved",
                                      now=self.clock)
         entry.info.apply_admission(admission)
+        _perf.end("apply.diff_build", _pt)
+        _pt = _perf.begin()
         self.cache.add_or_update_workload(wl, info=entry.info)
         # The workload left the pending world: free its tensor row.
         self.queues.rows.on_remove(wl.key)
+        _perf.end("apply.rowcache_writeback", _pt)
         cq_name = entry.info.cluster_queue
         wait = max(0.0, self.clock - wl.creation_time)
         lq = self._lq_key(wl)
@@ -1546,16 +1636,22 @@ class Engine:
 
     def _event(self, kind: str, workload: str, cluster_queue: str = "",
                detail: str = "", defer_journal=None) -> None:
-        self._record(EngineEvent(self.clock, kind, workload, cluster_queue,
-                                 detail))
+        ev = EngineEvent(self.clock, kind, workload, cluster_queue, detail)
+        self._record(ev)
         # Every workload transition flows through here: persist the
         # post-transition state. Bulk cycles defer the write to one
         # record per workload at flush time.
         if defer_journal is not None:
             defer_journal.journal_keys.append(workload)
         elif self.journal is not None and workload in self.workloads:
+            _pt = _perf.begin()
             self.journal.apply("workload", self.workloads[workload],
                                ts=self.clock)
+            _perf.end("apply.journal_append", _pt)
+        _pt = _perf.begin()
+        for fn in tuple(self.event_listeners):
+            _call_listener(fn, ev)
+        _perf.end("apply.listener_fanout", _pt)
 
     def _record(self, ev: EngineEvent) -> None:
         self.events.append(ev)

@@ -76,6 +76,14 @@ breaker's state and its counters). The JAX package also counts
 its write is dropped; the port drops it too, and ``pipeline_stats``
 holds the same counts.
 
+With the obs layer attached the bridge reports what the JAX bridge
+reports: ``obs.perf.device_call`` / ``device_result`` on the
+``cycle_step`` call (launches, host-to-device and device-to-host bytes,
+the shape-signature cache), the first through ``emit`` so a speculation
+counts only when it is used; the ``apply.diff_build`` and
+``apply.rowcache_writeback`` scopes; and, while a tracer is on,
+``obs.device.PhaseAnnotator`` profiler ranges per phase.
+
 The module-level ``cq_policy_cfg``, ``adm_padded`` and ``slot_maybe``
 are the numpy argument helpers of the fused-preemption cycle.
 """
@@ -97,6 +105,8 @@ from kueue_tpu_torch.api.types import (
     PreemptionPolicy,
 )
 from kueue_tpu_torch.ops import assign as aops
+from kueue_tpu_torch.obs import perf as _obs_perf
+from kueue_tpu_torch.obs.device import PhaseAnnotator
 from kueue_tpu_torch.ops import commit as cops
 from kueue_tpu_torch.ops import preempt as pops
 from kueue_tpu_torch.ops import quota as qops
@@ -978,6 +988,12 @@ class OracleBridge:
         else:
             def emit(fn, *a):
                 fn(*a)
+        # Profiler ranges mirroring the phase marks: a torch.profiler
+        # capture shows kueue_tpu_torch.oracle.{encode,device,apply,
+        # finalize} around the kernels each phase launched (no-op unless
+        # a cycle tracer is active). Every early return closes it.
+        _ann = PhaseAnnotator()
+        _ann.phase("encode")
         now = eng.clock
         rows = eng.queues.rows
         rows.maybe_compact()
@@ -1019,6 +1035,7 @@ class OracleBridge:
                 break
             active[held] = False
         else:
+            _ann.close()
             return _CycleExit(fallback_reason="held-head-churn")
 
         head_eligible = np.zeros(C, bool)
@@ -1188,6 +1205,7 @@ class OracleBridge:
         device_w = active & wl.eligible & (wl.cq >= 0) \
             & cq_on_device[cq_safe_idx]
         if not device_w.any():
+            _ann.close()
             return _CycleExit(fallback_reason="all-host")
 
         # --- device cycle ---
@@ -1262,13 +1280,18 @@ class OracleBridge:
                 adm_by_root=ap["adm_by_root"],
                 slot_maybe=self._tensor(self._slot_maybe(
                     w, pcfg, adm, self._head_pri(wl, head_wid))))
+        _ann.phase("device")
         inputs = dict(pending=self._tensor(device_w_padded),
                       inadmissible=self._tensor(np.zeros(Wp, bool)),
                       usage=self._tensor(w.usage), **args, **pre_kwargs)
+        # Counted when the call is committed: a speculation's count waits
+        # in ``deferred`` and a discarded one counts nothing.
+        emit(_obs_perf.device_call, "cycle_step", inputs, statics)
         t_call = time.perf_counter()
         out = self._exec_call("cycle_step", self.executor.cycle_step,
                               inputs, statics)
         t_end = time.perf_counter()
+        _ann.close()
         return SimpleNamespace(
             out=out, w=w, wl=wl,
             pending_infos=pending_infos, now=now, W=W, C=C,
@@ -1306,11 +1329,16 @@ class OracleBridge:
                 self._host_root(reason, int(new.size))
                 host_root[new] = True
 
+        _ann = PhaseAnnotator()
+        _ann.phase("device")
+        if _obs_perf.ACTIVE is not None:
+            _obs_perf.device_result("cycle_step", out)
         (new_pending, new_inadmissible, usage2, wl_admitted, slot_admitted,
          slot_position, flavor_of_res, any_oracle, slot_oracle,
          slot_preempting, head_idx, slot_overflow, victim_mask,
          victim_variant) = out
         t_device = time.perf_counter()
+        _ann.phase("apply")
 
         if enc.fused:
             overflow = slot_overflow & cq_on_device
@@ -1401,6 +1429,7 @@ class OracleBridge:
             result.entries.append(e)
             result.stats.skipped += 1
         t_apply = time.perf_counter()
+        _ann.phase("finalize")
         finalize()
         # Phase accounting: encode (snapshot + tensorize + the sim
         # nomination's host fold; TAS planning included, also reported
@@ -1408,6 +1437,7 @@ class OracleBridge:
         # device (the cycle's executor call, transfers included) / apply
         # (decode + cache assume) / finalize (status).
         t_final = time.perf_counter()
+        _ann.close()
         # A fresh cycle ran its device call inside the encode interval;
         # a used speculation ran all of it in the previous cycle, whose
         # wall holds ``spec_encode`` (device time included), and its
@@ -1526,6 +1556,7 @@ class OracleBridge:
                      slot_position, slot_preempting, head_idx,
                      preempt_targets, eng, bulk, result, tas_attach=None):
         admits = []
+        _pt = _obs_perf.begin()
         # The per-slot loop reads its verdict columns through plain
         # Python lists, and the assignment-flyweight key bytes for all
         # slots come from one contiguous tobytes() sliced per slot.
@@ -1580,6 +1611,7 @@ class OracleBridge:
                                   requeue_reason=RequeueReason.NO_FIT)
                     entry.inadmissible_msg = "NoFit (batched oracle)"
                     result.entries.append(entry)
+        _obs_perf.end("apply.diff_build", _pt)
         # Preempt-mode slots whose victim set was selected but whose
         # commit lost are the reference's skipped preemptions
         # (scheduler.go:432): counted like _sequential_cycle does.
@@ -1597,7 +1629,10 @@ class OracleBridge:
                     (cq_name,), skips)
         # The whole cycle's admissions assumed in one flat engine pass;
         # status finalization is deferred to the finalize phase.
-        return eng.bulk_assume_batch(admits, bulk)
+        _pt = _obs_perf.begin()
+        pairs = eng.bulk_assume_batch(admits, bulk)
+        _obs_perf.end("apply.rowcache_writeback", _pt)
+        return pairs
 
     def _make_entry(self, info, w, wls, flavor_of_res, i,
                     topo=None, fbytes=None, ci=None) -> Entry:

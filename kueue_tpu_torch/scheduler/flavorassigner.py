@@ -473,11 +473,21 @@ class FlavorAssigner:
         assignment_usage: dict[FlavorResource, int],
     ) -> tuple[dict[str, FlavorAssignment], list[str], bool]:
         """flavorassigner.go:932 (findFlavorForPodSets). Returns
-        (flavors, reasons, ok)."""
+        (flavors, reasons, ok). With tracing on (obs.hooks.CURRENT set)
+        it reports the flavors tried and the verdict as a
+        ``flavor_search`` rationale event."""
+        from kueue_tpu_torch.obs import hooks as _obs
+
         rg = self.cq.rg_by_resource(res_name)
         if rg is None:
+            if _obs.CURRENT is not None:
+                _obs.emit("flavor_search", self.wl.key, resource=res_name,
+                          tried=[], pmode="NO_FIT",
+                          reasons=[f"resource {res_name} unavailable in "
+                                   "ClusterQueue"])
             return {}, [f"resource {res_name} unavailable in ClusterQueue"], False
 
+        tried: Optional[list] = [] if _obs.CURRENT is not None else None
         reasons: list[str] = []
         group_requests = {r: q for r, q in requests.items()
                           if r in rg.covered_resources}
@@ -492,6 +502,8 @@ class FlavorAssigner:
         while idx < len(flavor_quotas):
             attempted_idx = idx
             f_name = flavor_quotas[idx].name
+            if tried is not None:
+                tried.append(f_name)
             flavor = self.resource_flavors.get(f_name)
             if flavor is None:
                 reasons.append(f"flavor {f_name} not found")
@@ -562,6 +574,12 @@ class FlavorAssigner:
         for fa in best.values():
             fa.tried_flavor_idx = (
                 -1 if attempted_idx == len(flavor_quotas) - 1 else attempted_idx)
+        if tried is not None:
+            _obs.emit("flavor_search", self.wl.key, resource=res_name,
+                      tried=tried, pmode=best_mode.pmode.name,
+                      borrow=best_mode.borrow,
+                      chosen=sorted({fa.name for fa in best.values()}),
+                      reasons=list(reasons))
         ok = bool(best) or not group_requests
         if best_mode.pmode == PMode.FIT:
             return best, [], ok

@@ -290,20 +290,43 @@ class Preemptor:
 
     def __init__(self, enable_fair_sharing: bool = False):
         self.enable_fair_sharing = enable_fair_sharing
+        # Rationale capture (obs.hooks): candidate keys examined during
+        # an explicit get_targets call. None = not collecting — the
+        # flavorassigner's oracle simulations go through _get_targets
+        # directly and stay silent, so the emitted event reflects the
+        # REAL target search, not per-flavor what-ifs.
+        self._considered: Optional[list[str]] = None
 
     def get_targets(self, wl: WorkloadInfo, assignment: Assignment,
                     snapshot: Snapshot, now: float = 0.0) -> list[Target]:
         """preemption.go:129 (GetTargets)."""
+        from kueue_tpu_torch.obs import hooks as _obs
+
         cq = snapshot.cluster_queue(wl.cluster_queue)
-        return self._get_targets(PreemptionCtx(
-            preemptor=wl,
-            preemptor_cq=cq,
-            snapshot=snapshot,
-            workload_usage=assignment.total_requests_for(wl),
-            frs_need_preemption=flavor_resources_need_preemption(
-                assignment),
-            now=now,
-        ))
+        tracing = _obs.CURRENT is not None
+        if tracing:
+            self._considered = []
+        try:
+            targets = self._get_targets(PreemptionCtx(
+                preemptor=wl,
+                preemptor_cq=cq,
+                snapshot=snapshot,
+                workload_usage=assignment.total_requests_for(wl),
+                frs_need_preemption=flavor_resources_need_preemption(
+                    assignment),
+                now=now,
+            ))
+        finally:
+            considered, self._considered = self._considered, None
+        if tracing:
+            _obs.emit(
+                "preemption", wl.key,
+                strategy=("fair" if self.enable_fair_sharing
+                          else "classical"),
+                considered=sorted(set(considered or ())),
+                chosen=sorted([t.workload.key, t.reason]
+                              for t in targets))
+        return targets
 
     def _get_targets(self, ctx: PreemptionCtx) -> list[Target]:
         if self.enable_fair_sharing:
@@ -334,6 +357,8 @@ class Preemptor:
                 cand, reason = gen.next(allow_borrowing)
                 if cand is None:
                     break
+                if self._considered is not None:
+                    self._considered.append(cand.key)
                 ctx.snapshot.remove_workload(cand)
                 targets.append(Target(cand, reason))
                 if _workload_fits(ctx, allow_borrowing):
@@ -348,6 +373,8 @@ class Preemptor:
     def _fair_preemptions(self, ctx: PreemptionCtx) -> list[Target]:
         """preemption.go:491 (fairPreemptions)."""
         candidates = self._find_candidates(ctx)
+        if self._considered is not None:
+            self._considered.extend(w.key for w in candidates)
         if not candidates:
             return []
         candidates.sort(key=lambda c: candidates_ordering_key(

@@ -9,6 +9,8 @@ the manager main), non-HA branch:
         [--http HOST:PORT] [--tick SECONDS] [--device cuda|cpu]
         [--checkpoint-interval N] [--checkpoint-keep N]
         [--segment-records N] [--segment-bytes N] [--min-free-bytes N]
+        [--trace [N]] [--watchdog-deadline S] [--watchdog-hang S]
+        [--shed-rate R]
 
 It rebuilds the engine from ``--journal`` (store/journal.rebuild_engine:
 the newest valid checkpoint plus the journal suffix past it, or a replay
@@ -21,6 +23,8 @@ and loops ``schedule_once`` then ``tick`` (the engine clock follows the
 wall clock), sleeping ``--tick`` seconds after an idle cycle. SIGTERM or
 SIGINT ends the loop; the process prints one JSON line (its heads
 kernel launches, cycle counts, the bridge's ``pipeline_stats``, the
+cycles traced, the watchdog's state and demotions and the ladder's rung
+and transitions, the
 checkpoints written and failed with the mean and maximum seconds of a
 write, the disk budget's free-space checks, and the wall seconds of its
 loop: in ``schedule_once``, of them in the journal's cycle-boundary
@@ -42,6 +46,18 @@ it the journal turns read-only, POST ``/workloads`` answers 503 and the
 loop parks (also on a ``JournalDegraded`` raised mid-cycle) until space
 returns.
 
+Overload and observability, with the JAX package's defaults:
+``--trace [N]`` attaches the admission tracer (obs/tracer.py) with a ring
+of N cycles (64 when N is absent or below 2): span trees at
+``/debug/trace``, one ``cycle_trace`` journal record and event per
+traced cycle. ``--watchdog-deadline`` / ``--watchdog-hang`` attach the
+cycle watchdog (obs/watchdog.py; either one set turns it on, the other
+defaulting to 5x or 1/5 of it), ``--shed-rate`` the SLO engine and the
+token-bucket shedder on POST ``/workloads`` (429 past the rate), and the
+degradation ladder (ha/ladder.py) is always attached; ``/debug/slo``
+shows its rung and the watchdog's breaker. ``/events`` streams the
+engine's events.
+
 The loop and the HTTP handler threads share one lock
 (``visibility/http_server.CycleLock``, requests first between cycles): a
 submit or a view never runs inside a cycle.
@@ -50,13 +66,15 @@ Environment defaults: KUEUE_TPU_JOURNAL, KUEUE_TPU_ORACLE,
 KUEUE_TPU_HTTP_ADDR, KUEUE_TPU_TICK_SECONDS, KUEUE_TPU_AUTH_TOKEN (the
 bearer token), KUEUE_TPU_CKPT_INTERVAL, KUEUE_TPU_CKPT_KEEP,
 KUEUE_TPU_SEGMENT_RECORDS, KUEUE_TPU_SEGMENT_BYTES,
-KUEUE_TPU_MIN_FREE_BYTES, and the bridge's KUEUE_TPU_ORACLE_RETRIES,
-KUEUE_TPU_ORACLE_BREAKER_N and KUEUE_TPU_ORACLE_BREAKER_COOLDOWN.
+KUEUE_TPU_MIN_FREE_BYTES, KUEUE_TPU_TRACE, KUEUE_TPU_WATCHDOG_DEADLINE,
+KUEUE_TPU_WATCHDOG_HANG, KUEUE_TPU_SHED_RATE, and the bridge's
+KUEUE_TPU_ORACLE_RETRIES, KUEUE_TPU_ORACLE_BREAKER_N and
+KUEUE_TPU_ORACLE_BREAKER_COOLDOWN.
 
-Not ported: HA, federation, read replicas, the flight recorder, fault
-injection, tracing, the cycle watchdog and the shedder. Their flags
-(and the environment variables that set them) exit 2 with a message
-naming them; none is ignored.
+Not ported: HA, federation, read replicas, the flight recorder and fault
+injection, and ``--fanout-shards``, which only HA mode reads. Their
+flags (and the environment variables that set them) exit 2 with a
+message naming them; none is ignored.
 """
 
 from __future__ import annotations
@@ -76,13 +94,9 @@ NOT_PORTED = {
     "--replica-id": "KUEUE_TPU_REPLICA_ID",
     "--lease": "KUEUE_TPU_LEASE",
     "--lease-duration": "KUEUE_TPU_LEASE_DURATION",
-    "--fanout-shards": "KUEUE_TPU_FANOUT_SHARDS",
     "--record": "KUEUE_TPU_RECORD",
     "--fault": "KUEUE_TPU_FAULT",
-    "--trace": "KUEUE_TPU_TRACE",
-    "--watchdog-deadline": "KUEUE_TPU_WATCHDOG_DEADLINE",
-    "--watchdog-hang": "KUEUE_TPU_WATCHDOG_HANG",
-    "--shed-rate": "KUEUE_TPU_SHED_RATE",
+    "--fanout-shards": "KUEUE_TPU_FANOUT_SHARDS",
 }
 
 # Bounded-time recovery and the disk budget, as the JAX package's
@@ -127,6 +141,26 @@ def _parse(argv):
         parser.add_argument(flag, type=int,
                             default=int(os.environ.get(env, default)),
                             help=text)
+    parser.add_argument("--trace", nargs="?", const="on",
+                        default=os.environ.get("KUEUE_TPU_TRACE"),
+                        help="attach the admission tracer; the value is"
+                             " its ring of cycles (default 64)")
+    parser.add_argument("--shed-rate", type=float,
+                        default=float(os.environ.get(
+                            "KUEUE_TPU_SHED_RATE", "0")),
+                        help="admission shedder: POST /workloads past R"
+                             " a second answers 429 (0 = off)")
+    parser.add_argument("--watchdog-deadline", type=float,
+                        default=float(os.environ.get(
+                            "KUEUE_TPU_WATCHDOG_DEADLINE", "0")),
+                        help="cycle watchdog deadline in seconds: slower"
+                             " cycles are overruns that feed its breaker"
+                             " (0 = off unless --watchdog-hang is set)")
+    parser.add_argument("--watchdog-hang", type=float,
+                        default=float(os.environ.get(
+                            "KUEUE_TPU_WATCHDOG_HANG", "0")),
+                        help="hung-cycle threshold in seconds (0 = 5x the"
+                             " deadline when the watchdog is on)")
     for flag in NOT_PORTED:
         parser.add_argument(flag, nargs="?", const="", default=None,
                             help="not ported (exits 2)")
@@ -163,6 +197,28 @@ def boot(args):
     return eng, ckpt
 
 
+def _attach_overload(eng, args) -> None:
+    """The cycle watchdog when its flags ask for it, the SLO engine and
+    the shedder with ``--shed-rate``, and always the degradation ladder
+    (it idles at rung 0 until a trigger fires), as the JAX package's
+    serve attaches them."""
+    if args.watchdog_deadline > 0 or args.watchdog_hang > 0:
+        from kueue_tpu_torch.obs.watchdog import attach_watchdog
+        deadline = args.watchdog_deadline or args.watchdog_hang / 5.0
+        hang = args.watchdog_hang or deadline * 5.0
+        attach_watchdog(eng, deadline_s=deadline, hang_after_s=hang)
+    if args.shed_rate > 0 and eng.shedder is None:
+        from kueue_tpu_torch.ha.shedder import AdmissionShedder
+        from kueue_tpu_torch.obs.slo import attach_slo
+        if eng.slo is None:
+            attach_slo(eng)
+        eng.shedder = AdmissionShedder(
+            rate=args.shed_rate, slo=eng.slo, metrics=eng.registry,
+            hub=eng.fanout)
+    from kueue_tpu_torch.ha.ladder import attach_ladder
+    attach_ladder(eng)
+
+
 def main(argv=None) -> None:
     args = _parse(argv)
 
@@ -182,6 +238,13 @@ def main(argv=None) -> None:
     elif args.oracle != "off":
         host, _, port = args.oracle.rpartition(":")
         eng.attach_oracle(remote_address=(host or "127.0.0.1", int(port)))
+    _attach_overload(eng, args)
+    if args.trace:
+        # The flag's value doubles as the retention ring size;
+        # "on"/"true"/"1" keep the default.
+        retain = (int(args.trace) if args.trace.isdigit()
+                  and int(args.trace) > 1 else 64)
+        eng.attach_tracer(retain=retain)
 
     host, _, port = args.http.rpartition(":")
     endpoint = ServingEndpoint(
@@ -227,6 +290,9 @@ def main(argv=None) -> None:
             time.sleep(args.tick)
             loop["sleep"] += time.monotonic() - t3
     endpoint.stop()
+    watchdog = eng.watchdog
+    if watchdog is not None:
+        watchdog.detach()  # stops its hang sampler thread
     eng.journal.close()
     b = eng.oracle
     loop["journal_sync"] = eng.journal.sync_seconds
@@ -235,6 +301,13 @@ def main(argv=None) -> None:
         "cycles_on_device": b.cycles_on_device if b else 0,
         "cycles_fallback": b.cycles_fallback if b else 0,
         "pipeline_stats": dict(b.pipeline_stats) if b else {},
+        "cycles_traced": eng.tracer.cycles_traced if eng.tracer else 0,
+        "watchdog": {k: watchdog.status()[k] for k in (
+            "state", "overruns", "hungCycles", "demotions")}
+        if watchdog else None,
+        "ladder": {"rung": eng.ladder.rung,
+                   "transitions": eng.ladder.transitions},
+        "supervisor_state": b.supervisor.state if b else None,
         "checkpoints_written": ckpt.written if ckpt else 0,
         "checkpoint_failures": ckpt.failures if ckpt else 0,
         "checkpoint_write_mean_s": ckpt.write_s_total / ckpt.written

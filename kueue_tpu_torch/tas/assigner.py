@@ -131,11 +131,27 @@ def _precomputed_failure(tas_requests: dict[str, list], cq_snapshot,
 def apply_tas_pass(assignment: Assignment, wl: WorkloadInfo,
                    cq_snapshot, previous_slice=None) -> None:
     """The flavorassigner.go:783-821 TAS block."""
+    from kueue_tpu_torch.obs import hooks as _obs
+
     tas_requests = workload_tas_requests(assignment, wl, cq_snapshot,
                                          previous_slice=previous_slice)
     if not tas_requests:
         return
-    _apply_tas_pass(assignment, wl, cq_snapshot, tas_requests)
+    if _obs.CURRENT is None:
+        _apply_tas_pass(assignment, wl, cq_snapshot, tas_requests)
+        return
+    before = assignment.representative_mode()
+    try:
+        _apply_tas_pass(assignment, wl, cq_snapshot, tas_requests)
+    finally:
+        # The feasibility verdict, as the span tree records it: the
+        # mode transition the topology pass imposed plus which podsets
+        # got a concrete placement.
+        _obs.emit(
+            "tas", wl.key, before=before.name,
+            after=assignment.representative_mode().name,
+            placed=sorted(psa.name for psa in assignment.pod_sets
+                          if psa.topology_assignment is not None))
 
 
 def _apply_tas_pass(assignment: Assignment, wl: WorkloadInfo,

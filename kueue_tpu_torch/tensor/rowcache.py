@@ -36,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 
+from kueue_tpu_torch.obs import perf as _perf
 from kueue_tpu_torch.workload_info import WorkloadInfo
 
 _INF_TS = np.inf
@@ -432,12 +433,14 @@ class WorkloadRowCache:
         self.bind_world(world)
         if not self._dirty:
             return
+        _pt = _perf.begin()
         cq_idx = {n: i for i, n in enumerate(world.cq_names)}
         s_idx = {n: i for i, n in enumerate(world.resource_names)}
         for i in self._dirty:
             if self.info_of[i] is not None:
                 self._encode_row(i, world, cq_idx, s_idx)
         self._dirty.clear()
+        _perf.end("encode.rowcache_flush", _pt)
 
     def tas_requests(self, i: int) -> tuple:
         """Per-podset TAS request tuples for a row — (pod_set_name,
@@ -628,6 +631,7 @@ class AdmittedRows:
         cache.admitted_dirty.clear()
         if dirty is None and self._tensors is not None:
             return self._tensors
+        _pt = _perf.begin()
         if dirty:
             for key in dirty:
                 info = cache.workloads.get(key)
@@ -657,6 +661,7 @@ class AdmittedRows:
             qr_time=self.qr_time, uid_rank=uid_rank,
             evicted=self.evicted, usage=self.usage,
             live=len(self._row_of))
+        _perf.end("encode.admitted_sync", _pt)
         return self._tensors
 
     @property

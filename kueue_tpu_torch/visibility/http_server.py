@@ -7,18 +7,27 @@ The port of ``kueue_tpu/visibility/http_server.py``, trimmed to:
     400 on a bad body, 200 ``deduplicated`` for a known key, 503 with a
     ``Retry-After`` while the journal's disk budget is degraded, 201
     when accepted;
+  * POST ``/workloads`` through the engine's ``shedder`` when one is
+    attached (``ha/shedder.AdmissionShedder``): 429 with a
+    ``Retry-After`` when the token bucket sheds;
   * GET ``/healthz``, ``/metrics`` (``sync_resource_metrics`` then the
     registry's Prometheus text), ``/debug/dump``, ``/capacity``,
     ``/cohorts``, ``/oracle``, ``/evictions``, ``/clusterqueues``,
     ``/clusterqueues/<cq>/pendingworkloads`` and ``/workloads``;
+  * GET ``/`` and ``/dashboard`` (the dashboard page), ``/debug/trace``,
+    ``/debug/perf`` and ``/debug/slo`` (``visibility/server``'s
+    summaries of the attached obs layer; ``{"enabled": false}`` without
+    it);
+  * GET ``/events``: the server-sent-events stream of the engine's
+    events, from the engine's ``event_listeners`` or, with ``hub=``, from
+    one ``visibility/fanout.FanoutHub`` client queue, with a keep-alive
+    comment every ``heartbeat_seconds``;
   * the bearer token (``auth_token``; ``/healthz`` stays open).
 
-The JAX package's other routes (the ``/events`` stream, the dashboard,
-the trace, perf, SLO, HA, flow-control,
-status, read-plane and federation routes) answer 404 with a body that
-names them as not ported; any other route answers 404 ``not found``.
-Also left out: API priority and fairness, TLS, HA and federation
-front doors, and the shedder.
+The JAX package's other routes (the HA, flow-control, status, read-plane
+and federation routes) answer 404 with a body that names them as not
+ported; any other route answers 404 ``not found``. Also left out: API
+priority and fairness, TLS, and the HA and federation front doors.
 
 The endpoint's ``lock`` (a ``CycleLock``): every request that reads or
 changes the engine holds it, and the serving loop holds it around each
@@ -32,6 +41,13 @@ way, so the lock changes no decision. ``/metrics`` refreshes the
 resource gauges under the lock too, so it needs no escape for a refresh
 racing the loop (the JAX package serves the previous aggregates when its
 refresh raises ``RuntimeError``).
+
+``/events`` never takes the lock: the stream lives as long as its
+client, and holding the lock would stop the loop for good. Its listener
+runs on the scheduling thread inside the cycle and only puts into a
+bounded queue (1,024 events, or the hub's client queue), so a slow
+client drops events and never holds a cycle back; the handler thread
+writes them out.
 """
 
 from __future__ import annotations
@@ -50,12 +66,13 @@ from kueue_tpu_torch.visibility.server import (
     dump_state,
     eviction_summary,
     oracle_stats,
+    perf_summary,
+    slo_summary,
+    trace_summary,
 )
 
 # The JAX package's routes that the port does not serve.
-NOT_PORTED_GET = ("", "/dashboard", "/events",
-                  "/debug/flowcontrol", "/debug/trace", "/debug/perf",
-                  "/debug/slo", "/debug/ha", "/debug/readplane",
+NOT_PORTED_GET = ("/debug/flowcontrol", "/debug/ha", "/debug/readplane",
                   "/cells", "/debug/federation")
 NOT_PORTED_PREFIXES = ("/read/", "/localqueues/")
 NOT_PORTED_POST = ("/federation/revoke",)
@@ -112,7 +129,8 @@ class CycleLock:
             self._cv.notify_all()
 
 
-def make_handler(engine, lock: CycleLock, auth_token=None):
+def make_handler(engine, lock: CycleLock, auth_token=None,
+                 heartbeat_seconds: float = 15.0, hub=None):
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):  # quiet
@@ -175,15 +193,41 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
                     # accepted submit could not be journaled.
                     self._degraded()
                     return
+                shedder = engine.shedder
+                if shedder is not None:
+                    import time as _time
+
+                    v = shedder.admit(_time.time())
+                    if not v["accepted"]:
+                        self._shed(v)
+                        return
                 engine.submit(wl)
             self._send(json.dumps({"accepted": True, "workload": wl.name}),
                        code=201)
 
+        def _shed(self, verdict: dict) -> None:
+            """429 with the JAX front door's body and Retry-After."""
+            data = json.dumps({
+                "accepted": False,
+                "reason": "shed: admission rate limit",
+                "factor": verdict["factor"]}).encode()
+            self.send_response(429)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Retry-After",
+                             str(max(1, int(verdict["retryAfter"]))))
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
         def _degraded(self) -> None:
-            """503 with the JAX front door's body and Retry-After."""
+            """503 with the JAX front door's body and Retry-After: the
+            shedder's hint when one is attached, else the clamp over a
+            1 s base."""
             from kueue_tpu_torch.ha.shedder import clamped_retry_after
 
-            hint = clamped_retry_after(1.0)
+            shedder = engine.shedder
+            hint = (shedder.retry_after_hint() if shedder is not None
+                    else clamped_retry_after(1.0))
             data = json.dumps({
                 "accepted": False,
                 "reason": "journal degraded: disk budget exhausted",
@@ -202,6 +246,15 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
             path = urlparse(self.path).path.rstrip("/")
             if path == "/healthz":
                 self._send('{"status":"ok"}')
+                return
+            if path == "/events":
+                self._serve_events()
+                return
+            if path in ("", "/dashboard"):
+                from kueue_tpu_torch.visibility.dashboard import (
+                    DASHBOARD_HTML,
+                )
+                self._send(DASHBOARD_HTML, content_type="text/html")
                 return
             parts = [p for p in path.split("/") if p]
             with lock.request():
@@ -239,6 +292,12 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
                 return oracle_stats(engine)
             if path == "/evictions":
                 return eviction_summary(engine)
+            if path == "/debug/trace":
+                return trace_summary(engine)
+            if path == "/debug/perf":
+                return perf_summary(engine)
+            if path == "/debug/slo":
+                return slo_summary(engine)
             if parts == ["clusterqueues"]:
                 from kueue_tpu_torch.cli.kueuectl import Kueuectl
                 return Kueuectl(engine).list_cluster_queues()
@@ -256,6 +315,100 @@ def make_handler(engine, lock: CycleLock, auth_token=None):
                 return Kueuectl(engine).list_workloads()
             return None
 
+        def _serve_events(self):
+            """Server-sent events of the engine's EngineEvents (the
+            KueueViz backend's watch stream): ``: connected``, then one
+            ``event: <kind>`` / ``data: <json>`` frame per event, and a
+            ``: keep-alive`` comment after ``heartbeat_seconds`` without
+            one. Never under the cycle lock (module docstring)."""
+            import queue as _queue
+
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "keep-alive")
+            self.end_headers()
+            if hub is not None:
+                self._serve_events_hub()
+                return
+            q: _queue.Queue = _queue.Queue(maxsize=1024)
+
+            def listener(ev):
+                try:
+                    q.put_nowait(ev)
+                except _queue.Full:
+                    pass
+
+            engine.event_listeners.append(listener)
+            try:
+                self.wfile.write(b": connected\n\n")
+                self.wfile.flush()
+                while True:
+                    try:
+                        ev = q.get(timeout=heartbeat_seconds)
+                    except _queue.Empty:
+                        self.wfile.write(b": keep-alive\n\n")
+                        self.wfile.flush()
+                        continue
+                    body = {
+                        "time": ev.time, "kind": ev.kind,
+                        "workload": ev.workload,
+                        "clusterQueue": ev.cluster_queue,
+                        "detail": ev.detail}
+                    if ev.detail.startswith("cid="):
+                        # cycle_trace summaries lead with the
+                        # correlation id: surfaced structured, as the
+                        # join key against journal records and
+                        # /debug/trace rows.
+                        body["cid"] = ev.detail[4:].split(" ", 1)[0]
+                    self.wfile.write(
+                        f"event: {ev.kind}\ndata: {json.dumps(body)}\n\n"
+                        .encode())
+                    self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError, OSError):
+                pass  # client went away
+            finally:
+                try:
+                    engine.event_listeners.remove(listener)
+                except ValueError:
+                    pass
+
+        def _serve_events_hub(self):
+            """Hub-backed SSE: this thread drains one bounded
+            FanoutClient queue; an EVICTED sentinel (the client fell too
+            far behind) closes the stream."""
+            import queue as _queue
+
+            from kueue_tpu_torch.visibility.fanout import EVICTED
+
+            client = hub.subscribe()
+            try:
+                self.wfile.write(b": connected\n\n")
+                self.wfile.flush()
+                while True:
+                    try:
+                        item = client.get(timeout=heartbeat_seconds)
+                    except _queue.Empty:
+                        if client.evicted:
+                            break
+                        self.wfile.write(b": keep-alive\n\n")
+                        self.wfile.flush()
+                        continue
+                    if item is EVICTED:
+                        self.wfile.write(
+                            b"event: evicted\n"
+                            b"data: {\"reason\":\"slow consumer\"}\n\n")
+                        self.wfile.flush()
+                        break
+                    kind, data = item
+                    self.wfile.write(
+                        f"event: {kind}\ndata: {data}\n\n".encode())
+                    self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError, OSError):
+                pass  # client went away
+            finally:
+                hub.unsubscribe(client)
+
     return Handler
 
 
@@ -270,13 +423,18 @@ class ServingEndpoint:
     """The HTTP endpoint over one engine, served from a daemon thread.
     ``auth_token`` requires ``Authorization: Bearer <token>`` on every
     route but /healthz; the serving loop holds ``lock`` (see the module
-    docstring) around each cycle."""
+    docstring) around each cycle. ``heartbeat_seconds`` is the /events
+    keep-alive interval; ``hub`` (a ``visibility/fanout.FanoutHub``
+    attached to the engine) serves /events from its client queues."""
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
-                 auth_token: str = None):
+                 auth_token: str = None, heartbeat_seconds: float = 15.0,
+                 hub=None):
         self.lock = CycleLock()
+        self.hub = hub
         self.httpd = _Server((host, port), make_handler(
-            engine, self.lock, auth_token=auth_token))
+            engine, self.lock, auth_token=auth_token,
+            heartbeat_seconds=heartbeat_seconds, hub=hub))
         self.thread = threading.Thread(target=self.httpd.serve_forever,
                                        daemon=True)
 

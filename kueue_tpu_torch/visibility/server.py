@@ -4,8 +4,10 @@ JSON views of a live engine.
 The port of ``kueue_tpu/visibility/server.py`` (pkg/visibility
 server.go:82, storage/pending_workloads_*.go and the debugger dump,
 pkg/debugger/debugger.go:42), with ``eviction_summary`` over the
-engine's registry. Left out with the tracer, perf telemetry and SLOs:
-``trace_summary``, ``perf_summary`` and ``slo_summary``.
+engine's registry, and the debug bodies of the obs layer:
+``trace_summary`` (/debug/trace), ``perf_summary`` (/debug/perf) and
+``slo_summary`` (/debug/slo, with the ladder, watchdog, disk-budget and
+shedder blocks when those are attached).
 """
 
 from __future__ import annotations
@@ -172,3 +174,56 @@ def dump_state(engine) -> dict:
             "lastCyclePhases": dict(engine.last_cycle_phases),
             "unadmittedByReason": {
                 "/".join(k): v for k, v in engine.unadmitted.per_cq.items()}}
+
+
+def trace_summary(engine) -> dict:
+    """The /debug/trace body: retained per-cycle span trees from the
+    attached CycleTracer (obs/), oldest first, plus enough envelope for
+    a client to know what it is looking at."""
+    tracer = getattr(engine, "tracer", None)
+    if tracer is None:
+        return {"enabled": False, "cycles": []}
+    cycles = tracer.trees()
+    for row in cycles:
+        # Lift the correlation id to the row envelope: the browser-side
+        # join key against journal cycle_trace records, flight-recorder
+        # frames and SSE summaries, without digging into attrs.
+        row["cid"] = row.get("attrs", {}).get("cid")
+    return {"enabled": True,
+            "retain": tracer.retain,
+            "cyclesTraced": tracer.cycles_traced,
+            "lastCid": tracer.last_cid,
+            "cycles": cycles}
+
+
+def perf_summary(engine) -> dict:
+    """The /debug/perf body: apply sub-phase histogram aggregates from
+    the attached PerfRecorder (obs.perf)."""
+    perf = getattr(engine, "perf", None)
+    if perf is None:
+        return {"enabled": False}
+    return {"enabled": True, **perf.summary()}
+
+
+def slo_summary(engine) -> dict:
+    """The /debug/slo body: declarative objectives with their
+    multi-window burn rates (obs.slo), plus the overload posture —
+    degradation-ladder rung and cycle-watchdog breaker — when those
+    components are attached (the one endpoint answering "how degraded
+    are we, and why")."""
+    slo = getattr(engine, "slo", None)
+    out = {"enabled": False} if slo is None else {
+        "enabled": True, **slo.summary()}
+    ladder = getattr(engine, "ladder", None)
+    if ladder is not None:
+        out["ladder"] = ladder.status()
+    watchdog = getattr(engine, "watchdog", None)
+    if watchdog is not None:
+        out["watchdog"] = watchdog.status()
+    budget = getattr(getattr(engine, "journal", None), "budget", None)
+    if budget is not None and budget.enabled:
+        out["diskBudget"] = budget.status()
+    shedder = getattr(engine, "shedder", None)
+    if shedder is not None:
+        out["shedder"] = shedder.status()
+    return out

@@ -35,7 +35,24 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.store.checkpoint",
           "kueue_tpu_torch.store.diskguard",
           "kueue_tpu_torch.ha.digest",
-          "kueue_tpu_torch.ha.shedder"):
+          "kueue_tpu_torch.ha.shedder",
+          "kueue_tpu_torch.ha.ladder",
+          "kueue_tpu_torch.utils.cel",
+          "kueue_tpu_torch.utils.structlog",
+          "kueue_tpu_torch.controllers.dra",
+          "kueue_tpu_torch.obs",
+          "kueue_tpu_torch.obs.hooks",
+          "kueue_tpu_torch.obs.span",
+          "kueue_tpu_torch.obs.tracer",
+          "kueue_tpu_torch.obs.perf",
+          "kueue_tpu_torch.obs.device",
+          "kueue_tpu_torch.obs.slo",
+          "kueue_tpu_torch.obs.watchdog",
+          "kueue_tpu_torch.obs.explain",
+          "kueue_tpu_torch.obs.perfetto",
+          "kueue_tpu_torch.replay.trace",
+          "kueue_tpu_torch.visibility.fanout",
+          "kueue_tpu_torch.visibility.dashboard"):
     assert m in sys.modules, m
 print("isolated")
 """

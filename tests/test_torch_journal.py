@@ -636,3 +636,167 @@ def test_fsync_per_append_as_jax(tmp_path):
         got[name] += (open(path, "rb").read(),)
     assert got["port"] == got["jax"]
     assert got["port"][:3] == (False, 3, True)
+
+
+# -- multi-writer safety (tests/test_journal_multiwriter.py), mirrored --
+
+def _outcome(fn, *a, **kw):
+    try:
+        return ("value", fn(*a, **kw))
+    except Exception as e:  # noqa: BLE001 — the error is the result
+        return ("raised", type(e).__name__, str(e),
+                getattr(e, "expected", None), getattr(e, "found", None))
+
+
+def _multiwriter(name, t, jmod, path):
+    """One of the reference file's handle-level cases, its outcomes."""
+    wl = t.Workload(name="w")
+    if name == "monotonic":
+        j = jmod.Journal(path)
+        return [_outcome(j.apply, "workload", wl),
+                _outcome(j.apply, "workload", wl),
+                _outcome(j.generation_of, "workload", "default/w"),
+                _outcome(j.delete, "workload", "default/w")]
+    if name == "conflict":
+        leader, cli = jmod.Journal(path), jmod.Journal(path)
+        base = cli.generation_of("workload", "default/w")
+        out = [_outcome(leader.apply, "workload", wl),
+               _outcome(cli.apply, "workload", wl,
+                        expected_generation=base)]
+        base = cli.generation_of("workload", "default/w")
+        return out + [_outcome(cli.apply, "workload", wl,
+                               expected_generation=base),
+                      _outcome(leader.apply, "workload", wl)]
+    old = jmod.Journal(path)
+    out = [_outcome(old.apply, "workload", wl),
+           _outcome(old.apply, "workload", wl)]
+    new = jmod.Journal(path)
+    return out + [_outcome(new.generation_of, "workload", "default/w"),
+                  _outcome(new.apply, "workload", wl),
+                  _outcome(old.apply, "workload", wl,
+                           expected_generation=2)]
+
+
+@pytest.mark.parametrize("name", ["monotonic", "conflict", "takeover"])
+def test_multiwriter_handles_match_jax(tmp_path, name):
+    """Generation stamps, a conflict between two handles, and a takeover
+    during a write: the same outcomes (the conflict's expected and found
+    generations included) and the same file bytes in both packages."""
+    got = {}
+    for pkg, (t, _engine, jmod, _kw) in PKGS.items():
+        path = str(tmp_path / f"{pkg}.jsonl")
+        with aligned_uids():
+            got[pkg] = (_multiwriter(name, t, jmod, path),
+                        open(path, "rb").read())
+    assert got["port"] == got["jax"]
+    if name == "conflict":
+        assert got["port"][0][1][:2] == ("raised", "JournalConflict")
+        assert got["port"][0][1][3:] == (0, 1)
+
+
+_WRITER = r"""
+import json, sys, time
+sys.path.insert(0, {repo!r})
+pkg, path, ident, n = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+if pkg == "port":
+    from kueue_tpu_torch.store.journal import Journal, JournalConflict
+    from kueue_tpu_torch.api.types import ClusterQueue, Workload
+else:
+    from kueue_tpu.store.journal import Journal, JournalConflict
+    from kueue_tpu.api.types import ClusterQueue, Workload
+j = Journal(path)
+wins = 0
+for i in range(n):
+    j.apply("workload", Workload(name=f"own-{{ident}}-{{i}}"))
+    while True:
+        base = j.generation_of("cluster_queue", "shared")
+        try:
+            j.apply("cluster_queue", ClusterQueue(name="shared"),
+                    ts=float(base), expected_generation=base)
+            wins += 1
+            break
+        except JournalConflict:
+            time.sleep(0.001)
+print(json.dumps({{"wins": wins}}))
+"""
+
+
+@pytest.mark.parametrize("pair", [("port", "port"), ("jax", "port")])
+def test_two_process_interleaving(tmp_path, pair):
+    """Two OS processes apply to one file, optimistic increments on a
+    shared key with retry: every increment wins exactly once and the
+    key's generations are gap-free in file order, read by either
+    package; with one JAX and one port writer, the file is the two
+    packages' common format."""
+    path = str(tmp_path / "j.jsonl")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = _WRITER.replace("{repo!r}", repr(repo)).replace(
+        "{{", "{").replace("}}", "}")
+    n = 20
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, pkg, path, str(k), str(n)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"})
+        for k, pkg in enumerate(pair)]
+    wins = 0
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err.decode()[-800:]
+        wins += json.loads(out.decode().strip().splitlines()[-1])["wins"]
+    assert wins == 2 * n
+    for jmod in (jjournal, pjournal):
+        j = jmod.Journal(path)
+        assert j.generation_of("cluster_queue", "shared") == 2 * n
+        gens = [r["gen"] for r in j.replay()
+                if r["kind"] == "cluster_queue"]
+        assert gens == list(range(1, 2 * n + 1))
+        own = {r["obj"]["name"] for r in j.replay()
+               if r["kind"] == "workload"}
+        assert len(own) == 2 * n
+        j.close()
+
+
+def test_traced_writer_interleaves_cycle_traces(tmp_path):
+    """A traced port engine journals ``cycle_trace`` records while a
+    second handle (a CLI-style writer) appends workload records between
+    its cycles: the generations stay gap-free per key, the trace records
+    carry the tracer's cids in order, and both packages rebuild the file
+    to the same state, skipping the trace records."""
+    path = str(tmp_path / "j.jsonl")
+    eng = PEngine(device="cpu")
+    eng.create_resource_flavor(ptypes.ResourceFlavor("default"))
+    eng.create_cluster_queue(ptypes.ClusterQueue(
+        name="cq", resource_groups=(ptypes.ResourceGroup(
+            ("cpu",), (ptypes.FlavorQuotas(
+                "default", {"cpu": ptypes.ResourceQuota(3000)}),)),)))
+    eng.create_local_queue(ptypes.LocalQueue("lq", "default", "cq"))
+    pjournal.attach_new_journal(eng, path)
+    tracer = eng.attach_tracer()
+    cli = pjournal.Journal(path)
+    cids = []
+    for i in range(5):
+        eng.clock += 1.0
+        eng.submit(ptypes.Workload(name=f"w{i}", queue_name="lq",
+                                   pod_sets=(ptypes.PodSet(
+                                       "main", 1, {"cpu": 1000}),)))
+        cli.apply("cohort", ptypes.Cohort(f"side-{i}"), ts=eng.clock)
+        if eng.schedule_once() is not None:
+            cids.append(tracer.last_cid)
+    eng.journal.close()
+    cli.close()
+    recs = list(jjournal.Journal(path).replay())
+    traces = [r for r in recs if r["kind"] == "cycle_trace"]
+    assert [r["obj"]["name"] for r in traces] == cids
+    assert len(cids) == 5  # the last two cycles park their heads
+    by_key: dict = {}
+    for r in recs:
+        k = (r["kind"], r.get("key") or r["obj"].get("name"))
+        by_key.setdefault(k, []).append(r["gen"])
+    for k, gens in by_key.items():
+        assert gens == list(range(gens[0], gens[0] + len(gens))), k
+    jeng = jjournal.rebuild_engine(path)
+    peng = pjournal.rebuild_engine(path, device="cpu")
+    assert comparable(pvis.dump_state(peng)) == \
+        comparable(jvis.dump_state(jeng))
+    assert sorted(peng.cache.cohorts) == sorted(jeng.cache.cohorts)
+    assert sum(w.is_admitted for w in peng.workloads.values()) == 3

@@ -11,7 +11,12 @@ rebuilt from the same journal, given the same arrivals and drained
 in-process, both on the default serving loop. /metrics answers 200 with
 the JAX engine's admission, eviction and resource series. An unported
 route answers 404 naming itself, an unported flag exits 2, the bearer
-token guards every route but /healthz, and SIGTERM exits 0. Bounded-time
+token guards every route but /healthz, and SIGTERM exits 0. Tracing and
+overload: with ``--trace 8 --watchdog-deadline 30 --watchdog-hang 120``
+the process ends in the JAX serve process's final state with the same
+flags, its traced cycles equal its journal's ``cycle_trace`` records, and
+its debug views carry the tracer, the ladder and the watchdog;
+``--shed-rate`` answers 429 past the rate. Bounded-time
 recovery: each of the five recovery flags (and its environment
 variable) reaches the journal or the Checkpointer, the process with all
 five serves the JAX serve process's final state, a SIGKILL after
@@ -209,9 +214,10 @@ def test_drain_admits_every_arrival(drained):
     assert idle["phase_samples"]
 
 
-@pytest.mark.parametrize("path", ["/events",
-                                  "/debug/trace", "/clusterqueues/cq-0/status",
-                                  "/read/pending/cq-0", "/dashboard"])
+@pytest.mark.parametrize("path", ["/debug/ha",
+                                  "/debug/flowcontrol",
+                                  "/clusterqueues/cq-0/status",
+                                  "/read/pending/cq-0", "/debug/readplane"])
 def test_unported_route_404(served, path):
     url = served[1]
     with pytest.raises(RuntimeError, match="404"):
@@ -243,7 +249,8 @@ def test_sigterm_exits_0(served, drained):
 @pytest.mark.parametrize("argv", [
     ["--ha"], ["--federate", "a=http://x"], ["--read-replica"],
     ["--record", "t.jsonl"], ["--fault", "sigkill@admission:4"],
-    ["--trace"], ["--watchdog-deadline", "1"], ["--shed-rate", "5"]])
+    ["--replica-id", "r1"], ["--lease", "l.json"],
+    ["--lease-duration", "3"], ["--fanout-shards", "2"]])
 def test_unported_flag_exits_2(argv, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--journal", "unused.jsonl", *argv])
@@ -655,3 +662,87 @@ def test_degraded_journal_answers_503(tmp_path):
     assert got["port"] == got["jax"]
     assert got["port"][0] == 201 and got["port"][1][:2] == (503, "1")
     assert got["port"][2][0] == 200 and got["port"][3] == 201
+
+
+TRACE_ARGS = ("--trace", "8", "--watchdog-deadline", "30",
+              "--watchdog-hang", "120")
+
+
+def test_traced_serve_matches_the_jax_serve_process(tmp_path):
+    """The SMALL world, its arrivals journaled pending, served with
+    ``--trace 8 --watchdog-deadline 30 --watchdog-hang 120`` by the
+    port's process and the JAX package's: the same final state. The
+    port's ``/debug/trace`` counts as many traced cycles as its journal
+    holds ``cycle_trace`` records, with the ring of 8; ``/debug/perf``
+    answers ``{"enabled": false}`` as the JAX serve's does; ``/debug/slo``
+    carries the ladder at rung 0 and the watchdog closed; ``/`` serves the
+    dashboard; SIGTERM's line has the same counts."""
+    ppath, jpath = tmp_path / "port" / "j.jsonl", tmp_path / "jax" / "j.jsonl"
+    for p in (ppath, jpath):
+        p.parent.mkdir()
+    _small_journal(ppath)
+    shutil.copy(ppath, jpath)
+    procs = []
+    try:
+        port, purl, _boot = sw.start_serve(ppath, "local", "cpu",
+                                           timeout=300, extra=TRACE_ARGS)
+        procs.append(port)
+        jax = sw.Proc(["-m", "kueue_tpu.serve", "--journal", str(jpath),
+                       "--oracle", "local", "--http", "127.0.0.1:0",
+                       "--tick", "0.05", *TRACE_ARGS],
+                      env=sw.child_env(JAX_PLATFORMS="cpu"))
+        procs.append(jax)
+        line = jax.wait_line("serving on ", 300)
+        jurl = "http://" + line.split("serving on ")[1].split()[0]
+        states = {"port": _idle_state(purl),
+                  "jax": _idle_state(jurl, dropped_ok=True)}
+        trace = sw.get_json(purl, "/debug/trace")
+        perf = sw.get_json(purl, "/debug/perf")
+        slo = sw.get_json(purl, "/debug/slo")
+        page = sw.get_text(purl, "/")
+        rc, last = port.stop()
+        jrc, _ = jax.stop()
+    finally:
+        for p in procs:
+            if p.p.poll() is None:
+                p.stop(signal.SIGKILL)
+    assert states["port"] == states["jax"]
+    assert (rc, jrc) == (0, 0)
+    recs = [r for r in jjournal.Journal(str(ppath)).replay()
+            if r["kind"] == "cycle_trace"]
+    assert trace["enabled"] and trace["retain"] == 8
+    assert trace["cyclesTraced"] == len(recs) == last["cycles_traced"] > 0
+    assert len(trace["cycles"]) == min(8, len(recs))
+    assert trace["lastCid"] == recs[-1]["obj"]["name"]
+    assert perf == {"enabled": False}
+    assert slo["enabled"] is False
+    assert slo["ladder"]["rung"] == 0 and slo["ladder"]["transitions"] == 0
+    assert slo["watchdog"]["state"] == "closed"
+    assert slo["watchdog"]["deadlineSeconds"] == 30.0
+    assert slo["watchdog"]["hangAfterSeconds"] == 120.0
+    assert last["watchdog"]["state"] == "closed"
+    assert last["ladder"] == {"rung": 0, "transitions": 0}
+    assert page[0].startswith("<!DOCTYPE html>")
+
+
+def test_shed_rate_answers_429_past_the_rate(tmp_path):
+    """``--shed-rate 1``: a burst of POSTs past the bucket answers 429
+    with the JAX front door's body and a Retry-After, and /debug/slo
+    shows the SLO engine and the shedder."""
+    path = tmp_path / "j.jsonl"
+    _small_journal(path, arrivals=False)
+    proc, url, _boot = sw.start_serve(path, "off", "cpu", timeout=300,
+                                      extra=("--shed-rate", "1"))
+    try:
+        codes = []
+        for b in sw.arrival_bodies(sw.SMALL)[:6]:
+            code, body = sw.post(url, "/workloads", b)
+            codes.append(code)
+            if code == 429:
+                assert body["reason"] == "shed: admission rate limit"
+        slo = sw.get_json(url, "/debug/slo")
+    finally:
+        rc, _ = proc.stop()
+    assert rc == 0
+    assert codes[0] == 201 and 429 in codes
+    assert slo["enabled"] and slo["shedder"]["shed"] >= 1
