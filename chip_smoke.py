@@ -215,13 +215,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``/dashboard`` answering 200, and the sidecar's heads launches
      equal to the dispatched device calls. Prints POST
      p50 and p95 and the wall per device cycle beside phases 19 and 21.
+ 29. (after phase 28, alone on the card) the flight recorder
+     (kueue_tpu_torch/bench/replay_world.py over engine_worlds.DEFAULT_ARM
+     cycle_latency, 1,000 ClusterQueues x 50,000 workloads, 1 + 8 cycles
+     on the default loop): (a) the run recorded, the recorder attached
+     with ``bootstrap=True`` once the world is built, gated on phase 22's
+     JAX numbers (a recorded run decides as an unrecorded one), on the
+     trace's decision digest, the crc32 of its frames without ``phases``
+     and ``crc``, its frames and cycles against the JAX recorder's on the
+     same world, and on the heads kernel launched once per dispatched
+     call; (b) the trace replayed in ``both`` mode (a host engine and a
+     device engine side by side), gated on no mismatch of either kind,
+     the replayed digest equal to the recorded one and the device
+     engine's heads launches equal to its dispatched calls; (c) the trace
+     replayed in ``device`` mode under the fault plan
+     ``oracle-crash@cycle:3,delay-verdict@cycle:5:50,
+     oracle-crash-storm@cycle:6:2``, gated on byte-identical decisions,
+     on the faults fired, the injected errors, the delayed calls, the
+     device / hybrid / fallback cycles, the fallback reasons and
+     pipeline_stats against the JAX replayer's on the same trace and
+     plan, and on the heads launches equal to the dispatched calls.
+     Prints the bootstrap seconds, the trace's bytes and frames, each
+     replay's rebuild seconds and the recorded against replayed phase
+     attribution.
 Before the kernel summary it prints each phase's wall seconds.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
 tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
 tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
-tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py and
-tests/test_torch_tas_lifecycle_world.py recompute them). Phases 19 to 21
+tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py,
+tests/test_torch_tas_lifecycle_world.py and
+tests/test_torch_replay_world.py recompute them). Phases 19 to 21
 read the heads launches of the process that launches them (the sidecar,
 or the restarted serve process), from the JSON line it prints when
 stopped. The last two lines are a JSON summary of the kernels and the
@@ -420,6 +444,24 @@ TRACED_EXPECT = dict(
           "000006-f950e287", "000007-6bdfcc11", "000008-86496ffa"],
     launches=9, h2d_bytes=31920048, d2h_bytes=1999881,
     jit=[(0, 1)] + [(1, 0)] * 8)
+# Phase 29 (bench/replay_world.py over DEFAULT_ARM cycle_latency): the
+# JAX recorder's trace of the same run (its decision digest, the crc32 of
+# its frames without phases and crc, its frames, those the bootstrap
+# wrote and its cycle frames) and the JAX replayer's device-mode replay
+# of that trace under replay_world.FAULTS: the faults fired, the
+# proxy's injected errors and delayed calls, and the bridge's device,
+# hybrid and fallback cycles, fallback reasons and pipeline_stats
+# (tests/test_torch_replay_world.py recomputes them).
+REPLAY_EXPECT = dict(
+    digest="e24b560f", masked=0xa1d2a71a, frames=52212,
+    bootstrap_frames=52202, cycles=9,
+    faults=dict(
+        fired=["oracle-crash@cycle:3", "delay-verdict@cycle:5",
+               "oracle-crash-storm@cycle:6:2"],
+        injected_errors=6, delayed_calls=2, on_device=7, hybrid=0,
+        fallback=2, fallback_reasons={"remote-error": 2},
+        pipeline_stats=dict(speculated=5, used=4, discarded=0,
+                            skipped=0)))
 # The heads kernel's device functions, one of which every call launches
 # (heads.cu: the cluster kernel, or the atomic kernel past shared memory).
 HEADS_DEVICE_KERNELS = ("heads_cluster_kernel", "heads_atomic_kernel")
@@ -1858,6 +1900,111 @@ def phase_serve_traced(seed, work, bodies, card):
     return side_last["heads_launches"]
 
 
+def replay_launches(label, heads, info) -> int:
+    """The heads launches since the counter was zeroed, which must equal
+    the executor calls that reached the replay's device engine and the
+    calls its bridge dispatched (device cycles less used speculations,
+    plus every speculation)."""
+    launches = heads.launches
+    ps = info["pipeline_stats"]
+    want = info["on_device"] - ps.get("used", 0) + ps.get("speculated", 0)
+    if launches != info["dispatched"] or launches != want:
+        raise AssertionError(
+            f"{label}: heads kernel launched {launches} times, executor "
+            f"calls {info['dispatched']}, dispatched {want} ({ps})")
+    return launches
+
+
+def phase_replay(heads, card) -> dict:
+    """Phase 29: DEFAULT_ARM cycle_latency flight-recorded, its trace
+    replayed on the host and the card side by side, and replayed on the
+    card under replay_world.FAULTS. Returns the heads launches of each
+    run by path."""
+    from kueue_tpu_torch.bench import engine_worlds as ew
+    from kueue_tpu_torch.bench import replay_world as rw
+
+    work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
+        "_build" / "replay"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    path = str(work / "cycle_latency.jsonl")
+    config = ew.DEFAULT_ARM["cycle_latency"]
+    by_path = {}
+
+    heads.launches = 0
+    t0 = time.perf_counter()
+    r, info = rw.record(config, path)
+    record_s = time.perf_counter() - t0
+    launches = heads.launches
+    pinned = ew.arm_pinned(r)
+    del r  # the recorded engine
+    if pinned != DEFAULT_ARM_EXPECT["cycle_latency"]:
+        raise AssertionError(f"recorded cycle_latency: got {pinned}, want "
+                             f"{DEFAULT_ARM_EXPECT['cycle_latency']}")
+    got = dict(digest=info["digest"], masked=rw.masked_checksum(path),
+               frames=info["frames"],
+               bootstrap_frames=info["bootstrap_frames"],
+               cycles=info["cycles"])
+    want = {k: v for k, v in REPLAY_EXPECT.items() if k != "faults"}
+    print(f"  (a) record: checksum=0x{pinned['checksum']:08x} "
+          f"digest={got['digest']} masked=0x{got['masked']:08x} "
+          f"frames={got['frames']} bootstrap_frames="
+          f"{got['bootstrap_frames']} cycles={got['cycles']} bytes="
+          f"{info['bytes']} bootstrap_s={info['bootstrap_s']:.3f} "
+          f"record_s={record_s:.2f} heads_launches={launches}")
+    if got != want:
+        raise AssertionError(f"recorded trace: got {got}, want {want}")
+    dispatched_calls = (pinned["on_device"]
+                        - pinned["pipeline_stats"]["used"]
+                        + pinned["pipeline_stats"]["speculated"])
+    if launches != info["dispatched"] or launches != dispatched_calls:
+        raise AssertionError(
+            f"record: heads kernel launched {launches} times, executor "
+            f"calls {info['dispatched']}, dispatched {dispatched_calls}")
+    by_path["replay_record"] = launches
+
+    heads.launches = 0
+    t0 = time.perf_counter()
+    report, binfo = rw.replay(config, path, "both")
+    both_s = time.perf_counter() - t0
+    by_path["replay_both"] = replay_launches("both", heads, binfo["device"])
+    print("  (b) replay both: " + "\n      ".join(
+        report.render().splitlines()))
+    print(f"      rebuild_s={binfo['rebuild_s']:.3f} (two engines) "
+          f"replay_s={both_s:.2f} device={binfo['device']} "
+          f"heads_launches={by_path['replay_both']}")
+    if not report.ok or report.mismatches or \
+            report.replayed_digest != info["digest"] or \
+            report.cycles != REPLAY_EXPECT["cycles"]:
+        raise AssertionError("replay both:\n" + report.render())
+    del report, binfo  # its two engines
+
+    heads.launches = 0
+    t0 = time.perf_counter()
+    report, finfo = rw.replay(config, path, "device", faults=rw.FAULTS)
+    faults_s = time.perf_counter() - t0
+    by_path["replay_faults"] = replay_launches("faults", heads,
+                                               finfo["device"])
+    got = dict(fired=finfo["fired"],
+               injected_errors=finfo["injected_errors"],
+               delayed_calls=finfo["delayed_calls"],
+               **{k: finfo["device"][k] for k in (
+                   "on_device", "hybrid", "fallback", "fallback_reasons",
+                   "pipeline_stats")})
+    print(f"  (c) replay device under {rw.FAULTS}: digest="
+          f"{report.replayed_digest} ok={report.ok} {got}")
+    print(f"      rebuild_s={finfo['rebuild_s']:.3f} replay_s={faults_s:.2f} "
+          f"heads_launches={by_path['replay_faults']}")
+    if not report.ok or report.replayed_digest != info["digest"]:
+        raise AssertionError("replay under faults:\n" + report.render())
+    if got != REPLAY_EXPECT["faults"]:
+        raise AssertionError(f"replay under faults: got {got}, want "
+                             f"{REPLAY_EXPECT['faults']}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  heads_launches={sum(by_path.values())} {by_path} | {card}")
+    return by_path
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -2011,6 +2158,10 @@ def main() -> int:
     print("[28] deployed control plane traced: serve + sidecar, /events")
     by_path["serve_traced"] = phase_serve_traced(*serve_seed, card)
     shutil.rmtree(serve_seed[1], ignore_errors=True)
+    span("29")
+    print("[29] flight recorder: cycle_latency recorded, replayed both, "
+          "replayed under faults")
+    by_path.update(phase_replay(heads, card))
     print(f"phase seconds: {spans_line()}")
     print(card)
     print(json.dumps({"kernels": [

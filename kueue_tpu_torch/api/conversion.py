@@ -52,20 +52,29 @@ def register_rename(type_name: str, old: str, new: str | None) -> None:
     FIELD_RENAMES.setdefault(type_name, {})[old] = new
 
 
+# Each dataclass's field names (None for a class that is not one): a
+# journal rebuild converts every live object.
+_KNOWN: dict[type, frozenset | None] = {}
+
+
 def convert_fields(cls: type, kwargs: dict[str, Any]) -> dict[str, Any]:
     """Apply renames, then keep only fields the target dataclass
     declares (unknown-field tolerance)."""
-    renames = FIELD_RENAMES.get(cls.__name__, {})
+    renames = FIELD_RENAMES.get(cls.__name__)
+    if cls in _KNOWN:
+        known = _KNOWN[cls]
+    else:
+        known = _KNOWN[cls] = (
+            frozenset(f.name for f in dataclasses.fields(cls))
+            if dataclasses.is_dataclass(cls) else None)
     out: dict[str, Any] = {}
     for key, value in kwargs.items():
-        if key in renames:
+        if renames and key in renames:
             key = renames[key]
             if key is None:
                 continue
-        out[key] = value
-    if dataclasses.is_dataclass(cls):
-        known = {f.name for f in dataclasses.fields(cls)}
-        out = {k: v for k, v in out.items() if k in known}
+        if known is None or key in known:
+            out[key] = value
     return out
 
 

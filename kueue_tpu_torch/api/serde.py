@@ -87,24 +87,37 @@ def to_jsonable(obj: Any) -> Any:
 
 
 def from_jsonable(data: Any) -> Any:
-    if not _REGISTRY:
-        _auto_register()
+    # Exact-type dispatch first, as in to_jsonable: a journal rebuild or
+    # a trace replay decodes every live object (50,000 workloads at full
+    # width), so leaves are passed through without a call. Subclasses of
+    # dict and list take the isinstance path.
+    cls = type(data)
+    if cls in _PLAIN:
+        return data
+    if cls is list:
+        return tuple([v if type(v) in _PLAIN else from_jsonable(v)
+                      for v in data])
     if isinstance(data, dict):
         if "__t__" in data:
             from kueue_tpu_torch.api.conversion import convert_fields
 
-            cls = _REGISTRY[data["__t__"]]
-            kwargs = {k: from_jsonable(v) for k, v in data.items()
-                      if k != "__t__"}
+            if not _REGISTRY:
+                _auto_register()
+            target = _REGISTRY[data["__t__"]]
+            kwargs = {k: v if type(v) in _PLAIN else from_jsonable(v)
+                      for k, v in data.items() if k != "__t__"}
             # Versioned read: renamed fields map, unknown fields drop,
             # missing fields default (api/conversion.py).
-            return cls(**convert_fields(cls, kwargs))
+            return target(**convert_fields(target, kwargs))
         if "__e__" in data:
             from kueue_tpu_torch.api.conversion import convert_enum_value
 
+            if not _REGISTRY:
+                _auto_register()
             name = data["__e__"]
             return _REGISTRY[name](convert_enum_value(name, data["v"]))
-        return {k: from_jsonable(v) for k, v in data.items()}
+        return {k: v if type(v) in _PLAIN else from_jsonable(v)
+                for k, v in data.items()}
     if isinstance(data, list):
         return tuple(from_jsonable(v) for v in data)
     return data

@@ -444,6 +444,37 @@ class WorkloadStatus:
 
 _uid_counter = itertools.count(1)
 
+# How many times a Workload in this process was given a maximum
+# execution time (a count that only grows): while it is 0 no workload
+# can exceed a budget, and Engine.tick skips its scan of every admitted
+# workload (the serve loop's tick over 50,000 of them).
+_budgets_given = 0
+
+
+def budgets_given() -> int:
+    return _budgets_given
+
+
+class _ExecutionBudget:
+    """``Workload.maximum_execution_time_seconds``: a field like any other
+    (None by default, kept in the instance's ``__dict__`` under its own
+    name) whose setter counts every value but None in ``_budgets_given``;
+    ``__init__``, ``dataclasses.replace`` and assignments all set it."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return None  # the field's default
+        return obj.__dict__[self.name]
+
+    def __set__(self, obj, value):
+        if value is not None:
+            global _budgets_given
+            _budgets_given += 1
+        obj.__dict__[self.name] = value
+
 
 # cmd/experimental/kueue-priority-booster; constants.go:87.
 PRIORITY_BOOST_ANNOTATION = "kueue.x-k8s.io/priority-boost"
@@ -466,7 +497,7 @@ class Workload:
     priority_boost: int = 0  # priority-booster annotation equivalent
     creation_time: float = 0.0
     active: bool = True
-    maximum_execution_time_seconds: Optional[int] = None
+    maximum_execution_time_seconds: Optional[int] = _ExecutionBudget()
     # Elastic scale-up: key of the admitted slice this workload replaces
     # (pkg/workloadslicing annotation equivalent).
     replaced_workload_slice: Optional[str] = None

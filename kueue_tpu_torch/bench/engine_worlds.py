@@ -33,8 +33,9 @@ class Kit:
     new engine, ``attach(engine)`` attaching its oracle, ``tas`` the
     TAS snapshot module (its ``Node`` and ``HOSTNAME_LABEL``), ``afs``
     the admission-fair-sharing module (``AfsManager``, ``_LqUsage``),
-    ``admissionchecks`` the admission-checks module and ``non_tas_usage``
-    the non-TAS pod usage module (its ``PodUsage``)."""
+    ``admissionchecks`` the admission-checks module, ``non_tas_usage``
+    the non-TAS pod usage module (its ``PodUsage``) and ``replay`` the
+    flight recorder package (``FlightRecorder``, ``replay_trace``)."""
 
     types: ModuleType
     scenario: ModuleType
@@ -44,11 +45,13 @@ class Kit:
     afs: ModuleType = None
     admissionchecks: ModuleType = None
     non_tas_usage: ModuleType = None
+    replay: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
     """The port's types, scenarios and Engine, its TAS forests and its
     oracle on ``device`` (CUDA unless the caller asks for the CPU)."""
+    from kueue_tpu_torch import replay
     from kueue_tpu_torch.api import types
     from kueue_tpu_torch.bench import scenario
     from kueue_tpu_torch.controllers import admissionchecks, afs
@@ -59,7 +62,7 @@ def port_kit(device=None) -> Kit:
                lambda fair=False: Engine(enable_fair_sharing=fair,
                                          device=device),
                lambda eng: eng.attach_oracle(device=device), snapshot,
-               afs, admissionchecks, non_tas_usage)
+               afs, admissionchecks, non_tas_usage, replay)
 
 
 # The serving loop's arms: (KUEUE_TPU_PIPELINE, KUEUE_TPU_COLUMNAR).

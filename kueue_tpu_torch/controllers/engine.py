@@ -61,6 +61,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
+from kueue_tpu_torch.api import types as _types
 from kueue_tpu_torch.api.types import (
     ClusterQueue,
     Cohort,
@@ -250,6 +251,9 @@ class Engine:
         self.ladder = None
         self.fanout = None
         self.shedder = None
+        # The HA replica's slot (kueue_tpu/ha): HA is not ported, so it
+        # stays None; a lease-stall fault reads it and raises.
+        self.ha = None
         # Durable store (store/journal.py), via attach_journal(), and the
         # periodic checkpoint writer (store/checkpoint.Checkpointer
         # attaches itself here).
@@ -268,9 +272,9 @@ class Engine:
         self.oracle = None
         # Second-pass retry bookkeeping (second_pass_queue.go backoff).
         self._second_pass_attempts: dict[str, int] = {}
-        # Namespace labels for CQ namespace-selector admissibility (none
-        # are registered in the port: a non-empty selector matches no
-        # namespace).
+        # Namespace labels for CQ namespace-selector admissibility
+        # (set_namespace_labels; a namespace without labels matches no
+        # non-empty selector).
         self.namespace_labels: dict[str, dict[str, str]] = {}
 
     # -- durability (store/journal.py) --
@@ -498,6 +502,18 @@ class Engine:
         self._journal_obj("workload_priority_class",
                           {"name": name, "value": value})
 
+    def set_namespace_labels(self, namespace: str,
+                             labels: dict[str, str]) -> None:
+        """Namespace (re)labeled: workloads parked for a selector
+        mismatch can only be cured by this event, so requeue the
+        inadmissible sets of every selector-bearing CQ (the reference
+        requeues on Namespace update events)."""
+        self.namespace_labels[namespace] = dict(labels)
+        sel_cqs = {n for n, cq in self.cache.cluster_queues.items()
+                   if cq.namespace_selector is not None}
+        if sel_cqs:
+            self.queues.queue_inadmissible_workloads(sel_cqs)
+
     def submit(self, wl: Workload) -> bool:
         if not wl.creation_time:
             wl.creation_time = self.clock
@@ -598,6 +614,11 @@ class Engine:
         """Advance the clock and enforce maximum execution time
         (workload_controller.go:838 reconcileMaxExecutionTime)."""
         self.clock += dt
+        if not _types.budgets_given():
+            # No workload in this process was ever given a budget: none
+            # can exceed one, and the scan below (a dict lookup per
+            # admitted workload, every serve loop iteration) finds none.
+            return
         # The budget test first, in one pass: most admitted workloads
         # carry none, and the condition scans below are the costly part
         # of a tick over tens of thousands of admitted workloads.

@@ -12,9 +12,10 @@ Event Format understood by Perfetto and chrome://tracing. Two lanes:
                       rationale (flavors tried, rejection reasons,
                       preemption candidates vs chosen, TAS verdicts).
 
-The exporter serves live retained spans (CycleTracer). Flight-recorder
-traces (``spans_from_flight_trace``) wait for the flight recorder,
-ROADMAP Queue 1 item 4.
+The exporter serves live retained spans (CycleTracer) and offline
+flight-recorder traces (``spans_from_flight_trace``: phase-level trees
+rebuilt from cycle frames, with correlation ids regenerated
+identically).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import json
 from typing import Iterable
 
-from kueue_tpu_torch.obs.span import Span
+from kueue_tpu_torch.obs.span import Span, correlation_id
 
 PID = 1
 TID_CYCLES = 1
@@ -62,8 +63,42 @@ def write_perfetto(roots: Iterable[Span], path: str) -> int:
 def spans_from_flight_trace(path: str) -> list[Span]:
     """Rebuild phase-level span trees from a flight-recorder trace.
 
-    Needs the flight recorder's ``TraceReader`` (``replay/``), which the
-    port does not have yet: ROADMAP Queue 1 item 4."""
-    raise NotImplementedError(
-        "spans_from_flight_trace needs the flight recorder's TraceReader,"
-        " not ported yet (ROADMAP Queue 1 item 4)")
+    Cycle frames carry everything but wall-clock span bounds; the
+    engine clock becomes the timeline (µs = clock * 1e6) and phases lay
+    end-to-end from it. Workload spans carry the canonical decision
+    record (admissions + preemptions); rationale attributes exist only
+    in live-retained spans."""
+    from kueue_tpu_torch.replay.trace import TraceReader
+
+    roots: list[Span] = []
+    for frame in TraceReader(path):
+        if frame.get("f") != "cycle":
+            continue
+        seq = frame["seq"]
+        decisions = frame.get("decisions", [])
+        phases = frame.get("phases", {})
+        total = sum(phases.values()) * 1e6
+        ts = frame.get("clock", 0.0) * 1e6
+        cid = frame.get("cid") or correlation_id(seq, decisions)
+        admitted = decisions[0] if decisions else []
+        preempting = decisions[1] if len(decisions) > 1 else []
+        root = Span(f"cycle/{seq}", "cycle", ts, total, {
+            "seq": seq, "cid": cid, "mode": frame.get("mode", ""),
+            "clock": frame.get("clock", 0.0),
+            "admitted": len(admitted), "preempting": len(preempting),
+            "digest": frame.get("digest", "")})
+        cursor = ts
+        for phase, secs in phases.items():
+            root.child(f"phase/{phase}", "phase", cursor, secs * 1e6,
+                       seconds=secs)
+            cursor += secs * 1e6
+        for key, cq, pod_sets in admitted:
+            root.child(f"workload/{key}", "workload", ts, 0.0,
+                       decision="admitted", cluster_queue=cq,
+                       flavors={name: dict(flavs)
+                                for name, flavs, *_ in pod_sets})
+        for key, targets in preempting:
+            root.child(f"workload/{key}", "workload", ts, 0.0,
+                       decision="preempting", preemption_chosen=targets)
+        roots.append(root)
+    return roots

@@ -16,9 +16,9 @@ perf_counter captured at attach), matching the Chrome/Perfetto
 trace-event ``ts`` unit so export is a straight mapping.
 
 ``correlation_id`` is the cross-artifact join key: derived purely from
-(cycle seq, canonical decisions), so the tracer and the journal (and the
-flight recorder, once ported) compute the SAME id independently, in this
-package and in the JAX package alike.
+(cycle seq, canonical decisions), so the tracer, the journal and the
+flight recorder compute the SAME id independently, in this package and
+in the JAX package alike.
 """
 
 from __future__ import annotations

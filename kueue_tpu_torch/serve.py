@@ -10,7 +10,7 @@ the manager main), non-HA branch:
         [--checkpoint-interval N] [--checkpoint-keep N]
         [--segment-records N] [--segment-bytes N] [--min-free-bytes N]
         [--trace [N]] [--watchdog-deadline S] [--watchdog-hang S]
-        [--shed-rate R]
+        [--shed-rate R] [--record TRACE] [--fault SPEC]
 
 It rebuilds the engine from ``--journal`` (store/journal.rebuild_engine:
 the newest valid checkpoint plus the journal suffix past it, or a replay
@@ -58,6 +58,16 @@ degradation ladder (ha/ladder.py) is always attached; ``/debug/slo``
 shows its rung and the watchdog's breaker. ``/events`` streams the
 engine's events.
 
+Record and faults, as the JAX package's serve takes them: ``--record
+TRACE`` attaches the flight recorder (replay/recorder.py) with
+``bootstrap=True`` once the engine is rebuilt, so the trace starts with
+the rebuilt world and replays alone (``replay.replay_trace``); SIGTERM
+closes it with its end frame. ``--fault SPEC`` arms a fault plan
+(replay/faults.py, e.g. ``sigkill@admission:N``,
+``oracle-crash@cycle:N``) after the watchdog and the ladder, since the
+``hang`` fault relies on the watchdog's pre-cycle hook stamping the
+cycle start first.
+
 The loop and the HTTP handler threads share one lock
 (``visibility/http_server.CycleLock``, requests first between cycles): a
 submit or a view never runs inside a cycle.
@@ -67,14 +77,15 @@ KUEUE_TPU_HTTP_ADDR, KUEUE_TPU_TICK_SECONDS, KUEUE_TPU_AUTH_TOKEN (the
 bearer token), KUEUE_TPU_CKPT_INTERVAL, KUEUE_TPU_CKPT_KEEP,
 KUEUE_TPU_SEGMENT_RECORDS, KUEUE_TPU_SEGMENT_BYTES,
 KUEUE_TPU_MIN_FREE_BYTES, KUEUE_TPU_TRACE, KUEUE_TPU_WATCHDOG_DEADLINE,
-KUEUE_TPU_WATCHDOG_HANG, KUEUE_TPU_SHED_RATE, and the bridge's
+KUEUE_TPU_WATCHDOG_HANG, KUEUE_TPU_SHED_RATE, KUEUE_TPU_RECORD,
+KUEUE_TPU_FAULT, and the bridge's
 KUEUE_TPU_ORACLE_RETRIES, KUEUE_TPU_ORACLE_BREAKER_N and
 KUEUE_TPU_ORACLE_BREAKER_COOLDOWN.
 
-Not ported: HA, federation, read replicas, the flight recorder and fault
-injection, and ``--fanout-shards``, which only HA mode reads. Their
-flags (and the environment variables that set them) exit 2 with a
-message naming them; none is ignored.
+Not ported: HA (with its uses of the recorder and the fault plan),
+federation, read replicas, and ``--fanout-shards``, which only HA mode
+reads. Their flags (and the environment variables that set them) exit 2
+with a message naming them; none is ignored.
 """
 
 from __future__ import annotations
@@ -94,8 +105,6 @@ NOT_PORTED = {
     "--replica-id": "KUEUE_TPU_REPLICA_ID",
     "--lease": "KUEUE_TPU_LEASE",
     "--lease-duration": "KUEUE_TPU_LEASE_DURATION",
-    "--record": "KUEUE_TPU_RECORD",
-    "--fault": "KUEUE_TPU_FAULT",
     "--fanout-shards": "KUEUE_TPU_FANOUT_SHARDS",
 }
 
@@ -161,6 +170,13 @@ def _parse(argv):
                             "KUEUE_TPU_WATCHDOG_HANG", "0")),
                         help="hung-cycle threshold in seconds (0 = 5x the"
                              " deadline when the watchdog is on)")
+    parser.add_argument("--record",
+                        default=os.environ.get("KUEUE_TPU_RECORD"),
+                        help="flight-record the engine's inputs and "
+                             "decisions into this trace file")
+    parser.add_argument("--fault",
+                        default=os.environ.get("KUEUE_TPU_FAULT"),
+                        help="arm a fault plan (replay/faults.py spec)")
     for flag in NOT_PORTED:
         parser.add_argument(flag, nargs="?", const="", default=None,
                             help="not ported (exits 2)")
@@ -239,6 +255,16 @@ def main(argv=None) -> None:
         host, _, port = args.oracle.rpartition(":")
         eng.attach_oracle(remote_address=(host or "127.0.0.1", int(port)))
     _attach_overload(eng, args)
+    recorder = None
+    if args.record:
+        # Bootstrap frames carry the journal-rebuilt world, then every
+        # input and cycle is captured: the trace replays alone.
+        from kueue_tpu_torch.replay.recorder import FlightRecorder
+        recorder = FlightRecorder(eng, args.record, bootstrap=True,
+                                  label=f"serve:{args.journal}")
+    if args.fault:
+        from kueue_tpu_torch.replay.faults import arm_faults
+        arm_faults(eng, args.fault)
     if args.trace:
         # The flag's value doubles as the retention ring size;
         # "on"/"true"/"1" keep the default.
@@ -289,6 +315,8 @@ def main(argv=None) -> None:
         if result is None:
             time.sleep(args.tick)
             loop["sleep"] += time.monotonic() - t3
+    if recorder is not None:
+        recorder.close()
     endpoint.stop()
     watchdog = eng.watchdog
     if watchdog is not None:
@@ -314,6 +342,7 @@ def main(argv=None) -> None:
         if ckpt and ckpt.written else 0.0,
         "checkpoint_write_max_s": ckpt.write_s_max if ckpt else 0.0,
         "disk_budget_checks": eng.journal.budget.checks,
+
         "loop_s": loop}), flush=True)
 
 

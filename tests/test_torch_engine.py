@@ -697,3 +697,39 @@ def test_mirrored_worlds_carry_uids():
     assert p.uid == w.uid and type(p).__module__.startswith(
         "kueue_tpu_torch")
     assert p.pod_sets[0].requests == {"cpu": 3}
+
+
+def test_execution_budget_given_after_submit():
+    """``tests/test_lifecycle_features.py``'s budget across admissions in
+    each package, the budget given to the submitted object (the port's
+    tick skips its scan only while no workload in the process was ever
+    given one): both evict at the same tick with the same counts."""
+    from kueue_tpu.api import types as jt
+    from kueue_tpu_torch.api import types as pt
+
+    out = []
+    for t, engine in ((jt, JEngine), (pt, lambda: PEngine(device="cpu"))):
+        eng = engine()
+        eng.create_resource_flavor(t.ResourceFlavor("default"))
+        eng.create_cluster_queue(t.ClusterQueue(
+            name="cq", resource_groups=(t.ResourceGroup(("cpu",), (
+                t.FlavorQuotas("default", {"cpu": t.ResourceQuota(
+                    1000)}),)),)))
+        eng.create_local_queue(t.LocalQueue("lq", "default", "cq"))
+        wl = t.Workload(name="w", queue_name="lq", pod_sets=(
+            t.PodSet("main", 1, {"cpu": 400}),))
+        eng.submit(wl)
+        wl.maximum_execution_time_seconds = 100
+        assert t is jt or pt.budgets_given() > 0
+        eng.schedule_once()
+        eng.tick(60.0)
+        eng.evict(wl, "Preempted")
+        eng.schedule_once()
+        seen = [(wl.is_admitted, wl.active)]
+        eng.tick(50.0)
+        seen.append((wl.is_admitted, wl.active,
+                     wl.status.accumulated_past_execution_time_seconds,
+                     dict(wl.status.eviction_counts)))
+        out.append(seen)
+    assert out[1] == out[0]
+    assert out[0][-1][1] is False

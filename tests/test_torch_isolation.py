@@ -50,7 +50,12 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.obs.watchdog",
           "kueue_tpu_torch.obs.explain",
           "kueue_tpu_torch.obs.perfetto",
+          "kueue_tpu_torch.replay",
           "kueue_tpu_torch.replay.trace",
+          "kueue_tpu_torch.replay.recorder",
+          "kueue_tpu_torch.replay.replayer",
+          "kueue_tpu_torch.replay.faults",
+          "kueue_tpu_torch.bench.replay_world",
           "kueue_tpu_torch.visibility.fanout",
           "kueue_tpu_torch.visibility.dashboard"):
     assert m in sys.modules, m

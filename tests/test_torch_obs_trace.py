@@ -5,9 +5,8 @@ the JAX package's.
 ``ObsMirroredEngine`` is ``test_torch_engine.MirroredEngine`` that also
 mirrors ``attach_tracer``, ``attach_perf`` and ``attach_slo``; patched
 in as ``tests/test_obs_trace.py``'s ``Engine`` it runs that file's own
-cases (all but the two that need the flight recorder, not ported), and
-after each one the two tracers must hold the same span trees node by
-node, the same cids, ``trace_cycles_total`` and
+cases, and after each one the two tracers must hold the same span trees
+node by node, the same cids, ``trace_cycles_total`` and
 ``trace_workload_decisions_total``, and the two engines the same events.
 The only fields masked are wall time: a span's ``ts``/``dur`` and its
 phase ``seconds``, and a ``cycle_trace`` event's ``dur_ms=`` and
@@ -15,9 +14,11 @@ phase ``seconds``, and a ``cycle_trace`` event's ``dur_ms=`` and
 file: the tracer on mirrored serving worlds on the serial and the
 default loop and on a TAS world under both path pins, traced runs
 against untraced ones in both packages (decision streams, ``dump_state``
-and journal bytes), the live Perfetto export, explain on a rebuilt
-engine, and the flight-trace export that raises until the flight
-recorder is ported."""
+and journal bytes), the live Perfetto export and explain on a rebuilt
+engine. Its flight-recorder cases run with the port's recorder beside
+the JAX one on each mirrored engine: the two traces hold equal frames
+(``phases`` and ``crc`` masked), and ``spans_from_flight_trace`` of the
+port gives the JAX package's spans of the same trace."""
 
 import json
 import re
@@ -29,12 +30,19 @@ from kueue_tpu.obs import explain_workload as jexplain
 from kueue_tpu.obs import hooks as jhooks
 from kueue_tpu.obs import perf as jperf
 from kueue_tpu.obs import render_explain as jrender
+from kueue_tpu import obs as jobs
+from kueue_tpu.obs import spans_from_flight_trace as jspans_from_flight_trace
 from kueue_tpu.obs import to_perfetto as jto_perfetto
+from kueue_tpu.replay import recorder as jrecorder
 from kueue_tpu_torch.obs import explain_workload as pexplain
 from kueue_tpu_torch.obs import hooks as phooks
 from kueue_tpu_torch.obs import perf as pperf
 from kueue_tpu_torch.obs import render_explain as prender
+from kueue_tpu_torch.obs import spans_from_flight_trace as \
+    pspans_from_flight_trace
 from kueue_tpu_torch.obs import to_perfetto as pto_perfetto
+from kueue_tpu_torch.bench.replay_world import masked_frames
+from kueue_tpu_torch.replay import recorder as precorder
 from test_torch_engine import _ENGINES, MirroredEngine
 
 _WALL = re.compile(r" dur_ms=[0-9.]+| slo=\S+")
@@ -264,11 +272,61 @@ def test_explain_on_journal_rebuilt_engines(tmp_path):
     assert reports[1] == reports[0]
 
 
-def test_flight_trace_export_waits_for_the_recorder(tmp_path):
-    from kueue_tpu_torch.obs import spans_from_flight_trace
+class MirroredFlightRecorder(jrecorder.FlightRecorder):
+    """The JAX package's FlightRecorder, with the port's beside it on a
+    mirrored engine's port twin (``<path>.port``); closing both, the two
+    traces must hold equal frames once ``phases`` and ``crc`` are
+    masked."""
 
-    with pytest.raises(NotImplementedError, match="item 4"):
-        spans_from_flight_trace(str(tmp_path / "t.jsonl"))
+    def __init__(self, engine, path, label="", bootstrap=False, **kw):
+        super().__init__(engine, path, label=label, bootstrap=bootstrap,
+                         **kw)
+        self.twin = precorder.FlightRecorder(
+            engine.port, path + ".port", label=label, bootstrap=bootstrap,
+            **kw)
+
+    def close(self):
+        super().close()
+        self.twin.close()
+        assert self.twin.digest == self.digest
+        assert masked_frames(self.twin.writer.path) == \
+            masked_frames(self.writer.path)
+
+
+def mirrored_spans_from_flight_trace(path):
+    """The JAX package's offline export, held against the port's of the
+    same trace and of the port's own trace beside it."""
+    want = [r.to_dict() for r in jspans_from_flight_trace(path)]
+    for p in (path, path + ".port"):
+        got = [r.to_dict() for r in pspans_from_flight_trace(p)]
+        assert [masked_tree(t) for t in got] == \
+            [masked_tree(t) for t in want]
+    assert [r.to_dict() for r in pspans_from_flight_trace(path)] == want
+    return jspans_from_flight_trace(path)
+
+
+@pytest.fixture
+def recorded_mirrored(obs_mirrored, monkeypatch):
+    monkeypatch.setattr(jrecorder, "FlightRecorder", MirroredFlightRecorder)
+    monkeypatch.setattr(jobs, "spans_from_flight_trace",
+                        mirrored_spans_from_flight_trace)
+
+
+FLIGHT_CASES = [
+    ("TestCorrelation", "test_cid_joins_flight_trace_and_journal"),
+    ("TestCorrelation", "test_traced_run_digest_identical_to_untraced"),
+    ("TestPerfettoExport", "test_offline_export_from_flight_trace"),
+]
+
+
+@pytest.mark.parametrize("cls,name", FLIGHT_CASES,
+                         ids=[f"{c}.{n}" for c, n in FLIGHT_CASES])
+def test_flight_recorder_case_mirrored(recorded_mirrored, cls, name,
+                                       tmp_path):
+    """The reference's flight-recorder cases, the port's recorder beside
+    the JAX one on every mirrored engine (frames equal, masked) and the
+    port's offline Perfetto export beside the JAX one (spans equal)."""
+    getattr(getattr(ref, cls)(), name)(tmp_path)
 
 
 def test_live_perfetto_documents_match(obs_mirrored):

@@ -248,7 +248,6 @@ def test_sigterm_exits_0(served, drained):
 
 @pytest.mark.parametrize("argv", [
     ["--ha"], ["--federate", "a=http://x"], ["--read-replica"],
-    ["--record", "t.jsonl"], ["--fault", "sigkill@admission:4"],
     ["--replica-id", "r1"], ["--lease", "l.json"],
     ["--lease-duration", "3"], ["--fanout-shards", "2"]])
 def test_unported_flag_exits_2(argv, capsys):
@@ -746,3 +745,80 @@ def test_shed_rate_answers_429_past_the_rate(tmp_path):
     assert rc == 0
     assert codes[0] == 201 and 429 in codes
     assert slo["enabled"] and slo["shedder"]["shed"] >= 1
+
+
+def _tiny_journal(path) -> None:
+    """Two ClusterQueues of 4 CPUs in a cohort and 12 pending one-CPU
+    workloads (8 fit), journaled by the port."""
+    from kueue_tpu_torch.controllers.engine import Engine
+
+    t = ptypes
+    eng = Engine(device="cpu")
+    eng.create_resource_flavor(t.ResourceFlavor("default"))
+    eng.create_cohort(t.Cohort("co"))
+    for i in range(2):
+        eng.create_cluster_queue(t.ClusterQueue(
+            name=f"cq{i}", cohort="co",
+            resource_groups=(t.ResourceGroup(("cpu",), (t.FlavorQuotas(
+                "default", {"cpu": t.ResourceQuota(4000)}),)),)))
+        eng.create_local_queue(t.LocalQueue(f"lq{i}", "default", f"cq{i}"))
+    for i in range(12):
+        eng.clock += 0.01
+        eng.submit(t.Workload(name=f"w{i}", queue_name=f"lq{i % 2}",
+                              pod_sets=(t.PodSet("main", 1,
+                                                 {"cpu": 1000}),)))
+    pjournal.attach_new_journal(eng, str(path)).close()
+
+
+def test_record_with_a_sigkill_fault_then_restart(tmp_path):
+    """``--record`` with ``--fault sigkill@admission:5`` on a tiny
+    journal: the process dies by SIGKILL mid-apply (two admissions a
+    cycle, so in its third cycle); restarted without the fault it drains
+    to the JAX engine's final state of the same journal; the torn trace
+    (no end frame) replays through both packages' replayers up to its
+    last whole cycle."""
+    from kueue_tpu import replay as jreplay
+    from kueue_tpu_torch import replay as preplay
+
+    path, seed, trace = (tmp_path / "j.jsonl", tmp_path / "seed.jsonl",
+                         tmp_path / "t.jsonl")
+    _tiny_journal(path)
+    shutil.copy(path, seed)
+    procs = []
+    try:
+        first, _, _ = sw.start_serve(
+            path, "local", "cpu", timeout=120,
+            extra=("--record", str(trace), "--fault",
+                   "sigkill@admission:5"))
+        procs.append(first)
+        assert first.p.wait(120) == -signal.SIGKILL, first.tail()
+        second, url, boot = sw.start_serve(path, "local", "cpu",
+                                           timeout=120)
+        procs.append(second)
+        sw.wait_idle(url, 120, dump_every=0.3, settle=0.5)
+        got = sw.final_state(sw.get_json(url, "/workloads"),
+                             sw.get_json(url, "/debug/dump"))
+        rc, last = second.stop()
+    finally:
+        for p in procs:
+            if p.p.poll() is None:
+                p.stop(signal.SIGKILL)
+    jeng = jjournal.rebuild_engine(str(seed))
+    sw.drain_in_process(jeng)
+    assert got == sw.final_state(*sw.engine_views(jeng, jvis.dump_state,
+                                                  jkueuectl))
+    assert got["admitted"] == 8
+    assert rc == 0 and last["cycle_seq"] > 0
+
+    frames = list(preplay.TraceReader(str(trace)))
+    assert frames[0]["method"] == "create_cohort"
+    assert sum(1 for f in frames if f["f"] == "input"
+               and f["method"] == "restore_workload") == 12
+    cycles = [f for f in frames if f["f"] == "cycle"]
+    assert len(cycles) == 2 and all(len(f["decisions"][0]) == 2
+                                    for f in cycles)
+    for report in (preplay.replay_trace(str(trace), "host", device="cpu"),
+                   preplay.replay_trace(str(trace), "device", device="cpu"),
+                   jreplay.replay_trace(str(trace), "host")):
+        assert report.truncated and report.cycles == 2
+        assert report.ok, report.render()
