@@ -112,7 +112,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      new device cycle), frame bytes per device call each way, POST p50
      and p95 latency, the drain seconds, the serve loop's wall split,
      its pipeline_stats and the scrape's bytes and seconds;
- 20. crash and restart with bounded-time recovery: the same world with
+ 20. (beside phases 21, 28, 29 and 30) crash and restart with
+     bounded-time recovery: the same world with
      ``--oracle local``, checkpoints every 12 non-idle cycles (2 kept),
      segments of 20,000 records and a disk budget of 1 MiB free; the
      serve process SIGKILLed after 30 device cycles, once retention has
@@ -132,7 +133,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      its dispatched device calls, the port's recover_engine of the whole
      journal set (every segment, the active file, the checkpoints)
      coming through a checkpoint with the admitted-state digest of the
-     genesis replay (prove_genesis), and its rebuild_engine coming
+     genesis replay (prove_genesis, in a child process while this one
+     checks the rest), and its rebuild_engine coming
      through a checkpoint and, drained to idle on the host, giving the
      live engine's dump_state. Prints both boots' seconds (genesis and
      checkpoint), the checkpoints written, their write seconds (mean and
@@ -140,8 +142,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      budget's statvfs checks and cost, and two ways to check a written
      checkpoint: a load of it (parse and count) against a read-back of
      its bytes;
- 21. (beside phase 20: both are gates on processes of their own) the
-     breaker on the card, posting the first 250 arrivals (a quarter) to
+ 21. (beside phases 20 and 30: each is a gate on processes of its
+     own) the breaker on the card, posting the first 250 arrivals (a quarter) to
      a copy of the journal: the sidecar run as ``--fault crash-after:3`` and
      KUEUE_TPU_ORACLE_BREAKER_COOLDOWN=2; once ``breaker-open`` shows in
      /oracle the sidecar is restarted on the same port. Gated on
@@ -197,8 +199,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the watchdog closed with no demotion anywhere. Prints the
      traced p50 and p95 beside phase 22's and the per-cycle medians of
      the apply and encode sub-phases;
- 28. (after phase 27, which runs alone on the card) the deployed
-     process traced (kueue_tpu_torch/bench/serve_traced.py, whose main
+ 28. (after phase 21 in its thread, beside phases 20, 29 and 30) the
+     deployed process traced (kueue_tpu_torch/bench/serve_traced.py, whose main
      runs the same schedule untraced beside it): ``python -m
      kueue_tpu_torch.serve`` with the sidecar on the card and ``--trace
      64 --watchdog-deadline 30 --watchdog-hang 120`` on its own copy of
@@ -215,7 +217,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``/dashboard`` answering 200, and the sidecar's heads launches
      equal to the dispatched device calls. Prints POST
      p50 and p95 and the wall per device cycle beside phases 19 and 21.
- 29. (after phase 28, alone on the card) the flight recorder
+ 29. (after phase 30 in its thread, beside phases 20 and 28, in a
+     process of its own that prints its lines and its heads launches)
+     the flight recorder
      (kueue_tpu_torch/bench/replay_world.py over engine_worlds.DEFAULT_ARM
      cycle_latency, 1,000 ClusterQueues x 50,000 workloads, 1 + 8 cycles
      on the default loop): (a) the run recorded, the recorder attached
@@ -238,17 +242,49 @@ Phases, in order; any failure raises and the script exits non-zero:
      Prints the bootstrap seconds, the trace's bytes and frames, each
      replay's rebuild seconds and the recorded against replayed phase
      attribution.
-Before the kernel summary it prints each phase's wall seconds.
+ 30. (beside phases 20, 21 and 28: a gate on processes of its own) the HA
+     serving plane and the read plane on serve_world's journal
+     (kueue_tpu_torch/ha, kueue_tpu_torch/readplane): leader A (``serve
+     --ha --oracle local``, its lease 3 s, ``--fault sigkill@admission:N``)
+     drains the seeded backlog; follower B and read replica R (``serve
+     --read-replica``) start once A leads; the first 100 arrivals are
+     POSTed to A at 200 a second once the backlog is admitted and R holds
+     it, and A dies at the 40th arrival's admission (mid-apply, after its
+     ``ha_digest`` records); B takes the lease at expiry, promotes at
+     epoch 2 with a verified report against a real checkpoint, takes all
+     100 arrivals again (200 or 201) and drains; a ReadFrontend that
+     knows only R queries pending and quota every 0.5 s throughout.
+     Gated on A's -SIGKILL and B's and R's 0, 30 to 50 arrivals journaled
+     admitted at the kill, no admission lost across it and none twice,
+     every arrival admitted once, usage within quota, B's and R's
+     admitted-state digest equal to a cold ``rebuild_engine`` of the
+     final journal on the CPU, R's ``canonical_answer`` byte-equal to
+     that rebuild's (sha256) and its pending and quota answers equal,
+     every read answered by R with a staleness stamp within 10 s, before
+     and after the kill, no ``visibility_queries_total`` sample on A or
+     B, and B's heads launches equal to its dispatched device calls.
+     Prints the boot seconds of A, B and R, the promotion split (lease
+     wait, replay, verify), POST p50 and p95 to A and B, the maximum
+     staleness, the drain, the wall per device cycle, B's memory and the
+     phase's marks.
+Before the kernel summary it prints each phase's wall seconds; the
+phases that run side by side share one span. Every child process runs in a session and process group of its own and is
+registered from its spawn (kueue_tpu_torch/bench/serve_world.py); when
+the phases end, or one fails, every registered child is killed and
+reaped, and the script looks in /proc for any process left below it or
+in one of those sessions and in ``nvidia-smi --query-compute-apps`` for
+another process on the card: it kills what it finds and fails without a
+result line.
 The expected decisions are the JAX package's own on the same scenarios
 (tests/test_torch_drain.py, tests/test_torch_tas_feasibility.py,
 tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
 tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
 tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py,
 tests/test_torch_tas_lifecycle_world.py and
-tests/test_torch_replay_world.py recompute them). Phases 19 to 21
-read the heads launches of the process that launches them (the sidecar,
-or the restarted serve process), from the JSON line it prints when
-stopped. The last two lines are a JSON summary of the kernels and the
+tests/test_torch_replay_world.py recompute them). Phases 19 to 21,
+28, 29 and 30 read the heads launches of the process that launches them
+(the sidecar, the restarted serve process, phase 29's process or the
+promoted leader), from the JSON line it prints. The last two lines are a JSON summary of the kernels and the
 result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -1131,8 +1167,8 @@ def check_serve_state(sw, views, label, say=print, expect=None):
     expect = expect or SERVE_EXPECT
     got = sw.final_state(*views)
     say(f"  {label}: checksum=0x{got['checksum']:08x} "
-          f"admitted={got['admitted']} "
-          f"arrivals_admitted={got['arrivals_admitted']}")
+        f"admitted={got['admitted']} "
+        f"arrivals_admitted={got['arrivals_admitted']}")
     if got != expect:
         raise AssertionError(f"{label}: got {got}, want {expect}")
 
@@ -1188,10 +1224,9 @@ def check_arrivals_once(sw, path, label, arrivals):
 
 
 def stop_all(procs):
+    """SIGKILL each Proc's process group and reap it."""
     for p in procs:
-        if p.p.poll() is None:
-            p.p.kill()
-            p.p.wait()
+        p.kill()
 
 
 def phase_serve(seed, work, bodies, card):
@@ -1359,6 +1394,109 @@ def statvfs_s(path, n=20_000) -> float:
     return (time.perf_counter() - t0) / n
 
 
+def _restart_checks(store, reposted, path, work, copy, bodies, before,
+                    views, capacity, cohorts, last2):
+    """Phase 20's checks of the journal set and the checkpoints after
+    the restarted serve process stopped, and the port's rebuild_engine
+    of the set (``copy``) against the live engine's dump. Returns what
+    the phase prints."""
+    from kueue_tpu_torch.bench import serve_world as sw
+    from kueue_tpu_torch.store.journal import (
+        read_active_ordinal,
+        rebuild_engine,
+    )
+    from kueue_tpu_torch.visibility.server import dump_state
+
+    # Every checkpoint file loads clean. Each load is also what the JAX
+    # package's write does to check a checkpoint it wrote, and what its
+    # retention does for each file (live_metas); the port reads the
+    # bytes back, and reads the headers for retention: both timed here.
+    ckpts = store._indexed()
+    bad, load_s, readback_s = [], [], []
+    for i, p in ckpts:
+        data = Path(p).read_bytes()
+        t0 = time.perf_counter()
+        loaded = store.load(i, p)
+        t1 = time.perf_counter()
+        with open(p, "rb") as fh:
+            same = fh.read() == data
+        readback_s.append(time.perf_counter() - t1)
+        load_s.append(t1 - t0)
+        if loaded is None or not same:
+            bad.append(p)
+    if not ckpts or bad:
+        raise AssertionError(f"checkpoints {ckpts}: {bad} do not load")
+    t0 = time.perf_counter()
+    metas = store.live_metas()
+    live_metas_s = time.perf_counter() - t0
+    if [m.index for m in metas] != [i for i, _p in reversed(ckpts)]:
+        raise AssertionError(f"live_metas {metas} against files {ckpts}")
+    if set(reposted["codes"]) - {200, 201}:
+        raise AssertionError(f"re-POST codes {sorted(set(reposted['codes']))}")
+    if sw.torn_tail(path):
+        raise AssertionError("the journal's torn tail was not repaired")
+    sealed = read_active_ordinal(str(path))
+    left = sorted(s.name[-6:] for s in work.glob("p20.jsonl.seg*"))
+    after = check_arrivals_once(sw, copy, "arrivals", len(bodies))
+    lost = before["admitted"] - set(views[1]["admitted"])
+    if lost or not before["admitted"] <= after["admitted"]:
+        raise AssertionError(f"{len(lost)} admissions lost in the restart")
+    if max(after["transitions"].values()) != 1:
+        raise AssertionError("a workload was admitted twice")
+    check_usage(capacity, cohorts)
+    got = sw.final_state(*views)
+    if got["arrivals_admitted"] != len(bodies):
+        raise AssertionError(f"arrivals admitted {got}")
+    if last2["heads_launches"] != dispatched(dict(
+            on_device=last2["cycles_on_device"],
+            pipeline_stats=last2["pipeline_stats"])):
+        raise AssertionError(f"restarted serve: heads launches "
+                             f"{last2['heads_launches']}, device cycles "
+                             f"{last2['cycles_on_device']}, pipeline_stats "
+                             f"{last2['pipeline_stats']}")
+    # The port's rebuild_engine of the same set, drained to idle on the
+    # host (the parked workloads it re-activates park again), comes
+    # through a checkpoint and gives the live engine's dump.
+    t0 = time.perf_counter()
+    eng = rebuild_engine(str(copy), device="cpu")
+    rebuild_s = time.perf_counter() - t0
+    if eng.rebuild_source != "checkpoint":
+        raise AssertionError(f"final rebuild from {eng.rebuild_source}")
+    sw.drain_in_process(eng)
+    eng.journal.close()
+    rebuilt = json.loads(json.dumps(dump_state(eng)))
+    live = views[1]
+    # The phases and the unadmitted gauges are the process's own, never
+    # journaled: a rebuild starts them empty.
+    for d in (rebuilt, live):
+        d.pop("lastCyclePhases")
+        d.pop("unadmittedByReason")
+    if rebuilt != live:
+        raise AssertionError("rebuild_engine of the final journal set "
+                             "differs from the live engine's dump_state")
+    return (ckpts, load_s, readback_s, live_metas_s, sealed, left, got,
+            eng, rebuild_s)
+
+
+def start_recover_proof(copy):
+    """A child process that runs ``recover_engine(prove_genesis=True)``
+    on the CPU over the journal set at ``copy`` and prints one JSON
+    line: its seconds and the report's source, record counts, states
+    and ``identical``."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    return sw.Proc(["-c", (
+        "import gc, json, time\n"
+        "from kueue_tpu_torch.store.checkpoint import recover_engine\n"
+        "gc.disable()\n"
+        "t0 = time.perf_counter()\n"
+        f"_eng, report = recover_engine({str(copy)!r}, {{'device': 'cpu'}},"
+        " prove_genesis=True)\n"
+        "print(json.dumps({'s': time.perf_counter() - t0, **{k: report[k]"
+        " for k in ('source', 'base_records', 'suffix_records', 'state',"
+        " 'genesis_state', 'identical')}}))\n")])
+
+
 def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
     """Phase 20: the serve process (oracle in-process) with checkpoints,
     segment rotation and the disk budget on, SIGKILLed after
@@ -1369,15 +1507,7 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
     import os
 
     from kueue_tpu_torch.bench import serve_world as sw
-    from kueue_tpu_torch.store.checkpoint import (
-        CheckpointStore,
-        recover_engine,
-    )
-    from kueue_tpu_torch.store.journal import (
-        read_active_ordinal,
-        rebuild_engine,
-    )
-    from kueue_tpu_torch.visibility.server import dump_state
+    from kueue_tpu_torch.store.checkpoint import CheckpointStore
 
     path = work / "p20.jsonl"
     seg0 = work / "p20.jsonl.seg000000"
@@ -1435,87 +1565,27 @@ def phase_restart(seed, work, bodies, card, kill_after=30, say=print):
         raise AssertionError(
             f"restarted serve: {last2['checkpoints_written']} checkpoints "
             f"written, {last2['checkpoint_failures']} failed")
-    # Every checkpoint file loads clean. Each load is also what the JAX
-    # package's write does to check a checkpoint it wrote, and what its
-    # retention does for each file (live_metas); the port reads the
-    # bytes back, and reads the headers for retention: both timed here.
-    ckpts = store._indexed()
-    bad, load_s, readback_s = [], [], []
-    for i, p in ckpts:
-        data = Path(p).read_bytes()
-        t0 = time.perf_counter()
-        loaded = store.load(i, p)
-        t1 = time.perf_counter()
-        with open(p, "rb") as fh:
-            same = fh.read() == data
-        readback_s.append(time.perf_counter() - t1)
-        load_s.append(t1 - t0)
-        if loaded is None or not same:
-            bad.append(p)
-    if not ckpts or bad:
-        raise AssertionError(f"checkpoints {ckpts}: {bad} do not load")
-    t0 = time.perf_counter()
-    metas = store.live_metas()
-    live_metas_s = time.perf_counter() - t0
-    if [m.index for m in metas] != [i for i, _p in reversed(ckpts)]:
-        raise AssertionError(f"live_metas {metas} against files {ckpts}")
-    if set(reposted["codes"]) - {200, 201}:
-        raise AssertionError(f"re-POST codes {sorted(set(reposted['codes']))}")
-    if sw.torn_tail(path):
-        raise AssertionError("the journal's torn tail was not repaired")
     # The whole journal set: every segment the two processes sealed
     # (kept aside), the active file, and, once the genesis chain has
-    # been read, the checkpoints.
-    sealed = read_active_ordinal(str(path))
-    left = sorted(s.name[-6:] for s in work.glob("p20.jsonl.seg*"))
+    # been read, the checkpoints. Its checkpoint-plus-suffix recovery
+    # against the genesis replay of every record runs in a child on the
+    # host's CPU while this thread checks the rest.
     copy = keeper.chain(work / "p20-rebuild")
-    after = check_arrivals_once(sw, copy, "arrivals", len(bodies))
-    lost = before["admitted"] - set(views[1]["admitted"])
-    if lost or not before["admitted"] <= after["admitted"]:
-        raise AssertionError(f"{len(lost)} admissions lost in the restart")
-    if max(after["transitions"].values()) != 1:
-        raise AssertionError("a workload was admitted twice")
-    check_usage(capacity, cohorts)
-    got = sw.final_state(*views)
-    if got["arrivals_admitted"] != len(bodies):
-        raise AssertionError(f"arrivals admitted {got}")
-    if last2["heads_launches"] != dispatched(dict(
-            on_device=last2["cycles_on_device"],
-            pipeline_stats=last2["pipeline_stats"])):
-        raise AssertionError(f"restarted serve: heads launches "
-                             f"{last2['heads_launches']}, device cycles "
-                             f"{last2['cycles_on_device']}, pipeline_stats "
-                             f"{last2['pipeline_stats']}")
     shutil.copytree(store.directory, copy.parent / "p20.jsonl.ckpt")
-    # Checkpoint plus suffix against the genesis replay of every record.
-    t0 = time.perf_counter()
-    _eng, report = recover_engine(str(copy), {"device": "cpu"},
-                                  prove_genesis=True)
-    prove_s = time.perf_counter() - t0
-    del _eng
+    prover = start_recover_proof(copy)
+    try:
+        proof = _restart_checks(store, reposted, path, work, copy, bodies,
+                                before, views, capacity, cohorts, last2)
+        report = json.loads(prover.wait_line('"identical"', 600))
+        prover.stop()
+    finally:
+        prover.kill()
     if report["source"] != "checkpoint" or not report["identical"]:
         raise AssertionError(f"recover_engine(prove_genesis=True): "
                              f"{report}")
-    # The port's rebuild_engine of the same set, drained to idle on the
-    # host (the parked workloads it re-activates park again), comes
-    # through a checkpoint and gives the live engine's dump.
-    t0 = time.perf_counter()
-    eng = rebuild_engine(str(copy), device="cpu")
-    rebuild_s = time.perf_counter() - t0
-    if eng.rebuild_source != "checkpoint":
-        raise AssertionError(f"final rebuild from {eng.rebuild_source}")
-    sw.drain_in_process(eng)
-    eng.journal.close()
-    rebuilt = json.loads(json.dumps(dump_state(eng)))
-    live = views[1]
-    # The phases and the unadmitted gauges are the process's own, never
-    # journaled: a rebuild starts them empty.
-    for d in (rebuilt, live):
-        d.pop("lastCyclePhases")
-        d.pop("unadmittedByReason")
-    if rebuilt != live:
-        raise AssertionError("rebuild_engine of the final journal set "
-                             "differs from the live engine's dump_state")
+    (ckpts, load_s, readback_s, live_metas_s, sealed, left, got, eng,
+     rebuild_s) = proof
+    prove_s = report["s"]
     per_statvfs = statvfs_s(str(work))
     say(f"  killed after {kill_after} device cycles: torn_tail={torn} "
         f"admitted_before_kill={len(before['admitted'])} "
@@ -1604,8 +1674,8 @@ def phase_breaker(seed, work, bodies, card, say=print):
         stop_all(procs)
     fb = idle["oracle"]["fallbackReasons"]
     say(f"  at demotion: cyclesOnDevice={demoted['cyclesOnDevice']} "
-          f"fallbackReasons={demoted['fallbackReasons']}; final: "
-          f"cyclesOnDevice={last['cycles_on_device']} fallbackReasons={fb}")
+        f"fallbackReasons={demoted['fallbackReasons']}; final: "
+        f"cyclesOnDevice={last['cycles_on_device']} fallbackReasons={fb}")
     if (side_rc, rc, rc2) != (17, 0, 0):
         raise AssertionError(f"exit codes sidecar={side_rc} serve={rc} "
                              f"new sidecar={rc2}")
@@ -1630,8 +1700,8 @@ def phase_breaker(seed, work, bodies, card, say=print):
     SERVE_TIMES["21"] = (pct(lat, 0.5), pct(lat, 0.95),
                          drain_s / last["cycles_on_device"])
     say(f"  heads_launches={side2_last['heads_launches']} (restarted "
-          f"sidecar, {served} device cycles after re-promotion, "
-          f"pipeline_stats {last['pipeline_stats']}) | {card}")
+        f"sidecar, {served} device cycles after re-promotion, "
+        f"pipeline_stats {last['pipeline_stats']}) | {card}")
     return side2_last["heads_launches"]
 
 
@@ -1651,8 +1721,8 @@ def check_serve_heads(seed, heads, pk, sms, say=print):
 
 
 def phases_serve(card, by_path, heads, pk, sms):
-    """Phases 19 to 21 on one seeded journal; returns (seed journal, work
-    directory, arrival bodies) for phase 28, which removes them."""
+    """Phases 19 to 21, 28 and 30 on one seeded journal, and phase 29
+    beside them."""
     from kueue_tpu_torch.bench import serve_world as sw
 
     work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
@@ -1668,44 +1738,68 @@ def phases_serve(card, by_path, heads, pk, sms):
     span("19")
     print("[19] deployed control plane: serve + oracle sidecar on the card")
     by_path["serve_world"] = phase_serve(seed, work, bodies, card)
-    # Phases 20 and 21 are gates on other worlds' processes (their own
-    # journals, sidecar and ports), and phase 19's heads check a gate on
-    # an engine of this process: they run side by side, each printing
-    # its lines when all are done.
-    runs = {"serve_restart": (phase_restart, "[20] crash and restart of "
-                              "the serve process (beside 21)"),
-            "serve_breaker": (phase_breaker, "[21] the breaker: sidecar "
-                              "crash, host cycles, re-promotion (beside 20)"),
-            "serve_heads": (
+    # Phases 20, 21, 28, 29 and 30 are gates on other worlds' processes
+    # (their own journals, sidecars, leases and ports), and phase 19's
+    # heads check a gate on an engine of this process: they run side by
+    # side, 28 after 21 (the same 250 arrivals, traced) and 29 after 30,
+    # each printing its lines when all are done.
+    runs = {"serve_restart": [(phase_restart, "[20] crash and restart of "
+                               "the serve process (beside 21, 28 and 30)")],
+            "serve_breaker": [(phase_breaker, "[21] the breaker: sidecar "
+                               "crash, host cycles, re-promotion (beside 20 "
+                               "and 30)"),
+                              (phase_serve_traced, "[28] deployed control "
+                               "plane traced: serve + sidecar, /events "
+                               "(after 21, beside 20 and 30)")],
+            "ha_failover": [(phase_ha, "[30] HA failover: leader A "
+                             "SIGKILLed mid-apply, B promoted, reads on "
+                             "read replica R (beside 20, 21 and 28)"),
+                            (phase_replay_beside, "[29] flight recorder: "
+                             "cycle_latency recorded, replayed both, "
+                             "replayed under faults (after 30, beside 20 "
+                             "and 28, in a process of its own)")],
+            "serve_heads": [(
                 lambda *_a, say: check_serve_heads(seed, heads, pk, sms,
                                                    say=say),
-                "[19] heads on the serve path's first-cycle inputs")}
-    lines = {name: [] for name in runs}
+                "[19] heads on the serve path's first-cycle inputs")]}
+    paths = {phase_breaker: "serve_breaker", phase_serve_traced:
+             "serve_traced", phase_restart: "serve_restart",
+             phase_ha: "ha_failover"}
+    lines = {fn: [] for chain in runs.values() for fn, _t in chain}
     done = {}
 
-    def run(name):
-        try:
-            done[name] = runs[name][0](seed, work, bodies, card,
-                                       say=lines[name].append)
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            done[name] = e
+    def run(chain):
+        for fn, _title in chain:
+            try:
+                done[fn] = fn(seed, work, bodies, card, say=lines[fn].append)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                done[fn] = e
+                return
 
-    threads = [threading.Thread(target=run, args=(name,)) for name in runs]
-    span("20+21")
+    threads = [threading.Thread(target=run, args=(chain,))
+               for chain in runs.values()]
+    span("20+21+28+29+30")
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    for name, (_fn, title) in runs.items():
-        print(title)
-        for line in lines[name]:
-            print(line)
-    for name in runs:
-        if isinstance(done[name], BaseException):
-            raise done[name]
-        if name != "serve_heads":
-            by_path[name] = done[name]
-    return seed, work, bodies
+    shutil.rmtree(work, ignore_errors=True)
+    for chain in runs.values():
+        for fn, title in chain:
+            if fn in done:
+                print(title)
+                for line in lines[fn]:
+                    print(line)
+    for chain in runs.values():
+        for fn, _title in chain:
+            if fn not in done:
+                continue  # an earlier phase of its chain failed
+            if isinstance(done[fn], BaseException):
+                raise done[fn]
+            if fn is phase_replay_beside:
+                by_path.update(done[fn])
+            elif fn in paths:
+                by_path[paths[fn]] = done[fn]
 
 
 def heads_trace_events(trace_dir) -> tuple:
@@ -1817,7 +1911,7 @@ def phase_traced_engine(heads, card):
     return launches
 
 
-def phase_serve_traced(seed, work, bodies, card):
+def phase_serve_traced(seed, work, bodies, card, say=print):
     """Phase 28: the serve process traced, with the watchdog, behind the
     sidecar on the card; one SSE client from the arrivals on. Returns the
     sidecar's heads launches."""
@@ -1831,7 +1925,7 @@ def phase_serve_traced(seed, work, bodies, card):
     if set(r["posted"]["codes"]) != {201}:
         raise AssertionError(
             f"POST codes {sorted(set(r['posted']['codes']))}")
-    check_serve_state(sw, r["views"], "final state",
+    check_serve_state(sw, r["views"], "final state", say,
                       expect=SERVE_BREAKER_EXPECT)
     check_arrivals_once(sw, path, "arrivals", BREAKER_ARRIVALS)
     if (r["rc"], r["side_rc"]) != (0, 0):
@@ -1847,17 +1941,17 @@ def phase_serve_traced(seed, work, bodies, card):
                   if rec.get("kind") == "cycle_trace")
     trace, perf, traced0 = r["trace"], r["perf"], r["traced0"]
     ladder, wd = r["slo"]["ladder"], r["slo"]["watchdog"]
-    print(f"  backlog: device_cycles={r['backlog']['cyclesOnDevice']} "
-          f"traced={traced0} before the client joined")
-    print(f"  stream: events={len(stream)} arrivals_admitted="
-          f"{len(admitted)} cycle_trace={len(traces)}; /debug/trace "
-          f"cyclesTraced={trace['cyclesTraced']} retained="
-          f"{len(trace['cycles'])}; journal cycle_trace={records}; "
-          f"sigterm cycles_traced={last['cycles_traced']}")
-    print(f"  /debug/slo: ladder rung={ladder['rung']} transitions="
-          f"{ladder['transitions']} watchdog={wd['state']} overruns="
-          f"{wd['overruns']} demotions={wd['demotions']}; /debug/perf="
-          f"{perf}; page bytes={r['pages']}")
+    say(f"  backlog: device_cycles={r['backlog']['cyclesOnDevice']} "
+        f"traced={traced0} before the client joined")
+    say(f"  stream: events={len(stream)} arrivals_admitted="
+        f"{len(admitted)} cycle_trace={len(traces)}; /debug/trace "
+        f"cyclesTraced={trace['cyclesTraced']} retained="
+        f"{len(trace['cycles'])}; journal cycle_trace={records}; "
+        f"sigterm cycles_traced={last['cycles_traced']}")
+    say(f"  /debug/slo: ladder rung={ladder['rung']} transitions="
+        f"{ladder['transitions']} watchdog={wd['state']} overruns="
+        f"{wd['overruns']} demotions={wd['demotions']}; /debug/perf="
+        f"{perf}; page bytes={r['pages']}")
     if len(admitted) != BREAKER_ARRIVALS:
         raise AssertionError(f"the stream saw {len(admitted)} arrivals "
                              "admitted")
@@ -1883,20 +1977,20 @@ def phase_serve_traced(seed, work, bodies, card):
             f"sidecar heads launches {side_last['heads_launches']}, "
             f"replies {side_last['compute_replies']}, dispatched {calls}")
     got = st.summary(r)
-    print(f"  POST p50_s={got['post_p50_s']:.5f} "
-          f"p95_s={got['post_p95_s']:.5f} wall_per_device_cycle_s="
-          f"{got['wall_per_device_cycle_s']:.5f} (arrival device_cycles="
-          f"{got['device_cycles']} drain_s={got['drain_s']:.3f}; boot "
-          f"rebuild_s={r['boot']['rebuild_s']:.3f}; phases 19 and 21 post "
-          "while the backlog drains; kueue_tpu_torch.bench.serve_traced "
-          "runs this schedule untraced)")
+    say(f"  POST p50_s={got['post_p50_s']:.5f} "
+        f"p95_s={got['post_p95_s']:.5f} wall_per_device_cycle_s="
+        f"{got['wall_per_device_cycle_s']:.5f} (arrival device_cycles="
+        f"{got['device_cycles']} drain_s={got['drain_s']:.3f}; boot "
+        f"rebuild_s={r['boot']['rebuild_s']:.3f}; phases 19 and 21 post "
+        "while the backlog drains; kueue_tpu_torch.bench.serve_traced "
+        "runs this schedule untraced)")
     for ph in ("19", "21"):
         if ph in SERVE_TIMES:
             p50, p95, per = SERVE_TIMES[ph]
-            print(f"  phase {ph}: POST p50_s={p50:.5f} p95_s={p95:.5f} "
-                  f"wall_per_device_cycle_s={per:.5f}")
-    print(f"  heads_launches={side_last['heads_launches']} (sidecar) "
-          f"| {card}")
+            say(f"  phase {ph}: POST p50_s={p50:.5f} p95_s={p95:.5f} "
+                f"wall_per_device_cycle_s={per:.5f}")
+    say(f"  heads_launches={side_last['heads_launches']} (sidecar) "
+        f"| {card}")
     return side_last["heads_launches"]
 
 
@@ -2005,6 +2099,33 @@ def phase_replay(heads, card) -> dict:
     return by_path
 
 
+def phase_replay_beside(seed, work, bodies, card, say=print) -> dict:
+    """Phase 29 in a child process of its own, so that it runs beside
+    the serve phases (its heads launches count in that process, trap
+    (an)): the child runs ``phase_replay``, prints its lines and then
+    one JSON line of the launches by path, which this returns."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    proc = sw.Proc(["-c", (
+        "import json\n"
+        "import chip_smoke\n"
+        "from kueue_tpu_torch.ops import heads\n"
+        f"by_path = chip_smoke.phase_replay(heads, {card!r})\n"
+        "print(json.dumps({'replay_by_path': by_path}))\n")])
+    try:
+        line = proc.wait_line('"replay_by_path"', 900)
+        rc = proc.p.wait(120)
+    finally:
+        proc.kill()
+    for out in proc.out:
+        if out != line:
+            say(out)
+    if rc != 0:
+        raise AssertionError(f"phase 29's process exited {rc}: "
+                             f"{proc.tail()}")
+    return json.loads(line)["replay_by_path"]
+
+
 def drain(scenario_kw, device=None):
     from kueue_tpu_torch.bench.scenario import baseline_like
     from kueue_tpu_torch.cache.snapshot import build_snapshot
@@ -2032,12 +2153,400 @@ def check(stats, expect, label):
         raise AssertionError(f"{label}: decision arrays must be int32")
 
 
+# Phase 30: the first HA_ARRIVALS arrivals, POSTed once the leader A
+# has admitted the seeded backlog (SERVE_EXPECT less every arrival:
+# 49,937 of the 50,000); A dies at the admission of the
+# HA_KILL_ARRIVAL-th arrival, so that between 30 and 50 arrivals are
+# journaled admitted when it dies.
+HA_ARRIVALS = 100
+HA_KILL_ARRIVAL = 40
+HA_SEEDED_ADMITTED = SERVE_EXPECT["admitted"] - SERVE_EXPECT[
+    "arrivals_admitted"]
+HA_LEASE_S = 3.0
+# The read plane's staleness bound (tools/readplane_smoke.py's).
+STALENESS_BOUND_S = 10.0
+
+
+def _journal_prefix_state(sw, path, size, copy):
+    """serve_world.journal_state of the first ``size`` bytes of the
+    journal at ``path`` (written to ``copy``)."""
+    with open(path, "rb") as src, open(copy, "wb") as dst:
+        dst.write(src.read(size))
+    return sw.journal_state(copy)
+
+
+def _wait_status(sw, url, pred, timeout, every=0.5):
+    """/debug/ha until ``pred`` holds (not a read query)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        st = sw.get_json(url, "/debug/ha")
+        if pred(st):
+            return st
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"/debug/ha never matched: role "
+                               f"{st.get('role')} epoch {st.get('epoch')}")
+        time.sleep(every)
+
+
+def _wait_idle_ha(sw, url, journal, admitted, timeout, settle=1.5):
+    """The HA leader at ``url`` idle: /debug/ha shows ``admitted``
+    workloads holding quota, and neither its last digest cycle nor the
+    journal's size moved for ``settle`` seconds."""
+    deadline = time.monotonic() + timeout
+    last = None
+    while True:
+        size = Path(journal).stat().st_size
+        st = sw.get_json(url, "/debug/ha")
+        key = (st.get("digestSeq"), size, st.get("admittedWorkloads"))
+        if key == last and key[2] == admitted:
+            return st
+        last = key
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"HA leader not idle: {key}, want "
+                               f"{admitted} admitted")
+        time.sleep(settle)
+
+
+def start_cold_rebuild(path, copy):
+    """A child process that runs ``rebuild_engine`` on the CPU over a
+    copy of the journal at ``path`` and prints one JSON line: its
+    seconds, the admitted-state digest, the sha256 and length of
+    ``readplane.canonical_answer`` and the pending and quota answers."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    shutil.copy(path, copy)
+    return sw.Proc(["-c", (
+        "import gc, hashlib, json, time\n"
+        "from kueue_tpu_torch.ha.digest import admitted_state_digest\n"
+        "from kueue_tpu_torch.readplane import answer_query, "
+        "canonical_answer\n"
+        "from kueue_tpu_torch.store.journal import rebuild_engine\n"
+        "gc.disable()\n"
+        "t0 = time.perf_counter()\n"
+        f"eng = rebuild_engine({str(copy)!r}, device='cpu')\n"
+        "eng.journal.close()\n"
+        "s = time.perf_counter() - t0\n"
+        "c = canonical_answer(eng)\n"
+        "print(json.dumps({'s': s, 'digest': admitted_state_digest(eng),"
+        " 'canonical_sha256': hashlib.sha256(c).hexdigest(),"
+        " 'canonical_bytes': len(c), 'answers': {k: answer_query(eng, k)"
+        " for k in ('pending', 'quota')}}))\n")])
+
+
+def phase_ha(seed, work, bodies, card, say=print, ha_extra=()):
+    """Phase 30: HA failover with the reads on a read replica. Returns
+    the promoted leader's heads launches. ``ha_extra``: more serve
+    arguments for A and B, such as ``("--checkpoint-interval", "25")``
+    to measure the read plane's staleness with sealed checkpoints (the
+    script passes none)."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    path = work / "p30.jsonl"
+    shutil.copy(seed, path)
+    bodies = bodies[:HA_ARRIVALS]
+    kill_at = HA_SEEDED_ADMITTED + HA_KILL_ARRIVAL
+    procs = []
+    poller = None
+    try:
+        t0 = time.perf_counter()
+        a, aurl, a_serving = sw.start_ha(
+            path, "a", "local", "cuda", HA_LEASE_S,
+            fault=f"sigkill@admission:{kill_at}", extra=ha_extra)
+        procs.append(a)
+        a.wait_line("ha: role=leader epoch=1", 600)
+        a_boot = time.perf_counter() - t0
+        # B and R boot side by side while A drains the seeded backlog.
+        box = {}
+        starts = [threading.Thread(target=lambda: box.update(b=sw.start_ha(
+                      path, "b", "local", "cuda", HA_LEASE_S,
+                      extra=ha_extra))),
+                  threading.Thread(target=lambda: box.update(
+                      r=sw.start_read_replica(path, "r", "cuda")))]
+        for t in starts:
+            t.start()
+        for t in starts:
+            t.join()
+        for name in ("b", "r"):
+            if name not in box:
+                raise RuntimeError(f"replica {name} did not start")
+            procs.append(box[name][0])
+        b, burl, b_boot = box["b"]
+        r, rurl, r_boot = box["r"]
+        _wait_status(sw, burl, lambda st: st["role"] == "follower", 60)
+        deadline = time.monotonic() + 600
+        while sw.get_json(rurl, "/debug/readplane")["staleness"] is None:
+            if time.monotonic() > deadline:
+                raise TimeoutError("the read replica built no read model")
+            time.sleep(0.1)
+        marks = {"replicas_ready": time.perf_counter() - t0}
+        # The arrivals go in once A has drained the seeded backlog, so
+        # the admission A dies at is the HA_KILL_ARRIVAL-th arrival's,
+        # and the reads start once R's read model holds that drain.
+        _wait_status(sw, aurl, lambda st: st.get("admittedWorkloads")
+                     == HA_SEEDED_ADMITTED, 600, every=1.0)
+        marks["seeded_drained"] = time.perf_counter() - t0
+        lines = path.read_bytes().count(b"\n")
+        deadline = time.monotonic() + 600
+        while (sw.get_json(rurl, "/debug/readplane")["staleness"]
+               ["position"]["offset"] < lines):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the read replica did not catch up")
+            time.sleep(0.2)
+        marks["reads_start"] = time.perf_counter() - t0
+        poller = sw.ReadPoller([rurl], 0.5)
+        poller.start()
+        # A's reads, scraped while it lives (an infrastructure route).
+        a_metrics = sw.get_text(aurl, "/metrics")[0]
+        posted_a = sw.post_arrivals(aurl, bodies, sw.FULL["rate"])
+        a_rc = a.p.wait(600)
+        killed_at = time.time()
+        marks["killed"] = time.perf_counter() - t0
+        size_at_kill = path.stat().st_size
+        a.stop()
+        b.wait_line("ha: role=leader epoch=2", 600)
+        leader_at = time.time()
+        marks["promoted"] = time.perf_counter() - t0
+        promoted = dict(w.split("=", 1) for w in b.wait_line(
+            "ha: promoted epoch=2", 10).split()[2:6])
+        t_post = time.perf_counter()
+        posted_b = sw.post_arrivals(burl, bodies, sw.FULL["rate"])
+        b_idle = _wait_idle_ha(sw, burl, path,
+                               HA_SEEDED_ADMITTED + HA_ARRIVALS, 600)
+        drain_s = time.perf_counter() - t_post
+        marks["drained"] = time.perf_counter() - t0
+        b_metrics = sw.get_text(burl, "/metrics")[0]
+        capacity = sw.get_json(burl, "/capacity")
+        cohorts = sw.get_json(burl, "/cohorts")
+        b_rss = b.rss_kb()
+        b_rc, b_last = b.stop()
+        # The journal is final: its cold rebuild runs while R drains.
+        rebuilder = start_cold_rebuild(path, work / "p30-cold.jsonl")
+        procs.append(rebuilder)
+        lines = path.read_bytes().count(b"\n")
+        deadline = time.monotonic() + 600
+        while True:
+            st = sw.get_json(rurl, "/debug/readplane")
+            env = st.get("staleness") or {}
+            if (env.get("lagRecords") == 0 and env.get("position")
+                    and env["position"]["offset"] == lines):
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the read replica did not drain: {env}")
+            time.sleep(0.2)
+        poller.stop()
+        marks["read_replica_drained"] = time.perf_counter() - t0
+        r_answers = {k: sw.get_json(rurl, f"/read/{k}")["answer"]
+                     for k in ("pending", "quota")}
+        r_metrics = sw.get_text(rurl, "/metrics")[0]
+        r_rc, r_last = r.stop()
+        marks["stopped"] = time.perf_counter() - t0
+        cold = json.loads(rebuilder.wait_line('"digest"', 600))
+        rebuilder.stop()
+        marks["cold_rebuilt"] = time.perf_counter() - t0
+    finally:
+        if poller is not None:
+            poller.halt.set()
+        for proc in procs:
+            proc.kill()
+    before = _journal_prefix_state(sw, path, size_at_kill,
+                                   work / "p30-kill.jsonl")
+    final = check_arrivals_once(sw, path, "arrivals", HA_ARRIVALS)
+    cold_s, cold_digest, cold_answers = (cold["s"], cold["digest"],
+                                         cold["answers"])
+    arrivals_before = sum(1 for k in before["admitted"]
+                          if k.startswith("default/arrival-"))
+    promo = b_last["promotion"] or {}
+    timing = b_last["promotion_timing"] or {}
+    cycles = b_last["cycles_on_device"]
+    calls = dispatched(dict(on_device=cycles,
+                            pipeline_stats=b_last["pipeline_stats"]))
+    lat_a, lat_b = posted_a["latencies"], posted_b["latencies"]
+    ages = [out["staleness"]["wallAgeSeconds"]
+            for _t, _k, out, _s in poller.answers if out.get("staleness")]
+    near = [t for t, _k, _o, _s in poller.answers
+            if abs(t - killed_at) <= STALENESS_BOUND_S]
+    read_s = [s for _t, _k, _o, s in poller.answers]
+    acquired = float(promoted["acquired_at"])
+    replay_s, verify_s = (float(promoted["replay_s"]),
+                          float(promoted["verify_s"]))
+    # The measurements first, then the gates.
+    say(f"  boot s: A {a_boot:.3f} (serving {a_serving:.3f}, then its "
+        f"promotion) B {b_boot:.3f} R {r_boot:.3f}; A journaled "
+        f"{arrivals_before} arrivals admitted when it died (rc {a_rc}, "
+        f"sigkill@admission:{kill_at})")
+    say(f"  promotion s from A's death to B's role=leader line: "
+        f"{leader_at - killed_at:.3f} = lease wait "
+        f"{acquired - killed_at:.3f} + replay {replay_s:.3f} + verify "
+        f"{verify_s:.3f} + attach "
+        f"{leader_at - acquired - replay_s - verify_s:.3f}; report: "
+        f"{promo.get('reason')} (checkpoint seq "
+        f"{promo.get('checkpoint_seq')} epoch "
+        f"{promo.get('checkpoint_epoch')}, partial_cycle="
+        f"{promo.get('partial_cycle')}); timing {timing}")
+    say(f"  POST to A p50_s={pct(lat_a, 0.5):.5f} p95_s={pct(lat_a, 0.95):.5f}"
+        f" codes {sorted(set(posted_a['codes']))}; re-POST to B p50_s="
+        f"{pct(lat_b, 0.5):.5f} p95_s={pct(lat_b, 0.95):.5f} codes "
+        f"{ {c: posted_b['codes'].count(c) for c in set(posted_b['codes'])} }")
+    say(f"  reads through the frontend (R only): {len(poller.answers)} "
+        f"answers, {len(poller.errors)} errors, max staleness "
+        f"{max(ages, default=None)} s (bound {STALENESS_BOUND_S}), "
+        f"{len(near)} within {STALENESS_BOUND_S} s of the kill, query s "
+        f"p50={pct(read_s, 0.5) if read_s else None} "
+        f"p95={pct(read_s, 0.95) if read_s else None}; R "
+        f"{r_last['rebuilds']} rebuilds, {r_last['queries']} queries")
+    rebuild_n = sum(sw.metric_values(
+        r_metrics, "readplane_rebuild_seconds_count").values())
+    rebuild_sum = sum(sw.metric_values(
+        r_metrics, "readplane_rebuild_seconds_sum").values())
+    oldest = sorted(((out["staleness"]["wallAgeSeconds"], t - killed_at)
+                     for t, _k, out, _s in poller.answers
+                     if out.get("staleness")), reverse=True)[:3]
+    say(f"  R: {rebuild_n:.0f} rebuilds, mean "
+        f"{rebuild_sum / max(rebuild_n, 1):.3f} s; the oldest answers "
+        f"(age s, s after the kill): "
+        + ", ".join(f"({a:.3f}, {t:+.1f})" for a, t in oldest))
+    say(f"  B: drain_s={drain_s:.3f} device_cycles={cycles} "
+        f"wall_per_device_cycle_s={drain_s / max(cycles, 1):.5f} "
+        f"pipeline_stats={b_last['pipeline_stats']} tailer_rebuilds="
+        f"{b_last['tailer_rebuilds']} loop_s={b_last['loop_s']} "
+        f"rss_kb={b_rss}; cold "
+        f"rebuild on the CPU {cold_s:.3f} s, digest {cold_digest}, "
+        f"canonical answer {cold['canonical_bytes']} bytes")
+    say("  phase marks s: " + " ".join(f"{k}={v:.1f}"
+                                        for k, v in marks.items()))
+    say(f"  heads_launches={b_last['heads_launches']} (B, {cycles} device "
+        f"cycles, {calls} dispatched calls) | {card}")
+    if a_rc != -signal.SIGKILL or (b_rc, r_rc) != (0, 0):
+        raise AssertionError(f"exit codes A={a_rc} B={b_rc} R={r_rc}")
+    if not 30 <= arrivals_before <= 50:
+        raise AssertionError(f"{arrivals_before} arrivals journaled "
+                             f"admitted at the kill, not 30 to 50")
+    if set(posted_a["codes"]) != {201} \
+            or not set(posted_b["codes"]) <= {200, 201}:
+        raise AssertionError(f"POST codes A {sorted(set(posted_a['codes']))}"
+                             f" B {sorted(set(posted_b['codes']))}")
+    if not (b_last["role"] == "leader" and b_last["epoch"] == 2
+            and promo.get("verified") and promo["checkpoint_epoch"] == 1
+            and promo["checkpoint_seq"] is not None):
+        raise AssertionError(f"B's promotion: role {b_last['role']} epoch "
+                             f"{b_last['epoch']} report {promo}")
+    lost = before["admitted"] - final["admitted"]
+    if lost or final["admitted_twice"]:
+        raise AssertionError(f"admissions lost across the kill "
+                             f"{sorted(lost)[:5]}, admitted twice "
+                             f"{final['admitted_twice'][:5]}")
+    check_usage(capacity, cohorts)
+    if b_idle["stateDigest"] != cold_digest \
+            or r_last["state_digest"] != cold_digest:
+        raise AssertionError(f"digests: B {b_idle['stateDigest']}, R "
+                             f"{r_last['state_digest']}, cold rebuild "
+                             f"{cold_digest}")
+    if (r_last["canonical_sha256"] != cold["canonical_sha256"]
+            or r_last["canonical_bytes"] != cold["canonical_bytes"]
+            or r_answers != cold_answers):
+        raise AssertionError("the read replica's answer differs from the "
+                             "cold rebuild's")
+    served = [ln for text in (a_metrics, b_metrics)
+              for ln in sw.metric_lines(text, "visibility_queries_total")]
+    if served:
+        raise AssertionError(f"the leaders served reads: {served[:4]}")
+    if (poller.errors or len(ages) != len(poller.answers) or not ages
+            or max(ages) > STALENESS_BOUND_S
+            or not any(t < killed_at for t in near)
+            or not any(t > killed_at for t in near)
+            or any(out.get("routedTo") != rurl
+                   for _t, _k, out, _s in poller.answers)):
+        raise AssertionError("reads: a failed, unstamped or misrouted "
+                             "answer, or one past the staleness bound")
+    if not b_last["heads_launches"] == calls > 0:
+        raise AssertionError(f"B's heads launches {b_last['heads_launches']}"
+                             f", dispatched calls {calls}")
+    return b_last["heads_launches"]
+
+
+def compute_apps() -> list:
+    """[(pid, process name)] that ``nvidia-smi --query-compute-apps``
+    lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout
+    return [(int(pid), name.strip()) for pid, _, name in
+            (line.partition(",") for line in out.splitlines())
+            if pid.strip().isdigit()]
+
+
+def sweep(sw, timeout: float = 30.0) -> list:
+    """The processes this script left, killed: every child still
+    registered with serve_world, every live process below this one or in
+    a session a child of it led (``/proc``), and every compute process on
+    the card that ``nvidia-smi`` lists but this one (waited for up to
+    ``timeout`` seconds, as the card releases a killed process's
+    context). Returns a line per survivor; empty when none."""
+    import os
+
+    found = [f"registered child: {' '.join(argv)}"
+             for argv in sw.stop_all()]
+    left = sw.survivors()
+    found += [f"pid {pid}: {argv}" for pid, argv in left]
+    sw.kill_survivors(left)
+    deadline = time.monotonic() + timeout
+    while True:
+        others = other_compute_apps()
+        if not others or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    found += [f"compute process on the card: pid {pid} {name}"
+              for pid, name in others]
+    return found
+
+
+def other_compute_apps() -> list:
+    """The card's compute processes but this one. In a container
+    ``nvidia-smi`` may list processes of other pid namespaces under a
+    pid that is not theirs (this one's context included, under pid 1
+    on the H100 machines): then every entry but one is another's."""
+    import os
+
+    apps = compute_apps()
+    if any(pid == os.getpid() for pid, _ in apps):
+        return [(pid, name) for pid, name in apps if pid != os.getpid()]
+    return apps[1:]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    try:
+        kind, kernels = run_phases()
+    finally:
+        found = sweep(sw)
+        for line in found:
+            print(f"chip_smoke: left running, killed: {line}",
+                  file=sys.stderr)
+    if found:
+        return 1
+    print(f"processes left: none (/proc below this pid and in the "
+          f"sessions of its {len(sw._SESSIONS)} children; nvidia-smi "
+          f"compute apps: {compute_apps()}, this process's context "
+          f"among them)")
+    print(json.dumps(kernels))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases() -> str:
+    """Every phase, then the phase seconds and the card's line. Returns
+    the card's kind and the kernels' summary."""
+    import torch
+
     from kueue_tpu_torch.device import resolve_device
     from kueue_tpu_torch.ops import _build
     from kueue_tpu_torch.bench import engine_worlds as ew
@@ -2134,8 +2643,8 @@ def main() -> int:
         span(str(i))
         print(f"[{i}] serving engine, mixed: {name}")
         by_path[name] = phase_mixed(name, heads, pk, card, sms)
-    span("19-21 setup")
-    serve_seed = phases_serve(card, by_path, heads, pk, sms)
+    span("19-30 setup")
+    phases_serve(card, by_path, heads, pk, sms)
     for i, name in enumerate(("cycle_latency", "preempt_churn"), start=22):
         span(str(i))
         print(f"[{i}] serving engine, default loop: {name}")
@@ -2154,17 +2663,9 @@ def main() -> int:
     span("27")
     print("[27] serving engine traced: cycle_latency, default loop")
     by_path["cycle_latency_traced"] = phase_traced_engine(heads, card)
-    span("28")
-    print("[28] deployed control plane traced: serve + sidecar, /events")
-    by_path["serve_traced"] = phase_serve_traced(*serve_seed, card)
-    shutil.rmtree(serve_seed[1], ignore_errors=True)
-    span("29")
-    print("[29] flight recorder: cycle_latency recorded, replayed both, "
-          "replayed under faults")
-    by_path.update(phase_replay(heads, card))
     print(f"phase seconds: {spans_line()}")
     print(card)
-    print(json.dumps({"kernels": [
+    return kind, {"kernels": [
         dict(name="heads_segment_min", route="cuda",
              source="kueue_tpu_torch/csrc/heads.cu",
              replaces="kueue_tpu/ops/pallas_kernels.py:83",
@@ -2173,11 +2674,7 @@ def main() -> int:
         dict(name="leaf_fit_counts", route="cuda",
              source="kueue_tpu_torch/csrc/leaf.cu",
              replaces="kueue_tpu/ops/pallas_kernels.py:152",
-             launches=leaf_launches, **leaf_row)]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+             launches=leaf_launches, **leaf_row)]}
 
 
 if __name__ == "__main__":

@@ -18,12 +18,17 @@ and each fits; the final state is the same whenever they land.
 
 Every step is a function: the world and journal builders take a ``Kit``
 (``engine_worlds.port_kit`` by default; the parity tests pass the JAX
-package's), the process helpers start and stop the sidecar and the
-serve process and read their lines, and the view helpers poll the HTTP
-endpoint. ``checksum`` pins a final state: the crc32 over the sorted
-workload keys, each with its ClusterQueue, its flavors, QuotaReserved
-and Admitted, computed from GET ``/workloads`` and ``/debug/dump`` (or
-the same views computed in-process).
+package's), the process helpers start and stop the sidecar, the serve
+process, HA replicas and read replicas and read their lines, and the
+view helpers poll the HTTP endpoint. Each child runs in a session and
+process group of its own and is registered from its spawn until it is
+reaped: a start helper whose wait raises kills its child first,
+``stop_all`` kills every child still registered, and ``survivors``
+lists from ``/proc`` any process still alive below this one or in a
+session one of its children led. ``checksum`` pins a final state: the
+crc32 over the sorted workload keys, each with its ClusterQueue, its
+flavors, QuotaReserved and Admitted, computed from GET ``/workloads``
+and ``/debug/dump`` (or the same views computed in-process).
 """
 
 from __future__ import annotations
@@ -208,16 +213,30 @@ def wire_bytes(config, device="cpu") -> dict:
 
 # -- processes --
 
+# Every child this module starts, by pid, from its spawn until it is
+# reaped, and the session of each child ever started (a child leads a
+# session of its own, so its pid names the session). stop_all and
+# survivors read them: no child is lost when a start helper raises.
+_LIVE: dict = {}
+_SESSIONS: set = set()
+_LIVE_LOCK = threading.Lock()
+
+
 class Proc:
-    """A child process with its stdout and stderr read into lists by
-    threads (its pipes never fill)."""
+    """A child process in a session and process group of its own,
+    registered as soon as it is spawned, with its stdout and stderr read
+    into lists by threads (its pipes never fill)."""
 
     def __init__(self, argv, env=None):
         self.argv = argv
         self.p = subprocess.Popen(
             [sys.executable, "-u", *argv], cwd=REPO,
             env=env if env is not None else child_env(),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        with _LIVE_LOCK:
+            _LIVE[self.p.pid] = self
+            _SESSIONS.add(self.p.pid)
         self.out: list[str] = []
         self.err: list[str] = []
         self._cv = threading.Condition()
@@ -225,6 +244,10 @@ class Proc:
                              (self.p.stderr, self.err)):
             threading.Thread(target=self._read, args=(stream, sink),
                              daemon=True).start()
+
+    @property
+    def pid(self) -> int:
+        return self.p.pid
 
     def _read(self, stream, sink) -> None:
         for line in stream:
@@ -254,22 +277,119 @@ class Proc:
     def tail(self) -> str:
         return " | ".join(self.err[-15:] + self.out[-5:])
 
+    def _signal_group(self, sig) -> None:
+        try:
+            os.killpg(self.p.pid, sig)
+        except (ProcessLookupError, PermissionError):
+            pass  # the group is gone
+
     def stop(self, sig=signal.SIGTERM, timeout: float = 60.0):
-        """Send ``sig`` and wait; returns (exit code, the last JSON line
-        of stdout or None)."""
+        """Send ``sig`` to the process group and wait; after ``timeout``
+        seconds SIGKILL the group. The process is always reaped, and
+        anything left in its group is SIGKILLed after it. Returns (exit
+        code, the last JSON line of stdout or None)."""
         if self.p.poll() is None:
-            self.p.send_signal(sig)
+            self._signal_group(sig)
         try:
             rc = self.p.wait(timeout)
         except subprocess.TimeoutExpired:
-            self.p.kill()
+            self._signal_group(signal.SIGKILL)
             rc = self.p.wait()
+        self._signal_group(signal.SIGKILL)
+        with _LIVE_LOCK:
+            _LIVE.pop(self.p.pid, None)
         time.sleep(0.1)  # let the reader threads drain the pipes
         last = None
         for line in self.out:
             if line.startswith("{"):
                 last = json.loads(line)
         return rc, last
+
+    def kill(self) -> int:
+        """SIGKILL the group and reap; returns the exit code."""
+        return self.stop(signal.SIGKILL, timeout=30.0)[0]
+
+    def rss_kb(self) -> int:
+        """The live process's resident memory (VmRSS), in kB."""
+        with open(f"/proc/{self.p.pid}/status") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                if key == "VmRSS":
+                    return int(value.split()[0])
+        raise RuntimeError(f"no VmRSS for pid {self.p.pid}")
+
+
+def started(proc: Proc, wait):
+    """``wait()`` (a start helper's wait for its child's lines); if it
+    raises, the child is killed and reaped before the error goes on."""
+    try:
+        return wait()
+    except BaseException:
+        proc.kill()
+        raise
+
+
+def stop_all() -> list:
+    """SIGKILL and reap every child still registered; returns their
+    argv."""
+    with _LIVE_LOCK:
+        procs = list(_LIVE.values())
+    for proc in procs:
+        proc.kill()
+    return [proc.argv for proc in procs]
+
+
+def _stat(pid: str):
+    """(state, parent pid, session) of a /proc entry, or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            data = fh.read()
+    except OSError:
+        return None
+    fields = data[data.rindex(")") + 2:].split()
+    return fields[0], int(fields[1]), int(fields[3])
+
+
+def survivors() -> list:
+    """The live processes (zombies included) whose parent chain reaches
+    this process or whose session is one a child of this module
+    started: [(pid, argv)], from /proc."""
+    root = os.getpid()
+    table = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit() and int(name) != root:
+            st = _stat(name)
+            if st is not None:
+                table[int(name)] = st
+    out = []
+    for pid, (_state, ppid, sid) in sorted(table.items()):
+        chain, up = set(), ppid
+        while up not in (0, 1, root) and up in table and up not in chain:
+            chain.add(up)
+            up = table[up][1]
+        if up == root or sid in _SESSIONS:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                    argv = fh.read().split(b"\0")
+            except OSError:
+                argv = []
+            out.append((pid, " ".join(a.decode(errors="replace")
+                                      for a in argv if a)))
+    return out
+
+
+def kill_survivors(found) -> None:
+    """SIGKILL each (pid, argv) of ``survivors`` and reap it when it is
+    a child of this process."""
+    for pid, _argv in found:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
 
 
 def child_env(**extra) -> dict:
@@ -286,9 +406,19 @@ def start_sidecar(device, port=0, fault=None, env=None,
     if fault:
         argv += ["--fault", fault]
     proc = Proc(argv, env)
-    line = proc.wait_line("listening on", timeout)
+    line = started(proc, lambda: proc.wait_line("listening on", timeout))
     return proc, int(line.split("listening on ")[1].split()[0]
                      .rsplit(":", 1)[1])
+
+
+def _serve_argv(journal, oracle, device, extra) -> list:
+    return ["-m", "kueue_tpu_torch.serve", "--journal", str(journal),
+            "--oracle", oracle, "--device", device,
+            "--http", "127.0.0.1:0", "--tick", "0.05", *extra]
+
+
+def _base_url(line: str) -> str:
+    return "http://" + line.split("serving on ")[1].split()[0]
 
 
 def start_serve(journal, oracle, device, env=None, timeout=600.0,
@@ -299,19 +429,52 @@ def start_serve(journal, oracle, device, env=None, timeout=600.0,
     seconds, recovery source and base and suffix records it printed and
     ``wall_s`` from spawn to serving."""
     t0 = time.perf_counter()
-    proc = Proc(["-m", "kueue_tpu_torch.serve", "--journal", str(journal),
-                 "--oracle", oracle, "--device", device,
-                 "--http", "127.0.0.1:0", "--tick", "0.05", *extra], env)
-    rebuilt = proc.wait_line("rebuilt ", timeout).split()
-    line = proc.wait_line("serving on ", timeout)
+    proc = Proc(_serve_argv(journal, oracle, device, extra), env)
+
+    def wait():
+        return (proc.wait_line("rebuilt ", timeout).split(),
+                proc.wait_line("serving on ", timeout))
+
+    rebuilt, line = started(proc, wait)
     wall = time.perf_counter() - t0
-    hostport = line.split("serving on ")[1].split()[0]
     tagged = dict(w.split("=", 1) for w in rebuilt[8:])
-    return proc, f"http://{hostport}", {
+    return proc, _base_url(line), {
         "records": int(rebuilt[1]), "bytes": int(rebuilt[3].lstrip("(")),
         "rebuild_s": float(rebuilt[6]), "source": tagged["source"],
         "base": int(tagged["base"]), "suffix": int(tagged["suffix"]),
         "wall_s": wall}
+
+
+def start_ha(journal, identity, oracle, device, lease_duration,
+             fault=None, timeout=600.0, extra=()) -> tuple:
+    """``python -m kueue_tpu_torch.serve --ha`` as replica ``identity``
+    on a journal and its ``<journal>.lease``, with the serve arguments
+    ``extra`` after the usual ones; returns (Proc, base URL, wall
+    seconds from spawn to serving) once it serves as a follower (its
+    read model built)."""
+    t0 = time.perf_counter()
+    argv = ["--ha", "--replica-id", identity, "--lease",
+            f"{journal}.lease", "--lease-duration", str(lease_duration),
+            *extra]
+    if fault:
+        argv += ["--fault", fault]
+    proc = Proc(_serve_argv(journal, oracle, device, argv))
+    line = started(proc, lambda: (proc.wait_line("serving on ", timeout),
+                                  proc.wait_line("ha: replica=",
+                                                 timeout))[0])
+    return proc, _base_url(line), time.perf_counter() - t0
+
+
+def start_read_replica(journal, identity, device,
+                       timeout=600.0) -> tuple:
+    """``python -m kueue_tpu_torch.serve --read-replica`` on a journal;
+    returns (Proc, base URL, wall seconds from spawn to serving)."""
+    t0 = time.perf_counter()
+    proc = Proc(_serve_argv(journal, "off", device,
+                            ["--read-replica", "--replica-id", identity]))
+    line = started(proc, lambda: proc.wait_line("read replica serving on ",
+                                                timeout))
+    return proc, _base_url(line), time.perf_counter() - t0
 
 
 # -- HTTP --
@@ -462,12 +625,50 @@ def wait_idle(url: str, timeout: float, dump_every: float = 2.0,
         time.sleep(0.1)
 
 
+class ReadPoller(threading.Thread):
+    """Queries pending and quota through a ``readplane.ReadFrontend``
+    that knows only the read replicas ``bases``, every ``every``
+    seconds, until ``halt`` is set: each answer with its wall time and
+    its seconds (``answers``), each failure's repr (``errors``)."""
+
+    KINDS = ("pending", "quota")
+
+    def __init__(self, bases, every: float):
+        from kueue_tpu_torch.readplane import ReadFrontend
+
+        super().__init__(daemon=True)
+        self.fe = ReadFrontend(list(bases), timeout=60.0)
+        self.every = every
+        self.answers: list = []
+        self.errors: list = []
+        self.halt = threading.Event()
+
+    def run(self) -> None:
+        while not self.halt.is_set():
+            for kind in self.KINDS:
+                t0 = time.perf_counter()
+                try:
+                    out = self.fe.query(kind)
+                except Exception as e:  # noqa: BLE001 — recorded
+                    self.errors.append(repr(e))
+                    continue
+                self.answers.append((time.time(), kind, out,
+                                     time.perf_counter() - t0))
+            self.halt.wait(self.every)
+
+    def stop(self) -> None:
+        self.halt.set()
+        self.join(timeout=120)
+
+
 # -- the journal, read directly --
 
 def journal_state(path) -> dict:
     """Per workload key in a journal (the port's replay, a torn final
-    line skipped): whether its last record is admitted, and how many
-    times its records went from not admitted to admitted. When the
+    line skipped): whether its last record is admitted, how many times
+    its records went from not admitted to admitted, and the keys whose
+    records carry more than one Admitted transition time (admitted
+    twice). When the
     journal has a valid checkpoint, the records read are its base and
     the suffix past it (``store/checkpoint.recover_records``): retention
     may have deleted the segments before it, and the base's record of a
@@ -479,20 +680,26 @@ def journal_state(path) -> dict:
     records = base + suffix if meta is not None else read_chain(str(path))
     admitted: dict[str, bool] = {}
     transitions: dict[str, int] = {}
+    admit_times: dict[str, set] = {}
     for rec in records:
         if rec["kind"] != "workload" or rec["op"] != "apply":
             continue
         obj = rec["obj"]
         key = f"{obj['namespace']}/{obj['name']}"
         conds = obj["status"]["conditions"]
-        now = any(c["type"]["v"] == "Admitted" and c["status"]
-                  for c in conds.values()) if isinstance(conds, dict) \
-            else False
+        times = {c["last_transition_time"] for c in conds.values()
+                 if c["type"]["v"] == "Admitted" and c["status"]} \
+            if isinstance(conds, dict) else set()
+        now = bool(times)
+        if now:
+            admit_times.setdefault(key, set()).update(times)
         if now and not admitted.get(key, False):
             transitions[key] = transitions.get(key, 0) + 1
         admitted[key] = now
     return {"admitted": {k for k, v in admitted.items() if v},
-            "transitions": transitions}
+            "transitions": transitions,
+            "admitted_twice": sorted(k for k, t in admit_times.items()
+                                     if len(t) > 1)}
 
 
 def torn_tail(path) -> bool:

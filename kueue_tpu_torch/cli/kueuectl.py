@@ -1,7 +1,8 @@
 """The listing half of ``kueue_tpu/cli/kueuectl.py`` (cmd/kueuectl
 list clusterqueues / workloads): what the serving endpoint's GET
-``/clusterqueues`` and ``/workloads`` return. The rest of the CLI is not
-ported.
+``/clusterqueues`` and ``/workloads`` return, and ``delete_workload``
+(the HA replica's ``revoke`` and its tests delete through it). The rest
+of the CLI is not ported.
 """
 
 from __future__ import annotations
@@ -48,3 +49,14 @@ class Kueuectl:
                 "status": status, "active": wl.active,
             })
         return out
+
+    def delete_workload(self, key: str) -> None:
+        """delete/delete_workload.go: the workload leaves the engine,
+        the cache and its queue; the journal records the delete."""
+        wl = self.engine.workloads.pop(key, None)
+        if wl is not None:
+            self.engine.cache.delete_workload(key)
+            self.engine.queues.delete_workload(wl)
+            if self.engine.journal is not None:
+                self.engine.journal.delete("workload", key,
+                                           ts=self.engine.clock)

@@ -251,8 +251,8 @@ class Engine:
         self.ladder = None
         self.fanout = None
         self.shedder = None
-        # The HA replica's slot (kueue_tpu/ha): HA is not ported, so it
-        # stays None; a lease-stall fault reads it and raises.
+        # The HA replica that promoted this engine (ha/replica.py sets it;
+        # None outside HA mode, where a lease-stall fault raises).
         self.ha = None
         # Durable store (store/journal.py), via attach_journal(), and the
         # periodic checkpoint writer (store/checkpoint.Checkpointer

@@ -88,8 +88,8 @@ uninterrupted run's — zero lost, zero duplicate admissions.
 
 ``ChaosSchedule`` expands one integer seed into a deterministic
 multi-stage fault plan over those kinds. ``lease-stall`` needs an HA
-replica, which the port does not have yet (ROADMAP Queue 1 item 5): it
-raises, as it does in the JAX package on an engine without HA.
+replica (``engine.ha``, set by ``ha/replica.HAReplica``'s promotion):
+on an engine without one it raises, as in the JAX package.
 """
 
 from __future__ import annotations

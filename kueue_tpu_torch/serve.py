@@ -2,8 +2,8 @@
 HTTP serving endpoint and the scheduling loop, with the oracle
 in-process or in a sidecar.
 
-The port of ``kueue_tpu/serve.py``'s ``main`` (cmd/kueue/main.go:126,
-the manager main), non-HA branch:
+The port of ``kueue_tpu/serve.py`` (cmd/kueue/main.go:126, the manager
+main), its ``_main_ha`` and ``_main_read_replica`` included:
 
     python -m kueue_tpu_torch.serve --journal PATH [--oracle local|off|HOST:PORT]
         [--http HOST:PORT] [--tick SECONDS] [--device cuda|cpu]
@@ -11,6 +11,8 @@ the manager main), non-HA branch:
         [--segment-records N] [--segment-bytes N] [--min-free-bytes N]
         [--trace [N]] [--watchdog-deadline S] [--watchdog-hang S]
         [--shed-rate R] [--record TRACE] [--fault SPEC]
+        [--ha [--replica-id ID] [--lease PATH] [--lease-duration S]
+         [--fanout-shards N] | --read-replica [--replica-id ID]]
 
 It rebuilds the engine from ``--journal`` (store/journal.rebuild_engine:
 the newest valid checkpoint plus the journal suffix past it, or a replay
@@ -78,14 +80,43 @@ bearer token), KUEUE_TPU_CKPT_INTERVAL, KUEUE_TPU_CKPT_KEEP,
 KUEUE_TPU_SEGMENT_RECORDS, KUEUE_TPU_SEGMENT_BYTES,
 KUEUE_TPU_MIN_FREE_BYTES, KUEUE_TPU_TRACE, KUEUE_TPU_WATCHDOG_DEADLINE,
 KUEUE_TPU_WATCHDOG_HANG, KUEUE_TPU_SHED_RATE, KUEUE_TPU_RECORD,
-KUEUE_TPU_FAULT, and the bridge's
+KUEUE_TPU_FAULT, KUEUE_TPU_HA, KUEUE_TPU_READ_REPLICA,
+KUEUE_TPU_REPLICA_ID, KUEUE_TPU_LEASE, KUEUE_TPU_LEASE_DURATION,
+KUEUE_TPU_FANOUT_SHARDS, and the bridge's
 KUEUE_TPU_ORACLE_RETRIES, KUEUE_TPU_ORACLE_BREAKER_N and
 KUEUE_TPU_ORACLE_BREAKER_COOLDOWN.
 
-Not ported: HA (with its uses of the recorder and the fault plan),
-federation, read replicas, and ``--fanout-shards``, which only HA mode
-reads. Their flags (and the environment variables that set them) exit 2
-with a message naming them; none is ignored.
+HA mode (``--ha``, with ``--replica-id``, ``--lease`` (default
+JOURNAL.lease), ``--lease-duration`` (5 s) and ``--fanout-shards`` (4)):
+the process is one of several sharing the journal. It starts as a
+follower (``ha/tailer.JournalTailer``'s read model serves GETs at once)
+and tries the fenced lease (``ha/lease.py``) every tick; the winner
+replays the journal, proves digest identity with the last ``ha_digest``
+checkpoint (``ha/digest.verify_promotion``), attaches a fenced writable
+journal and leads: the oracle, the SLO engine, ``--trace``, the overload
+tools, ``--record`` and ``--fault`` attach to the promoted engine
+(``lease-stall`` reaches its ``ha`` slot). It prints ``... serving on
+HOST:PORT ...``, ``ha: replica=ID lease=PATH duration=Ds``, then
+``ha: role=ROLE epoch=N`` at each role change and, at promotion, ``ha:
+promoted epoch=N acquired_at=T replay_s=S verify_s=S reason=...``. A
+renewal thread renews the lease every third of its duration; a refused
+renewal, or a journal append refused by the fence, fences the replica
+for good. POST ``/workloads`` goes through the replica (503 off the
+leader). SIGTERM resigns the lease and prints one JSON line: the role
+and epoch, the heads launches, the cycles, ``pipeline_stats``, the
+promotion report and its timing, the tailer's rebuilds and the loop's
+seconds.
+
+Read-replica mode (``--read-replica``, with ``--replica-id`` and
+``--fanout-shards``): ``readplane/replica.ReadReplica`` tails the journal
+and serves ``/read/*``, ``/debug/readplane``, its own ``/metrics`` and
+``/events``; every POST answers 403. It prints ``... read replica
+serving on HOST:PORT ...`` and ``readplane: replica=ID journal=PATH``;
+SIGTERM prints one JSON line with its queries, rebuilds, tail position,
+admitted-state digest and the sha256 of its ``canonical_answer``.
+
+Not ported: federation (``--federate``, and ``KUEUE_TPU_FEDERATE``),
+which exits 2 with a message naming it; it is not ignored.
 """
 
 from __future__ import annotations
@@ -97,15 +128,10 @@ import sys
 import time
 
 # Flags of the JAX package's serve.py this port does not implement, with
-# the environment variables that set them.
+# the environment variables that set them: federation (ROADMAP Queue 1
+# item 7).
 NOT_PORTED = {
-    "--ha": "KUEUE_TPU_HA",
     "--federate": "KUEUE_TPU_FEDERATE",
-    "--read-replica": "KUEUE_TPU_READ_REPLICA",
-    "--replica-id": "KUEUE_TPU_REPLICA_ID",
-    "--lease": "KUEUE_TPU_LEASE",
-    "--lease-duration": "KUEUE_TPU_LEASE_DURATION",
-    "--fanout-shards": "KUEUE_TPU_FANOUT_SHARDS",
 }
 
 # Bounded-time recovery and the disk budget, as the JAX package's
@@ -177,6 +203,31 @@ def _parse(argv):
     parser.add_argument("--fault",
                         default=os.environ.get("KUEUE_TPU_FAULT"),
                         help="arm a fault plan (replay/faults.py spec)")
+    parser.add_argument("--ha", action="store_true",
+                        default=os.environ.get("KUEUE_TPU_HA") == "1",
+                        help="HA replica: share --journal with others, "
+                             "elect a leader through the --lease file")
+    parser.add_argument("--read-replica", action="store_true",
+                        default=os.environ.get(
+                            "KUEUE_TPU_READ_REPLICA") == "1",
+                        help="read replica: tail --journal and answer "
+                             "staleness-stamped /read/* queries; never "
+                             "write, never lead")
+    parser.add_argument("--replica-id",
+                        default=os.environ.get("KUEUE_TPU_REPLICA_ID"),
+                        help="this replica's identity (default host-pid)")
+    parser.add_argument("--lease",
+                        default=os.environ.get("KUEUE_TPU_LEASE"),
+                        help="the HA lease file (default JOURNAL.lease)")
+    parser.add_argument("--lease-duration", type=float,
+                        default=float(os.environ.get(
+                            "KUEUE_TPU_LEASE_DURATION", "5.0")),
+                        help="seconds a lease lives unrenewed")
+    parser.add_argument("--fanout-shards", type=int,
+                        default=int(os.environ.get(
+                            "KUEUE_TPU_FANOUT_SHARDS", "4")),
+                        help="dispatcher threads of the /events hub of "
+                             "an HA or read replica")
     for flag in NOT_PORTED:
         parser.add_argument(flag, nargs="?", const="", default=None,
                             help="not ported (exits 2)")
@@ -237,6 +288,12 @@ def _attach_overload(eng, args) -> None:
 
 def main(argv=None) -> None:
     args = _parse(argv)
+    if args.read_replica:
+        _main_read_replica(args)
+        return
+    if args.ha:
+        _main_ha(args)
+        return
 
     from kueue_tpu_torch.ops import heads
     from kueue_tpu_torch.store.journal import JournalDegraded
@@ -249,11 +306,7 @@ def main(argv=None) -> None:
           f"({os.path.getsize(args.journal)} bytes) in {rebuild_s:.3f} s "
           f"source={eng.rebuild_source} base={eng.rebuild_base_records} "
           f"suffix={eng.rebuild_suffix_records}", flush=True)
-    if args.oracle == "local":
-        eng.attach_oracle()
-    elif args.oracle != "off":
-        host, _, port = args.oracle.rpartition(":")
-        eng.attach_oracle(remote_address=(host or "127.0.0.1", int(port)))
+    _oracle(eng, args)
     _attach_overload(eng, args)
     recorder = None
     if args.record:
@@ -282,13 +335,7 @@ def main(argv=None) -> None:
           f"oracle={args.oracle}, device={eng.device or 'cuda'})",
           flush=True)
 
-    stop = {"flag": False}
-
-    def _stop(*_a):
-        stop["flag"] = True
-
-    signal.signal(signal.SIGTERM, _stop)
-    signal.signal(signal.SIGINT, _stop)
+    stop = _stop_flag()
 
     # The wait.UntilWithBackoff loop (scheduler.go:207): schedule while
     # fruitful, idle-tick otherwise; the engine clock follows the wall
@@ -344,6 +391,296 @@ def main(argv=None) -> None:
         "disk_budget_checks": eng.journal.budget.checks,
 
         "loop_s": loop}), flush=True)
+
+
+def _stop_flag() -> dict:
+    """{"flag": False}, set to True by SIGTERM or SIGINT."""
+    stop = {"flag": False}
+
+    def _stop(*_a):
+        stop["flag"] = True
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    return stop
+
+
+class _RebuildGC:
+    """The GC posture of a process whose loop rebuilds a read model over
+    and over (an HA follower, a read replica), after the serving
+    engine's (``Engine.apply_serving_gc_posture``): automatic collection
+    off and the heap frozen, so a rebuild allocating hundreds of
+    thousands of objects never starts a full collection over millions.
+    Each loop iteration sweeps the young generation and each rebuild
+    freezes the new read model; what the replaced read models left (an
+    engine dropped leaves ~20 cyclic objects per workload) is collected
+    in one full collection once the tail is quiet (nothing new, nothing
+    unfolded: its answers miss nothing meanwhile), or after ``every``
+    rebuilds without a quiet poll. (At 50,000 workloads a read model
+    holds ~2 million tracked objects, a full collection seconds of the
+    loop, which age the replica's answers.)"""
+
+    every = 2
+
+    def __init__(self):
+        import gc
+
+        self.seen = 0
+        self.owed = 0
+        gc.collect()
+        gc.freeze()
+        gc.disable()
+
+    def after_poll(self, tailer) -> None:
+        """After one loop iteration over ``tailer``."""
+        import gc
+
+        gc.collect(0)
+        quiet = tailer.rebuilds == self.seen and tailer.replay_lag == 0
+        if tailer.rebuilds != self.seen:
+            self.owed += tailer.rebuilds - self.seen
+            self.seen = tailer.rebuilds
+            gc.freeze()
+        if self.owed and (quiet or self.owed >= self.every):
+            gc.unfreeze()
+            gc.collect()
+            gc.freeze()
+            self.owed = 0
+
+    @staticmethod
+    def release(eng) -> None:
+        """Automatic collection back on, unless ``eng`` took the serving
+        posture (an attached oracle does)."""
+        import gc
+
+        if not eng._serving_gc:
+            gc.unfreeze()
+            gc.enable()
+
+
+def _oracle(eng, args) -> None:
+    if args.oracle == "local":
+        eng.attach_oracle()
+    elif args.oracle != "off":
+        host, _, port = args.oracle.rpartition(":")
+        eng.attach_oracle(remote_address=(host or "127.0.0.1", int(port)))
+
+
+def _main_ha(args) -> None:
+    """HA replica mode: one of the processes sharing ``--journal`` and
+    ``--lease``. It starts as a follower (reads and /events at once);
+    winning the lease runs the replay-verified promotion before the
+    first write, and the promoted engine gets the oracle, the SLO
+    engine, the tracer, the overload tools, the recorder and the fault
+    plan. The endpoint resolves the engine per request, since promotion
+    swaps it. The loop holds the cycle lock around a leader's cycles
+    (and around ``on_promote``), never while it follows."""
+    from kueue_tpu_torch.device import resolve_device
+    from kueue_tpu_torch.ha.replica import HAReplica
+    from kueue_tpu_torch.ha.shedder import AdmissionShedder
+    from kueue_tpu_torch.obs.slo import attach_slo
+    from kueue_tpu_torch.ops import heads
+    from kueue_tpu_torch.store.journal import JournalDegraded, JournalFenced
+    from kueue_tpu_torch.visibility.fanout import FanoutHub
+    from kueue_tpu_torch.visibility.http_server import ServingEndpoint
+
+    resolve_device(args.device)
+    posture = _RebuildGC()
+    identity = args.replica_id or f"{os.uname().nodename}-{os.getpid()}"
+    lease_path = args.lease or args.journal + ".lease"
+    hub = FanoutHub(shards=args.fanout_shards)
+    shedder = (AdmissionShedder(rate=args.shed_rate, hub=hub)
+               if args.shed_rate > 0 else None)
+    held = {}
+
+    def on_promote(eng, replica) -> None:
+        # Requests wait while the promoted engine is being equipped.
+        with held["endpoint"].lock.cycle():
+            _oracle(eng, args)
+            _RebuildGC.release(eng)
+            attach_slo(eng)
+            if shedder is not None:
+                shedder.slo = eng.slo
+                shedder.metrics = eng.registry
+                eng.shedder = shedder
+            hub.metrics = eng.registry
+            replica.tailer.metrics = eng.registry
+            replica.metrics = eng.registry
+            if args.trace:
+                retain = (int(args.trace) if args.trace.isdigit()
+                          and int(args.trace) > 1 else 64)
+                eng.attach_tracer(retain=retain)
+            _attach_overload(eng, args)
+            if args.record:
+                from kueue_tpu_torch.replay.recorder import FlightRecorder
+                held["recorder"] = FlightRecorder(
+                    eng, args.record, bootstrap=True,
+                    label=f"serve-ha:{identity}")
+            if args.fault:
+                # The fault plan reaches engine.ha (lease-stall), which
+                # the promotion has set.
+                from kueue_tpu_torch.replay.faults import arm_faults
+                arm_faults(eng, args.fault)
+
+    replica = HAReplica(
+        args.journal, lease_path, identity,
+        lease_duration=args.lease_duration,
+        hub=hub, shedder=shedder, on_promote=on_promote,
+        checkpoint_interval=args.checkpoint_interval,
+        checkpoint_keep=args.checkpoint_keep,
+        segment_rotate_records=args.segment_records or None,
+        segment_rotate_bytes=args.segment_bytes or None,
+        min_free_bytes=args.min_free_bytes,
+        engine_kwargs={"device": args.device})
+
+    host, _, port = args.http.rpartition(":")
+    endpoint = held["endpoint"] = ServingEndpoint(
+        replica.engine_ref, host=host or "0.0.0.0", port=int(port),
+        auth_token=os.environ.get("KUEUE_TPU_AUTH_TOKEN"),
+        hub=hub, replica=replica)
+    endpoint.start()
+    print(f"kueue-tpu-torch engine serving on {host or '0.0.0.0'}:"
+          f"{endpoint.port} (journal={args.journal}, "
+          f"oracle={args.oracle}, device={args.device or 'cuda'})",
+          flush=True)
+    print(f"ha: replica={identity} lease={lease_path} "
+          f"duration={args.lease_duration}s", flush=True)
+
+    stop = _stop_flag()
+    loop = dict.fromkeys(("schedule_once", "tick", "lock_wait", "sleep",
+                          "follow"), 0.0)
+    announced = "follower"
+    while not stop["flag"]:
+        t0 = time.monotonic()
+        role = replica.step(time.time())
+        if role != announced:
+            announced = role
+            print(f"ha: role={role} epoch={replica.epoch}", flush=True)
+            if role == "leader" and replica.promotion_timing:
+                t = replica.promotion_timing
+                print(f"ha: promoted epoch={replica.epoch} acquired_at="
+                      f"{t['acquired_at']:.6f} replay_s={t['replay_s']:.6f} "
+                      f"verify_s={t['verify_s']:.6f} reason="
+                      f"{replica.promotion_report['reason']}", flush=True)
+        if role != "leader":
+            posture.after_poll(replica.tailer)
+            loop["follow"] += time.monotonic() - t0
+            time.sleep(args.tick)
+            continue
+        # Once: the renewal thread can fence (and clear) replica.engine
+        # between two ticks.
+        eng = replica.engine
+        if eng is None:
+            continue
+        t0 = time.monotonic()
+        try:
+            with endpoint.lock.cycle():
+                t1 = time.monotonic()
+                result = eng.schedule_once()
+                t2 = time.monotonic()
+                eng.tick(t2 - t0 + args.tick if result is None
+                         else t2 - t0)
+                t3 = time.monotonic()
+        except JournalFenced as e:
+            replica._fence(f"journal fence tripped: {e}")
+            continue
+        except JournalDegraded as e:
+            # An ENOSPC raced past the cycle's gate: stay leader, park
+            # this tick; the gate re-arms once space returns.
+            print(f"ha: journal degraded, parking: {e}", flush=True)
+            time.sleep(args.tick)
+            continue
+        loop["lock_wait"] += t1 - t0
+        loop["schedule_once"] += t2 - t1
+        loop["tick"] += t3 - t2
+        if result is None:
+            time.sleep(args.tick)
+            loop["sleep"] += time.monotonic() - t3
+    eng = replica.engine
+    role, epoch = replica.roles.role, replica.epoch
+    if held.get("recorder") is not None:
+        held["recorder"].close()
+    replica.resign()
+    endpoint.stop()
+    hub.close()
+    b = eng.oracle if eng is not None else None
+    if eng is not None:
+        if eng.watchdog is not None:
+            eng.watchdog.detach()  # stops its hang sampler thread
+        eng.journal.close()
+    print(json.dumps({
+        "role": role, "epoch": epoch, "identity": identity,
+        "heads_launches": heads.launches,
+        "cycle_seq": eng.cycle_seq if eng is not None else 0,
+        "cycles_on_device": b.cycles_on_device if b else 0,
+        "cycles_fallback": b.cycles_fallback if b else 0,
+        "pipeline_stats": dict(b.pipeline_stats) if b else {},
+        "promotion": replica.promotion_report,
+        "promotion_timing": replica.promotion_timing,
+        "tailer_rebuilds": replica.tailer.rebuilds,
+        "loop_s": loop}), flush=True)
+
+
+def _main_read_replica(args) -> None:
+    """Read-replica mode: no admission cycles and no writable journal
+    handle. The process tails ``--journal`` (checkpoint base + suffix
+    rebuilds), serves staleness-stamped /read/* queries and /events from
+    its read model, and refuses every write. SIGTERM ends it with one
+    JSON line: its queries, rebuilds, tail position and the sha256 and
+    length of ``readplane.canonical_answer`` of its read model."""
+    import hashlib
+
+    from kueue_tpu_torch.device import resolve_device
+    from kueue_tpu_torch.ha.digest import admitted_state_digest
+    from kueue_tpu_torch.metrics.registry import MetricsRegistry
+    from kueue_tpu_torch.readplane import ReadReplica, canonical_answer
+    from kueue_tpu_torch.visibility.fanout import FanoutHub
+    from kueue_tpu_torch.visibility.http_server import ServingEndpoint
+
+    resolve_device(args.device)
+    posture = _RebuildGC()
+    identity = args.replica_id or f"read-{os.getpid()}"
+    registry = MetricsRegistry()
+    hub = FanoutHub(shards=args.fanout_shards, metrics=registry)
+    replica = ReadReplica(args.journal, replica_id=identity, hub=hub,
+                          metrics=registry,
+                          engine_kwargs={"device": args.device})
+    host, _, port = args.http.rpartition(":")
+    endpoint = ServingEndpoint(
+        lambda: replica.engine, host=host or "0.0.0.0", port=int(port),
+        auth_token=os.environ.get("KUEUE_TPU_AUTH_TOKEN"),
+        hub=hub, readplane=replica)
+    endpoint.start()
+    print(f"kueue-tpu-torch read replica serving on {host or '0.0.0.0'}:"
+          f"{endpoint.port} (journal={args.journal})", flush=True)
+    print(f"readplane: replica={identity} journal={args.journal}",
+          flush=True)
+
+    stop = _stop_flag()
+    # Tail fast and sleep only when the journal is quiet: staleness is
+    # what this process sells.
+    tail_tick = min(args.tick, 0.05)
+    while not stop["flag"]:
+        try:
+            n = replica.poll()
+        except FileNotFoundError:
+            n = 0  # no journal yet: answer "no read model", retry
+        posture.after_poll(replica.tailer)
+        if n == 0:
+            time.sleep(tail_tick)
+    endpoint.stop()
+    hub.close()
+    eng = replica.engine
+    canonical = canonical_answer(eng) if eng is not None else b""
+    t = replica.tailer
+    print(json.dumps({
+        "role": "read-replica", "identity": identity,
+        "queries": replica.queries, "rebuilds": t.rebuilds,
+        "records_seen": t.records_seen, "position": t.position(),
+        "applied_position": t.applied_position,
+        "state_digest": admitted_state_digest(eng) if eng else None,
+        "canonical_sha256": hashlib.sha256(canonical).hexdigest(),
+        "canonical_bytes": len(canonical)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -37,10 +37,9 @@ JournalDegraded instead of writing when the filesystem is below the
 floor (a real ENOSPC degrades the same way); ``writable()`` is the
 engine's cycle gate and re-arms the budget once space returns. The
 ``fence`` predicate (None, unfenced, by default) refuses a write with
-JournalFenced.
-
-Left out: HA's decision chain (``ha_digest`` records are still skipped
-on rebuild) and the read-plane tailer.
+JournalFenced (an HA leader's, ``ha/replica.py``). ``ha_digest`` records
+(the HA decision chain, ``ha/digest.py``) carry no engine state: a
+rebuild skips them.
 """
 
 from __future__ import annotations
@@ -839,15 +838,22 @@ EPHEMERAL_KINDS = frozenset(
     {"cycle_trace", "ha_digest", "fed_route", "fed_cell"})
 
 
-def engine_from_records(records, **engine_kwargs):
+def engine_from_records(records, workloads_from=None, clock=None,
+                        **engine_kwargs):
     """Apply a journal record sequence to a new
     ``Engine(**engine_kwargs)``: objects are
     re-created in order, then each workload's last persisted state is
     restored through ``Engine.restore_workload``; the clock is the
-    largest record timestamp. A rotated file's meta lines are skipped."""
+    largest record timestamp. A rotated file's meta lines are skipped.
+    ``workloads_from(key, obj)``, when given, returns the Workload of a
+    workload's last record object, and ``clock`` the clock (a journal
+    tailer replays what it folded of the records it read, and its read
+    models share the workloads whose records did not change); by
+    default each workload is decoded anew."""
     from kueue_tpu_torch.controllers.engine import Engine
 
     eng = Engine(**engine_kwargs)
+    given_clock = clock
     records = [rec for rec in records if rec.get("op") != "meta"]
     # Last op wins per (kind, key): a later delete tombstones earlier
     # applies.
@@ -877,9 +883,11 @@ def engine_from_records(records, **engine_kwargs):
         method = _CREATE.get(kind)
         if method is not None:
             getattr(eng, method)(from_jsonable(rec["obj"]))
-    eng.clock = clock
+    eng.clock = clock if given_clock is None else given_clock
     for key in wl_order:
-        eng.restore_workload(from_jsonable(workloads[key]))
+        eng.restore_workload(from_jsonable(workloads[key])
+                             if workloads_from is None
+                             else workloads_from(key, workloads[key]))
     return eng
 
 

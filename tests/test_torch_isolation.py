@@ -57,6 +57,17 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.replay.faults",
           "kueue_tpu_torch.bench.replay_world",
           "kueue_tpu_torch.visibility.fanout",
+          "kueue_tpu_torch.visibility.flowcontrol",
+          "kueue_tpu_torch.ha",
+          "kueue_tpu_torch.ha.roles",
+          "kueue_tpu_torch.ha.lease",
+          "kueue_tpu_torch.ha.tailer",
+          "kueue_tpu_torch.ha.replica",
+          "kueue_tpu_torch.utils.leaderelection",
+          "kueue_tpu_torch.readplane",
+          "kueue_tpu_torch.readplane.queries",
+          "kueue_tpu_torch.readplane.replica",
+          "kueue_tpu_torch.readplane.frontend",
           "kueue_tpu_torch.visibility.dashboard"):
     assert m in sys.modules, m
 print("isolated")

@@ -358,9 +358,10 @@ def test_hub_backed_stream():
 
 def test_routes_leave_the_not_ported_list():
     for path in ("", "/dashboard", "/events", "/debug/trace",
-                 "/debug/perf", "/debug/slo"):
+                 "/debug/perf", "/debug/slo", "/debug/ha",
+                 "/debug/flowcontrol", "/debug/readplane", "/read/quota"):
         assert not phttp._not_ported(path, "GET"), path
-    assert phttp._not_ported("/debug/ha", "GET")
+    assert phttp._not_ported("/debug/federation", "GET")
 
 
 def test_structured_log_records_match():

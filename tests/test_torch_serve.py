@@ -214,10 +214,8 @@ def test_drain_admits_every_arrival(drained):
     assert idle["phase_samples"]
 
 
-@pytest.mark.parametrize("path", ["/debug/ha",
-                                  "/debug/flowcontrol",
-                                  "/clusterqueues/cq-0/status",
-                                  "/read/pending/cq-0", "/debug/readplane"])
+@pytest.mark.parametrize("path", ["/clusterqueues/cq-0/status",
+                                  "/localqueues/default/lq-0/status"])
 def test_unported_route_404(served, path):
     url = served[1]
     with pytest.raises(RuntimeError, match="404"):
@@ -227,6 +225,43 @@ def test_unported_route_404(served, path):
     r = c.getresponse()
     body = json.loads(r.read())
     assert r.status == 404 and body["error"] == "not ported"
+
+
+# The HA, flow-control and read-plane routes of a plain serve process,
+# as the JAX endpoint answers them without a replica or a read replica.
+PORTED_ROUTES = {
+    "/debug/ha": (200, {"enabled": False}),
+    "/debug/readplane": (200, {"enabled": False}),
+    "/read/pending/cq-0": (404, {"error": "not a read replica"}),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PORTED_ROUTES) + [
+    "/debug/flowcontrol"])
+def test_ported_route_answers_as_jax(served, path):
+    c = sw._conn(served[1], 30)
+    c.request("GET", path)
+    r = c.getresponse()
+    body = json.loads(r.read())
+    if path == "/debug/flowcontrol":
+        # APF is on by default: this request holds one seat.
+        assert r.status == 200
+        assert body["levels"]["visibility"]["executing"] >= 1
+        assert set(body) == {"rejected_total", "queued_total", "levels"}
+    else:
+        assert (r.status, body) == PORTED_ROUTES[path]
+
+
+def test_start_helper_timeout_leaves_no_child(tmp_path):
+    """A start helper whose wait times out kills its own child: an HA
+    replica never prints the plain serve's ``rebuilt `` line."""
+    before = {p for p, _ in sw.survivors()}
+    registered = set(sw._LIVE)
+    with pytest.raises(TimeoutError):
+        sw.start_serve(tmp_path / "j.jsonl", "off", "cpu", timeout=0.5,
+                       extra=("--ha",))
+    assert {p for p, _ in sw.survivors()} == before
+    assert set(sw._LIVE) == registered
 
 
 def test_unknown_route_404(served):
@@ -246,10 +281,7 @@ def test_sigterm_exits_0(served, drained):
     assert last["heads_launches"] == 0  # the CPU runs the plain version
 
 
-@pytest.mark.parametrize("argv", [
-    ["--ha"], ["--federate", "a=http://x"], ["--read-replica"],
-    ["--replica-id", "r1"], ["--lease", "l.json"],
-    ["--lease-duration", "3"], ["--fanout-shards", "2"]])
+@pytest.mark.parametrize("argv", [["--federate", "a=http://x"]])
 def test_unported_flag_exits_2(argv, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--journal", "unused.jsonl", *argv])
@@ -257,14 +289,46 @@ def test_unported_flag_exits_2(argv, capsys):
     assert argv[0] in capsys.readouterr().err
 
 
+# The HA and read-replica flags, as the JAX serve parses them: (argv,
+# environment, the parsed attribute, its value).
+PORTED_FLAGS = [
+    (["--ha"], {}, "ha", True),
+    ([], {"KUEUE_TPU_HA": "1"}, "ha", True),
+    (["--read-replica"], {}, "read_replica", True),
+    (["--replica-id", "r1"], {}, "replica_id", "r1"),
+    (["--lease", "l.json"], {}, "lease", "l.json"),
+    (["--lease-duration", "3"], {}, "lease_duration", 3.0),
+    ([], {}, "lease_duration", 5.0),
+    (["--fanout-shards", "2"], {}, "fanout_shards", 2),
+    ([], {"KUEUE_TPU_FANOUT_SHARDS": "8"}, "fanout_shards", 8),
+]
+
+
+@pytest.mark.parametrize("argv,env,attr,value", PORTED_FLAGS)
+def test_ha_flag_parses_as_jax(argv, env, attr, value, monkeypatch):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    args = serve._parse(["--journal", "unused.jsonl", *argv])
+    assert getattr(args, attr) == value
+
+
+def test_ha_without_cuda_raises(tmp_path):
+    """``--ha`` and ``--read-replica`` default to CUDA and raise without
+    it, as every entry point does."""
+    for flag in ("--ha", "--read-replica"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--journal", str(tmp_path / "j.jsonl"), flag,
+                        "--http", "127.0.0.1:0"])
+
+
 def test_unported_flag_exits_2_as_a_process(tmp_path):
-    env = sw.child_env(KUEUE_TPU_HA="1")
+    env = sw.child_env(KUEUE_TPU_FEDERATE="a=http://x")
     out = subprocess.run([sys.executable, "-m", "kueue_tpu_torch.serve",
                           "--journal", str(tmp_path / "j.jsonl")],
                          cwd=sw.REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 2
-    assert "KUEUE_TPU_HA" in out.stderr and "not ported" in out.stderr
+    assert "KUEUE_TPU_FEDERATE" in out.stderr and "not ported" in out.stderr
 
 
 def test_bearer_token(tmp_path):
