@@ -267,6 +267,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      wait, replay, verify), POST p50 and p95 to A and B, the maximum
      staleness, the drain, the wall per device cycle, B's memory and the
      phase's marks.
+ 31. (beside phase 19, in a process of its own that prints its lines and
+     its heads launches) jobs and pod templates at full width
+     (kueue_tpu_torch/bench/job_worlds.py FULL, on the default loop):
+     cycle_latency's world (1,000 ClusterQueues) with its 50,000 entries
+     made into 30,000 BatchJobs sent through the job webhooks and
+     ``JobReconciler.create_job`` (1 in 200 refused: JobRejected) and
+     20,000 workloads with pod templates given to ``submit`` under one
+     LimitRange (container default request and maximum) and one
+     RuntimeClass overhead (limits-only, init-container and oversized
+     templates among them: 1 in 200 Inadmissible), plus 50
+     StatefulSets that scale to zero once admitted (OnHold) and back up
+     two cycles later (HoldCleared); 9 cycles, a fifth of the jobs each
+     cycle admitted succeeding after it. Gated on the JAX engine's
+     numbers for the world (cycles, admissions, decision-stream crc32,
+     device / hybrid / fallback cycles, evictions, pipeline_stats, the
+     Inadmissible, JobRejected, OnHold and HoldCleared events, the jobs
+     started and succeeded), the heads kernel launched once per
+     dispatched device call and held against its plain version on the
+     run's first-cycle inputs. Prints p50 and p95 s/cycle, the mean
+     phases and the seconds spent creating the 50,000 entries.
 Before the kernel summary it prints each phase's wall seconds; the
 phases that run side by side share one span. Every child process runs in a session and process group of its own and is
 registered from its spawn (kueue_tpu_torch/bench/serve_world.py); when
@@ -280,11 +300,12 @@ The expected decisions are the JAX package's own on the same scenarios
 tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
 tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
 tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py,
-tests/test_torch_tas_lifecycle_world.py and
-tests/test_torch_replay_world.py recompute them). Phases 19 to 21,
-28, 29 and 30 read the heads launches of the process that launches them
-(the sidecar, the restarted serve process, phase 29's process or the
-promoted leader), from the JSON line it prints. The last two lines are a JSON summary of the kernels and the
+tests/test_torch_tas_lifecycle_world.py,
+tests/test_torch_replay_world.py and tests/test_torch_job_world.py
+recompute them). Phases 19 to 21, 28 to 31 read the heads launches of
+the process that launches them (the sidecar, the restarted serve
+process, phase 29's or 31's process or the promoted leader), from the
+JSON line it prints. The last two lines are a JSON summary of the kernels and the
 result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -500,6 +521,16 @@ REPLAY_EXPECT = dict(
                             skipped=0)))
 # The heads kernel's device functions, one of which every call launches
 # (heads.cu: the cluster kernel, or the atomic kernel past shared memory).
+# Phase 31: the job world (kueue_tpu_torch/bench/job_worlds.py FULL) on
+# the default loop, as the JAX engine runs it (tests/
+# test_torch_job_world.py recomputes it).
+JOBS_EXPECT = dict(
+    cycles=9, admitted=9000, preempting=0, preemptions=0,
+    checksum=0x6ac4dba9, on_device=9, hybrid=0, fallback=0, overridden=0,
+    evicted=0, pipeline_stats=dict(speculated=5, used=0, discarded=5,
+                                   skipped=4),
+    inadmissible=100, job_rejected=150, on_hold=50, hold_cleared=50,
+    started=5388, succeeded=1071)
 HEADS_DEVICE_KERNELS = ("heads_cluster_kernel", "heads_atomic_kernel")
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
@@ -1735,9 +1766,33 @@ def phases_serve(card, by_path, heads, pk, sms):
     bodies = sw.arrival_bodies(sw.FULL)
     print(f"  seeded journal: records={seeded['records']} "
           f"bytes={seeded['bytes']} in {time.perf_counter() - t0:.2f} s")
-    span("19")
-    print("[19] deployed control plane: serve + oracle sidecar on the card")
-    by_path["serve_world"] = phase_serve(seed, work, bodies, card)
+    span("19+31")
+    print("[19] deployed control plane: serve + oracle sidecar on the card "
+          "(beside 31)")
+    # Phase 31 is a gate on a world of its own, in a process of its own:
+    # it runs beside phase 19 and prints its lines when 19 is done.
+    jobs_lines, jobs = [], {}
+
+    def run_jobs():
+        try:
+            jobs["by_path"] = phase_jobs_beside(card, say=jobs_lines.append)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            jobs["error"] = e
+
+    jobs_thread = threading.Thread(target=run_jobs)
+    jobs_thread.start()
+    try:
+        by_path["serve_world"] = phase_serve(seed, work, bodies, card)
+    finally:
+        jobs_thread.join()
+    print("[31] jobs and pod templates: jobs_world, 50,000 entries through "
+          "the webhooks, the jobframework and submit (beside 19, in a "
+          "process of its own)")
+    for line in jobs_lines:
+        print(line)
+    if "error" in jobs:
+        raise jobs["error"]
+    by_path.update(jobs["by_path"])
     # Phases 20, 21, 28, 29 and 30 are gates on other worlds' processes
     # (their own journals, sidecars, leases and ports), and phase 19's
     # heads check a gate on an engine of this process: they run side by
@@ -2124,6 +2179,79 @@ def phase_replay_beside(seed, work, bodies, card, say=print) -> dict:
         raise AssertionError(f"phase 29's process exited {rc}: "
                              f"{proc.tail()}")
     return json.loads(line)["replay_by_path"]
+
+
+def phase_jobs(heads, pk, card, sms) -> dict:
+    """Phase 31: the job world at full width through the serving engine
+    on the default loop, against the JAX engine's numbers, with the heads
+    kernel launched once per dispatched device call and held against its
+    plain version on the run's first-cycle inputs. Returns its heads
+    launches by path."""
+    from kueue_tpu_torch.bench import job_worlds as jw
+
+    box = {}
+    heads.launches = 0
+    t0 = time.perf_counter()
+    eff_t, cq_t, C = pk.first_heads_inputs(
+        lambda: box.update(r=jw.run(jw.FULL["jobs_world"])))
+    total_s = time.perf_counter() - t0
+    launches = heads.launches
+    r = box["r"]
+    got = jw.pinned(r)
+    print("  " + " ".join(
+        f"{k}=0x{v:08x}" if k == "checksum" else f"{k}={v}"
+        for k, v in got.items()))
+    if got != JOBS_EXPECT:
+        raise AssertionError(f"jobs_world: got {got}, want {JOBS_EXPECT}")
+    if launches != dispatched(r):
+        raise AssertionError(
+            f"jobs_world: heads kernel launched {launches} times for "
+            f"{r['on_device']} device cycles and pipeline_stats "
+            f"{r['pipeline_stats']}")
+    check_heads(heads, f"jobs_world first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+    times = sorted(r["cycle_seconds"])
+    p50 = times[len(times) // 2]
+    p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
+    mean = {ph: sum(p.get(ph, 0.0) for p in r["phases"]) / len(r["phases"])
+            for ph in ("encode", "sim", "device", "apply", "finalize",
+                       "spec_encode")}
+    print(f"  timed_cycles={len(times)} p50_s={p50:.4f} p95_s={p95:.4f} "
+          "mean_phases_s=" + ",".join(f"{k}:{v:.4f}" for k, v in mean.items())
+          + f" build_s={r['build_s']:.2f} "
+          f"({jw.FULL['jobs_world']['n_entries']:,} entries created) "
+          f"run_s={total_s:.2f} heads_launches={launches} | {card}")
+    return {"jobs_world": launches}
+
+
+def phase_jobs_beside(card, say=print) -> dict:
+    """Phase 31 in a child process of its own, so that it runs beside
+    phase 19 (its heads launches count in that process, trap (an)): the
+    child runs ``phase_jobs``, prints its lines and then one JSON line of
+    the launches by path, which this returns."""
+    from kueue_tpu_torch.bench import serve_world as sw
+
+    proc = sw.Proc(["-c", (
+        "import json\n"
+        "import torch\n"
+        "import chip_smoke\n"
+        "from kueue_tpu_torch.bench import profile_kernels as pk\n"
+        "from kueue_tpu_torch.ops import heads\n"
+        "sms = torch.cuda.get_device_properties(0).multi_processor_count\n"
+        f"by_path = chip_smoke.phase_jobs(heads, pk, {card!r}, sms)\n"
+        "print(json.dumps({'jobs_by_path': by_path}))\n")])
+    try:
+        line = proc.wait_line('"jobs_by_path"', 900)
+        rc = proc.p.wait(120)
+    finally:
+        proc.kill()
+    for out in proc.out:
+        if out != line:
+            say(out)
+    if rc != 0:
+        raise AssertionError(f"phase 31's process exited {rc}: "
+                             f"{proc.tail()}")
+    return json.loads(line)["jobs_by_path"]
 
 
 def drain(scenario_kw, device=None):

@@ -1,8 +1,10 @@
 """JSON codec for the API types, the journal's record format: a copy of
 ``kueue_tpu/api/serde.py`` over the port's types, with the same
 ``__t__`` / ``__e__`` tags, so that each package reads the other's
-records. The port has no pod templates (its engine raises on them), so
-``PodTemplate`` and ``ContainerSpec`` are not registered.
+records, pod templates (``PodTemplate``, ``ContainerSpec``) included.
+The port also registers ``LimitRange`` and ``LimitRangeItem``, which the
+JAX package's codec does not: a replayed ``create_limit_range`` frame
+decodes in the port.
 
 The reference persists all state as Kubernetes objects (the API server
 is the durable store; workload status lands via SSA patches,
@@ -50,6 +52,14 @@ def _auto_register() -> None:
     )
     _REGISTRY["CheckState"] = CheckState
     _REGISTRY["PodSetUpdate"] = PodSetUpdate
+    # Pod templates (PodSet.template) ride every workload record, and a
+    # recorded create_limit_range carries a LimitRange.
+    from kueue_tpu_torch.utils.limitrange import LimitRange, LimitRangeItem
+    from kueue_tpu_torch.utils.podtemplate import ContainerSpec, PodTemplate
+    _REGISTRY["ContainerSpec"] = ContainerSpec
+    _REGISTRY["PodTemplate"] = PodTemplate
+    _REGISTRY["LimitRange"] = LimitRange
+    _REGISTRY["LimitRangeItem"] = LimitRangeItem
 
 
 def register(cls: type) -> type:

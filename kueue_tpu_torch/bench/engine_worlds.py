@@ -34,8 +34,12 @@ class Kit:
     TAS snapshot module (its ``Node`` and ``HOSTNAME_LABEL``), ``afs``
     the admission-fair-sharing module (``AfsManager``, ``_LqUsage``),
     ``admissionchecks`` the admission-checks module, ``non_tas_usage``
-    the non-TAS pod usage module (its ``PodUsage``) and ``replay`` the
-    flight recorder package (``FlightRecorder``, ``replay_trace``)."""
+    the non-TAS pod usage module (its ``PodUsage``), ``replay`` the
+    flight recorder package (``FlightRecorder``, ``replay_trace``), and
+    the job path's modules: ``jobframework`` (``BatchJob``,
+    ``JobReconciler``), ``integrations`` (``StatefulSetJob``),
+    ``webhooks`` (``JobWebhookRegistry``), ``podtemplate`` and
+    ``limitrange``."""
 
     types: ModuleType
     scenario: ModuleType
@@ -46,6 +50,11 @@ class Kit:
     admissionchecks: ModuleType = None
     non_tas_usage: ModuleType = None
     replay: ModuleType = None
+    jobframework: ModuleType = None
+    integrations: ModuleType = None
+    webhooks: ModuleType = None
+    podtemplate: ModuleType = None
+    limitrange: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
@@ -54,15 +63,23 @@ def port_kit(device=None) -> Kit:
     from kueue_tpu_torch import replay
     from kueue_tpu_torch.api import types
     from kueue_tpu_torch.bench import scenario
-    from kueue_tpu_torch.controllers import admissionchecks, afs
+    from kueue_tpu_torch.controllers import (
+        admissionchecks,
+        afs,
+        integrations,
+        jobframework,
+    )
     from kueue_tpu_torch.controllers.engine import Engine
     from kueue_tpu_torch.tas import non_tas_usage, snapshot
+    from kueue_tpu_torch.utils import limitrange, podtemplate
+    from kueue_tpu_torch.webhooks import jobwebhooks
 
     return Kit(types, scenario,
                lambda fair=False: Engine(enable_fair_sharing=fair,
                                          device=device),
                lambda eng: eng.attach_oracle(device=device), snapshot,
-               afs, admissionchecks, non_tas_usage, replay)
+               afs, admissionchecks, non_tas_usage, replay, jobframework,
+               integrations, jobwebhooks, podtemplate, limitrange)
 
 
 # The serving loop's arms: (KUEUE_TPU_PIPELINE, KUEUE_TPU_COLUMNAR).

@@ -381,6 +381,9 @@ class QueueManager:
         # Incremental tensor rows over the pending world (the oracle
         # bridge's per-cycle encoding, tensor/rowcache.py).
         self.rows = WorkloadRowCache()
+        # workload_info.InfoOptions (resource transformations, excluded
+        # prefixes), set by the engine (workload.go:139 plumbing).
+        self.info_options = None
 
     def add_cluster_queue(self, cq: ClusterQueue) -> None:
         existing = self.cluster_queues.get(cq.name)
@@ -433,7 +436,8 @@ class QueueManager:
             old = self.cluster_queues.get(prev.cluster_queue)
             if old is not None:
                 old.delete(wl.key)
-        info = WorkloadInfo.from_workload(wl, cq_name)
+        info = WorkloadInfo.from_workload(wl, cq_name,
+                                          options=self.info_options)
         self.cluster_queues[cq_name].push_or_update(info)
         return info
 

@@ -59,6 +59,8 @@ class Cache:
         self.tas_usage_agg: dict[str, dict[tuple, dict[str, int]]] = {}
         self._wl_usage: dict[str, tuple] = {}  # key -> (cq, usage dict)
         self._wl_tas: dict[str, list] = {}  # key -> tas_domains tuples
+        # workload_info.InfoOptions, set by the engine.
+        self.info_options = None
         # Hook returning the set of defined AdmissionCheck names
         # (installed by AdmissionCheckManager); None = no check registry.
         self.admission_check_names = None
@@ -309,7 +311,8 @@ class Cache:
             # a path-dependent way — re-derive so every accounting path
             # agrees with the canonical from-scratch pipeline.
             info = WorkloadInfo.from_workload(
-                wl, wl.status.admission.cluster_queue)
+                wl, wl.status.admission.cluster_queue,
+                options=self.info_options)
         if info.cluster_queue not in self.cluster_queues:
             return False
         self._unaccount(wl.key)

@@ -8,9 +8,10 @@ dataclasses, so the port can solve exactly the arrays another encoder
 produced. Fields the port does not have are ignored; a missing field
 raises. ``tas_structure`` does the same for a topology forest's device
 encoding, ``api_object`` for an API object (flavors, queues,
-workloads, topologies, TAS nodes and topology assignments), and
-``configuration`` for the metrics' custom labels of a manager
-Configuration.
+workloads with their pod templates, topologies, TAS nodes and topology
+assignments, LimitRanges) and for a job of the job integrations, and
+``configuration`` for the parts of a manager Configuration the port
+reads.
 """
 
 from __future__ import annotations
@@ -53,19 +54,30 @@ def _build(cls, mapping):
 def api_object(obj):
     """The port's API object with the field values of ``obj``, an object
     of another package's API types (or TAS types: ``Node``,
-    ``TopologyAssignment``, ``PodUsage``) of the same class names
-    (dataclasses, enums, and the tuples, lists and dicts holding them),
-    converted field by field. The ``uid`` is copied as it is: preemption
-    candidates break ties on it."""
+    ``TopologyAssignment``, ``PodUsage``; pod templates and LimitRanges;
+    the jobs and ``PodSetInfo`` of the job integrations) of the same
+    class names (dataclasses, enums, and the tuples, lists and dicts
+    holding them), converted field by field into new objects, so that
+    adjusting a carried template leaves the original as it was. The
+    ``uid`` is copied as it is: preemption candidates break ties on it.
+    A ``PodGroup`` (no dataclass) is carried attribute by attribute."""
     from kueue_tpu_torch.api import types
+    from kueue_tpu_torch.controllers import integrations, jobframework
     from kueue_tpu_torch.tas import non_tas_usage, snapshot
+    from kueue_tpu_torch.utils import limitrange, podtemplate
 
     if isinstance(obj, enum.Enum):
         return getattr(types, type(obj).__name__)(obj.value)
+    if type(obj).__name__ == "PodGroup":
+        out = integrations.PodGroup.__new__(integrations.PodGroup)
+        out.__dict__.update({k: api_object(v)
+                             for k, v in vars(obj).items()})
+        return out
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         name = type(obj).__name__
-        cls = (getattr(types, name, None) or getattr(snapshot, name, None)
-               or getattr(non_tas_usage, name))
+        cls = next(getattr(m, name) for m in (
+            types, snapshot, non_tas_usage, podtemplate, limitrange,
+            jobframework, integrations) if hasattr(m, name))
         init, rest = {}, {}
         for f in dataclasses.fields(cls):
             (init if f.init else rest)[f.name] = api_object(
@@ -82,17 +94,32 @@ def api_object(obj):
 
 
 def configuration(cfg):
-    """The port's ``config.api.Configuration`` carrying the
-    ``metrics_custom_labels`` of ``cfg`` (another package's
-    Configuration) as the port's ``CustomLabelEntry``s, and its
-    ``profile_dir``."""
-    from kueue_tpu_torch.config.api import Configuration
+    """The port's ``config.api.Configuration`` carrying, of ``cfg``
+    (another package's Configuration), the job integrations it enables,
+    the resources section, the ``metrics_custom_labels`` as the port's
+    ``CustomLabelEntry``s, and the ``profile_dir``."""
+    from kueue_tpu_torch.config.api import (
+        Configuration,
+        ResourcesConfig,
+        ResourceTransformationSpec,
+    )
     from kueue_tpu_torch.metrics.registry import CustomLabelEntry
 
-    return Configuration(metrics_custom_labels=[
-        CustomLabelEntry(name=e.name, source_label_key=e.source_label_key,
-                         source_annotation_key=e.source_annotation_key)
-        for e in cfg.metrics_custom_labels],
+    res = getattr(cfg, "resources", None)
+    return Configuration(
+        integrations=tuple(getattr(cfg, "integrations", ("batch/job",))),
+        resources=ResourcesConfig() if res is None else ResourcesConfig(
+            exclude_resource_prefixes=tuple(res.exclude_resource_prefixes),
+            transformations=tuple(
+                ResourceTransformationSpec(
+                    input=t.input, strategy=t.strategy,
+                    outputs=dict(t.outputs), multiply_by=t.multiply_by)
+                for t in res.transformations)),
+        metrics_custom_labels=[
+            CustomLabelEntry(name=e.name,
+                             source_label_key=e.source_label_key,
+                             source_annotation_key=e.source_annotation_key)
+            for e in cfg.metrics_custom_labels],
         profile_dir=getattr(cfg, "profile_dir", None))
 
 

@@ -29,8 +29,8 @@ _DEFAULTS: dict[str, bool] = {
     "TASReplaceNodeNotReadyOverFixedTime": False,
     # A single-pod-owned workload keeps its assignment on replacement.
     "SkipReassignmentForPodOwnedWorkloads": True,
-    # Elastic workload slices (the job integrations that make them are
-    # not ported), and their delta-only TAS placement.
+    # Elastic workload slices (made by the elastic job integrations of
+    # controllers/jobframework.py), and their delta-only TAS placement.
     "ElasticJobsViaWorkloadSlices": False,
     "ElasticJobsViaWorkloadSlicesWithTAS": True,
     # Multi-layer slice constraints beyond the outermost layer.
@@ -51,6 +51,18 @@ _DEFAULTS: dict[str, bool] = {
     # DeviceClass -> extended-resource mapping (controllers/dra.py).
     "KueueDRAIntegration": True,
     "KueueDRAIntegrationExtendedResource": True,
+    # The job path (webhooks/, controllers/jobframework.py and
+    # integrations.py): partial admission keeps a pod set's minCount, a
+    # Cohort may name a parent, the admission-gated-by annotation is
+    # validated, a job naming no queue joins its namespace's "default"
+    # LocalQueue, the SparkApplication adapter is managed, and the
+    # managed-jobs namespace selector gates jobs that name a queue too.
+    "PartialAdmission": True,
+    "HierarchicalCohorts": True,
+    "AdmissionGatedBy": True,
+    "LocalQueueDefaulting": True,
+    "SparkApplicationIntegration": True,
+    "ManagedJobsNamespaceSelectorAlwaysRespected": True,
 }
 
 

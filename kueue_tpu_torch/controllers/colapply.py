@@ -3,22 +3,21 @@
 A copy of ``kueue_tpu/controllers/colapply.py``. The serial assume path
 (Engine._assume_batch_serial) walks the batch one entry at a time: each
 admission pays its own rowcache release (four single-element numpy
-writes), its own second-pass delete and its own admitted-dirty mark. At
-1k admissions a cycle those per-entry round trips dominate the apply
-span.
+writes), its own second-pass delete, its own expectation-store lock
+round trip and its own admitted-dirty mark. At 1k admissions a cycle
+those per-entry round trips dominate the apply span.
 
 This module applies the same diff in columns:
 
   * pending-world exits release their tensor rows through
     ``WorkloadRowCache.on_remove_batch``: four vectorized column writes
     for the whole batch instead of four numpy scalar writes per entry;
+  * preemption-expectation observations take the store lock once for
+    the whole batch (``Store.observed_uids``) and skip it entirely when
+    the store is empty;
   * admitted-dirty marks flush as one ``set.update``;
   * the second-pass delete column is skipped when the delayed-reeval
     queue is empty (the steady serving shape).
-
-The JAX package's preemption-expectation column has no store here:
-evictions are observed synchronously, so the JAX store is empty at every
-assume and its column is skipped there too.
 
 Every observable mutation lands in the same order and with the same
 values as the serial loop: the per-entry dict pops happen inline in
@@ -88,6 +87,7 @@ def columnar_assume_batch(eng, entries, bulk) -> list:
     rows = queues.rows
     second_pass = queues.second_pass
     checks = eng.admission_checks
+    expectations = eng.preemption_expectations
     tas_names = cache._tas_flavor_names()
     workloads_reg = cache.workloads
     wl_usage = cache._wl_usage
@@ -116,17 +116,20 @@ def columnar_assume_batch(eng, entries, bulk) -> list:
     if len(psa_fly) > 65536:
         psa_fly.clear()
 
-    # The second-pass column: when the delayed-reeval queue is empty the
-    # per-entry call is a guaranteed no-op, so the whole column is
-    # skipped. The engine is single-threaded within a cycle, so the
-    # emptiness snapshot cannot race an insert.
+    # The second-pass and expectation columns: when the delayed-reeval
+    # queue (or the expectation store) is empty the per-entry call is a
+    # guaranteed no-op, so the whole column is skipped. The engine is
+    # single-threaded within a cycle, so the emptiness snapshots cannot
+    # race an insert.
     sp_live = bool(second_pass._prequeued or second_pass._queued
                    or second_pass._ready_at)
+    exp_live = bool(expectations._store)
 
     pairs: list = []
     slow: list = []
     row_batch: list = []   # keys whose tensor rows release as one column
     dirty_keys: list = []  # admitted-dirty marks, flushed as one update
+    observed: list = []    # (key, uid) for the expectation store
     if checks is not None:
         # Configured admission checks force every entry through the
         # exact per-entry path — no point classifying one at a time.
@@ -219,6 +222,8 @@ def columnar_assume_batch(eng, entries, bulk) -> list:
                 if tas:
                     wl_tas[key] = tas
                     cache._account_tas(tas)
+        if exp_live:
+            observed.append((key, wl.uid))
         pairs.append((entry, admission))
 
     if row_batch:
@@ -233,6 +238,8 @@ def columnar_assume_batch(eng, entries, bulk) -> list:
         else:
             for key in dirty_keys:
                 cache.mark_admitted_dirty(key)
+    if observed:
+        expectations.observed_uids(observed)
     if pairs:
         cache.admitted_version += 1
     # Rare shapes: the exact per-entry path (assume + finalize).

@@ -38,11 +38,20 @@ that raises only warns) and the observability slots the obs layer
 attaches to (``attach_tracer``, ``attach_perf``, ``attach_slo``,
 ``profiled``; ``watchdog``, ``ladder``, ``fanout`` and ``shedder``
 attach themselves), with the JAX engine's perf scopes around the apply's
-sub-steps. Decisions are the JAX package's engine's, cycle by cycle, and
-nothing the obs layer records feeds back into one. Left out: the flight
-recorder, pods-ready, MultiKueue, holds, LimitRanges and RuntimeClasses
-(pod templates, which raise NotImplementedError) and the preemption
-expectation store (evictions are observed synchronously).
+sub-steps, and the effective-requests pipeline of ``submit``: pod
+templates adjusted by RuntimeClass overheads (``create_runtime_class``)
+and LimitRange defaults (``create_limit_range``), then validated (a
+failed workload is registered inactive with an ``Inadmissible`` event),
+with the resource transformations and excluded prefixes of
+``set_info_options``. Jobs reach ``submit`` through
+``controllers/jobframework.JobReconciler``, which parks a scaled-to-zero
+serving job with ``hold_workload`` and wakes it with ``clear_hold``.
+Evictions in flight are tracked by ``preemption_expectations``
+(``utils/expectations``), and every admission's status finalization runs
+through ``admission_routine`` (``utils/routine.SyncWrapper``).
+Decisions are the JAX package's engine's, cycle by cycle, and nothing
+the obs layer records feeds back into one. Left out: pods-ready and
+MultiKueue.
 
 Lifecycle semantics mirrored from the reference:
   * admit: set QuotaReserved + Admitted, write Admission, assume in cache
@@ -180,7 +189,8 @@ class Engine:
     def __init__(self, enable_fair_sharing: bool = False, device=None,
                  config=None):
         """``config`` is an optional ``config.api.Configuration``; the
-        engine reads its ``metrics_custom_labels``."""
+        engine reads its ``metrics_custom_labels`` and the Info options of
+        its resources section (excluded prefixes, transformations)."""
         self.config = config
         self.queues = QueueManager()
         self.cache = Cache()
@@ -276,6 +286,32 @@ class Engine:
         # (set_namespace_labels; a namespace without labels matches no
         # non-empty selector).
         self.namespace_labels: dict[str, dict[str, str]] = {}
+        # In-flight preemption tracking (preemption/expectations,
+        # scheduler.go:151 WithPreemptionExpectations): never re-issue an
+        # eviction whose observation is still pending.
+        from kueue_tpu_torch.utils.expectations import Store
+        self.preemption_expectations = Store("preemptions")
+        # Admission applies run through this wrapper (scheduler.go:870
+        # admissionRoutineWrapper); the synchronous one, since the
+        # closures mutate engine state (utils/routine.py).
+        from kueue_tpu_torch.utils.routine import SyncWrapper
+        self.admission_routine = SyncWrapper()
+        # Effective-requests pipeline inputs (pkg/workload/resources.go):
+        # namespaced LimitRanges, RuntimeClass overheads and the Info
+        # options (excluded resource prefixes and transformations).
+        self.limit_ranges: dict[str, object] = {}
+        self.runtime_class_overheads: dict[str, dict[str, int]] = {}
+        self.info_options = None
+        if config is not None:
+            self.set_info_options(config.info_options())
+
+    def set_info_options(self, options) -> None:
+        """Propagate workload_info.InfoOptions to every Info construction
+        site (queue manager and scheduler cache), the reference's
+        InfoOptions plumbing (workload.go:139)."""
+        self.info_options = options
+        self.queues.info_options = options
+        self.cache.info_options = options
 
     # -- durability (store/journal.py) --
 
@@ -322,7 +358,8 @@ class Engine:
                 # Pending node replacement: re-arm the second pass
                 # (mark_node_unhealthy had queued it before the restart).
                 info = WorkloadInfo.from_workload(
-                    wl, wl.status.admission.cluster_queue)
+                    wl, wl.status.admission.cluster_queue,
+                    options=self.info_options)
                 self.queues.second_pass.prequeue(wl.key)
                 self.queues.second_pass.queue(info, now=self.clock)
         elif wl.active:
@@ -416,7 +453,8 @@ class Engine:
                 wl.status.unhealthy_nodes = \
                     wl.status.unhealthy_nodes + (name,)
                 info = WorkloadInfo.from_workload(
-                    wl, wl.status.admission.cluster_queue)
+                    wl, wl.status.admission.cluster_queue,
+                    options=self.info_options)
                 self.queues.second_pass.prequeue(wl.key)
                 self.queues.second_pass.queue(info, now=self.clock)
                 self._event("NodeUnhealthy", wl.key,
@@ -514,14 +552,39 @@ class Engine:
         if sel_cqs:
             self.queues.queue_inadmissible_workloads(sel_cqs)
 
+    def create_limit_range(self, lr) -> None:
+        """Register a namespaced LimitRange (utils/limitrange.py)."""
+        self.limit_ranges[f"{lr.namespace}/{lr.name}"] = lr
+
+    def create_runtime_class(self, name: str,
+                             overhead: dict[str, int]) -> None:
+        """RuntimeClass pod overhead source (resources.go:59)."""
+        self.runtime_class_overheads[name] = dict(overhead)
+
     def submit(self, wl: Workload) -> bool:
         if not wl.creation_time:
             wl.creation_time = self.clock
-        for ps in wl.pod_sets:
-            if ps.template is not None:
-                raise NotImplementedError(
-                    "pod templates (LimitRanges, RuntimeClass overheads) "
-                    "are not ported")
+        # Effective requests: overhead, LimitRange defaults and
+        # limits-as-missing-requests (resources.go:141 AdjustResources),
+        # then admissibility validation: an inadmissible workload is
+        # registered inactive with an explanatory event rather than
+        # queued. The namespace-selector check runs at nomination
+        # (scheduler.go:636), so a mismatched workload still queues.
+        from kueue_tpu_torch import workload_info as wi
+
+        wi.adjust_resources(wl, list(self.limit_ranges.values()),
+                            self.runtime_class_overheads)
+        err = wi.validate_admissibility(
+            wl, list(self.limit_ranges.values()),
+            namespace_labels=self.namespace_labels.get(wl.namespace))
+        if err is not None:
+            # Deactivated, so that a journal restart cannot put it back
+            # into the queues (restore_workload requeues active pending
+            # workloads).
+            wl.active = False
+            self.workloads[wl.key] = wl
+            self._event("Inadmissible", wl.key, detail=err)  # journals too
+            return False
         # Resolve priorityClassRef (pkg/util/priority). An explicitly
         # named class always resolves — this is not gated.
         if (wl.priority_class_name
@@ -583,6 +646,56 @@ class Engine:
                     self.cache.cluster_queues.get(cq_name))
             cached[1][cq_name] = labels
         return labels
+
+    def hold_workload(self, key: str, message: str = "") -> None:
+        """statefulset_reconciler.go:295 (releaseScaleDownReservation):
+        release the quota reservation with QuotaReserved=False reason
+        OnHold and do NOT requeue — the workload stays parked out of
+        every queue until clear_hold() (a scale-to-zero serving job
+        keeps its Workload without consuming quota)."""
+        wl = self.workloads.get(key)
+        if wl is None or wl.is_finished or self.is_on_hold(wl):
+            return
+        cq = (wl.status.admission.cluster_queue
+              if wl.status.admission is not None else "")
+        if wl.status.admission is not None:
+            self.cache.delete_workload(key)
+        wl.status.admission = None
+        if wl.is_admitted:
+            wl.set_condition(WorkloadConditionType.ADMITTED, False,
+                             reason="OnHold", now=self.clock)
+        wl.set_condition(WorkloadConditionType.QUOTA_RESERVED, False,
+                         reason="OnHold", now=self.clock)
+        self.queues.delete_workload(wl)
+        self.unadmitted.remove(key)
+        self._event("OnHold", key, cluster_queue=cq, detail=message)
+        self._journal_obj("workload", wl)
+        if cq:
+            # Freed quota wakes the cohort's parked peers.
+            self._requeue_cohort_inadmissible(cq)
+
+    @staticmethod
+    def is_on_hold(wl: Workload) -> bool:
+        """workload.IsOnHold: QuotaReserved is False with reason
+        OnHold."""
+        cond = wl.condition(WorkloadConditionType.QUOTA_RESERVED)
+        return (cond is not None and not cond.status
+                and cond.reason == "OnHold")
+
+    def clear_hold(self, key: str) -> None:
+        """statefulset_reconciler.go:274 (clearOnHold): the workload
+        becomes admissible again and requeues."""
+        wl = self.workloads.get(key)
+        if wl is None or not self.is_on_hold(wl):
+            return
+        wl.set_condition(WorkloadConditionType.QUOTA_RESERVED, False,
+                         reason="Pending", now=self.clock)
+        info = self.queues.add_or_update_workload(wl)
+        if info is not None:
+            self._track_unadmitted(wl, info.cluster_queue,
+                                   "NoReservation")
+        self._event("HoldCleared", key)
+        self._journal_obj("workload", wl)
 
     def finish(self, key: str) -> None:
         wl = self.workloads.get(key)
@@ -1070,6 +1183,7 @@ class Engine:
         queues = self.queues
         second_pass = queues.second_pass
         checks = self.admission_checks
+        expectations = self.preemption_expectations
         tas_names = cache._tas_flavor_names()
         workloads_reg = cache.workloads
         wl_usage = cache._wl_usage
@@ -1148,6 +1262,7 @@ class Engine:
                     if tas:
                         wl_tas[key] = tas
                         cache._account_tas(tas)
+            expectations.observed_uid(key, wl.uid)
             pairs.append((entry, admission))
         if pairs:
             cache.admitted_version += 1
@@ -1181,74 +1296,80 @@ class Engine:
         agg: dict[tuple, list] = {}
         removed_unadmitted = bulk.removed_unadmitted
         journal_keys = bulk.journal_keys
-        n_admitted = 0
-        _pt = _perf.begin()
-        for entry, admission in pairs:
-            info = entry.info
-            wl = info.obj
-            key = wl.key
-            cq_name = info.cluster_queue
-            conds = wl.status.conditions
-            prev = conds.get(QR)
-            if prev is None or not prev.status:
-                conds[QR] = qr_cond
-                checks_wait = 0.0
-            else:
-                # A live reservation keeps its transition time; the
-                # admission-checks wait spans from it.
-                checks_wait = now - prev.last_transition_time
-                if checks_wait < 0.0:
+
+        def _batch() -> None:
+            n_admitted = 0
+            for entry, admission in pairs:
+                info = entry.info
+                wl = info.obj
+                key = wl.key
+                cq_name = info.cluster_queue
+                conds = wl.status.conditions
+                prev = conds.get(QR)
+                if prev is None or not prev.status:
+                    conds[QR] = qr_cond
                     checks_wait = 0.0
-            for ctype, cond in reset_conds:
-                # Reset only currently-True conditions.
-                pc = conds.get(ctype)
-                if pc is not None and pc.status:
-                    conds[ctype] = cond
-            ev_qr = EngineEvent(now, "QuotaReserved", key, cq_name)
-            events.append(ev_qr)
-            if journal_on:
-                journal_keys.append(key)
-            adm_cond_prev = conds.get(ADM)
-            if adm_cond_prev is not None and adm_cond_prev.status:
-                # Already admitted: QuotaReserved bookkeeping only.
-                bulk.count("quota_reserved_workloads_total", (cq_name,))
-                bulk.wait("quota_reserved_wait_time_seconds", (cq_name,),
-                          max(0.0, now - wl.creation_time))
-                if lq_on:
-                    lq_l = (f"{wl.namespace}/{wl.queue_name}",)
-                    bulk.count(
-                        "local_queue_quota_reserved_workloads_total", lq_l)
-                    bulk.wait(
-                        "local_queue_quota_reserved_wait_time_seconds",
-                        lq_l, max(0.0, now - wl.creation_time))
+                else:
+                    # A live reservation keeps its transition time; the
+                    # admission-checks wait spans from it.
+                    checks_wait = now - prev.last_transition_time
+                    if checks_wait < 0.0:
+                        checks_wait = 0.0
+                for ctype, cond in reset_conds:
+                    # Reset only currently-True conditions.
+                    pc = conds.get(ctype)
+                    if pc is not None and pc.status:
+                        conds[ctype] = cond
+                ev_qr = EngineEvent(now, "QuotaReserved", key, cq_name)
+                events.append(ev_qr)
+                if journal_on:
+                    journal_keys.append(key)
+                adm_cond_prev = conds.get(ADM)
+                if adm_cond_prev is not None and adm_cond_prev.status:
+                    # Already admitted: QuotaReserved bookkeeping only.
+                    bulk.count("quota_reserved_workloads_total", (cq_name,))
+                    bulk.wait("quota_reserved_wait_time_seconds",
+                              (cq_name,), max(0.0, now - wl.creation_time))
+                    if lq_on:
+                        lq_l = (f"{wl.namespace}/{wl.queue_name}",)
+                        bulk.count(
+                            "local_queue_quota_reserved_workloads_total",
+                            lq_l)
+                        bulk.wait(
+                            "local_queue_quota_reserved_wait_time_seconds",
+                            lq_l, max(0.0, now - wl.creation_time))
+                    for fn in listeners:
+                        _call_listener(fn, ev_qr)
+                    continue
+                conds[ADM] = adm_cond
+                n_admitted += 1
+                wait = now - wl.creation_time
+                if wait < 0.0:
+                    wait = 0.0
+                lq = f"{wl.namespace}/{wl.queue_name}"
+                a = agg.get((cq_name, lq))
+                if a is None:
+                    a = agg[(cq_name, lq)] = [1, [wait], []]
+                else:
+                    a[0] += 1
+                    a[1].append(wait)
+                if checks_wait > 0.0:
+                    a[2].append(checks_wait)
+                removed_unadmitted.append(key)
+                ev_adm = EngineEvent(now, "Admitted", key, cq_name)
+                events.append(ev_adm)
                 for fn in listeners:
                     _call_listener(fn, ev_qr)
-                continue
-            conds[ADM] = adm_cond
-            n_admitted += 1
-            wait = now - wl.creation_time
-            if wait < 0.0:
-                wait = 0.0
-            lq = f"{wl.namespace}/{wl.queue_name}"
-            a = agg.get((cq_name, lq))
-            if a is None:
-                a = agg[(cq_name, lq)] = [1, [wait], []]
-            else:
-                a[0] += 1
-                a[1].append(wait)
-            if checks_wait > 0.0:
-                a[2].append(checks_wait)
-            removed_unadmitted.append(key)
-            ev_adm = EngineEvent(now, "Admitted", key, cq_name)
-            events.append(ev_adm)
-            for fn in listeners:
-                _call_listener(fn, ev_qr)
-            for fn in listeners:
-                _call_listener(fn, ev_adm)
-            if on_admit is not None:
-                on_admit(wl, admission)
-        self.metrics.admissions_total += n_admitted
-        self._flush_admission_metrics(agg, lq_on)
+                for fn in listeners:
+                    _call_listener(fn, ev_adm)
+                if on_admit is not None:
+                    on_admit(wl, admission)
+            self.metrics.admissions_total += n_admitted
+            self._flush_admission_metrics(agg, lq_on)
+
+        _pt = _perf.begin()
+        # The routine wrapper brackets the batch once, not per entry.
+        self.admission_routine.run(_batch)
         _perf.end("apply.listener_fanout", _pt)
 
     def _flush_admission_metrics(self, agg: dict, lq_on: bool) -> None:
@@ -1361,41 +1482,56 @@ class Engine:
         # The workload left the pending world: free its tensor row.
         self.queues.rows.on_remove(wl.key)
         _perf.end("apply.rowcache_writeback", _pt)
-        cq_name = entry.info.cluster_queue
-        wait = max(0.0, self.clock - wl.creation_time)
-        lq = self._lq_key(wl)
-        if bulk is not None:
-            self._event("QuotaReserved", wl.key, cluster_queue=cq_name,
-                        defer_journal=bulk)
-            bulk.count("quota_reserved_workloads_total", (cq_name,))
-            bulk.wait("quota_reserved_wait_time_seconds", (cq_name,), wait)
-            if self._lq_metrics_on():
-                bulk.count("local_queue_quota_reserved_workloads_total", lq)
-                bulk.wait("local_queue_quota_reserved_wait_time_seconds",
-                          lq, wait)
-        else:
-            self._event("QuotaReserved", wl.key, cluster_queue=cq_name)
-            self.registry.counter("quota_reserved_workloads_total").inc(
-                (cq_name,))
-            self.registry.histogram(
-                "quota_reserved_wait_time_seconds").observe(wait, (cq_name,))
-            if self._lq_metrics_on():
-                self.registry.counter(
-                    "local_queue_quota_reserved_workloads_total").inc(lq)
+        # An assumed workload that was itself a pending preemption target
+        # satisfies its expectation (scheduler.go:882, kueue#11480).
+        self.preemption_expectations.observed_uid(wl.key, wl.uid)
+
+        # The status finalization is the reference's PATCH to the
+        # apiserver (scheduler.go:870 admissionRoutineWrapper.Run); the
+        # engine's wrapper runs it inline, since it mutates engine state.
+        def _finalize() -> None:
+            cq_name = entry.info.cluster_queue
+            wait = max(0.0, self.clock - wl.creation_time)
+            lq = self._lq_key(wl)
+            if bulk is not None:
+                self._event("QuotaReserved", wl.key, cluster_queue=cq_name,
+                            defer_journal=bulk)
+                bulk.count("quota_reserved_workloads_total", (cq_name,))
+                bulk.wait("quota_reserved_wait_time_seconds", (cq_name,),
+                          wait)
+                if self._lq_metrics_on():
+                    bulk.count(
+                        "local_queue_quota_reserved_workloads_total", lq)
+                    bulk.wait(
+                        "local_queue_quota_reserved_wait_time_seconds", lq,
+                        wait)
+            else:
+                self._event("QuotaReserved", wl.key, cluster_queue=cq_name)
+                self.registry.counter("quota_reserved_workloads_total").inc(
+                    (cq_name,))
                 self.registry.histogram(
-                    "local_queue_quota_reserved_wait_time_seconds").observe(
-                    wait, lq)
-        if self.admission_checks is not None:
-            # The UnsatisfiedChecks window exists only when checks can
-            # defer the Admitted condition.
-            self._track_unadmitted(wl, cq_name, "UnsatisfiedChecks")
-            self.admission_checks.sync_states(wl, cq_name)
-        self._sync_admitted(wl, cq_name, bulk=bulk)
-        # Replace-old-slice after successful admission
-        # (scheduler.go:558 replaceOldWorkloadSlice).
-        for target in entry.preemption_targets:
-            if target.reason == "WorkloadSliceReplaced":
-                self.finish(target.workload.key)
+                    "quota_reserved_wait_time_seconds").observe(
+                    wait, (cq_name,))
+                if self._lq_metrics_on():
+                    self.registry.counter(
+                        "local_queue_quota_reserved_workloads_total"
+                    ).inc(lq)
+                    self.registry.histogram(
+                        "local_queue_quota_reserved_wait_time_seconds"
+                    ).observe(wait, lq)
+            if self.admission_checks is not None:
+                # The UnsatisfiedChecks window exists only when checks
+                # can defer the Admitted condition.
+                self._track_unadmitted(wl, cq_name, "UnsatisfiedChecks")
+                self.admission_checks.sync_states(wl, cq_name)
+            self._sync_admitted(wl, cq_name, bulk=bulk)
+            # Replace-old-slice after successful admission
+            # (scheduler.go:558 replaceOldWorkloadSlice).
+            for target in entry.preemption_targets:
+                if target.reason == "WorkloadSliceReplaced":
+                    self.finish(target.workload.key)
+
+        self.admission_routine.run(_finalize)
 
     def _sync_admitted(self, wl: Workload, cq_name: str,
                        bulk: Optional[_BulkAdmitCtx] = None) -> None:
@@ -1543,6 +1679,10 @@ class Engine:
                     max(0.0, self.clock - admitted_at), (cq_name, reason))
         self._event("Evicted", wl.key, cluster_queue=cq_name, detail=reason,
                     defer_journal=bulk)
+        # The event handlers have now observed the eviction: release any
+        # in-flight preemption expectation (the workload_controller
+        # Update-event ObservedUID in the reference).
+        self.preemption_expectations.observed_uid(wl.key, wl.uid)
         if requeue and wl.active:
             wl.status.requeue_count += 1
             if backoff_seconds:
@@ -1564,8 +1704,7 @@ class Engine:
 
     def _issue_preemptions(self, entry, bulk=None) -> None:
         """preemption.go:194 (IssuePreemptions) + the workload controller's
-        requeue-after-evict. Evictions are observed synchronously, so no
-        issued preemption is ever awaiting observation."""
+        requeue-after-evict."""
         for target in entry.preemption_targets:
             if target.reason == "WorkloadSliceReplaced":
                 # The old slice keeps running until the replacement admits.
@@ -1574,7 +1713,17 @@ class Engine:
             if twl is None or twl.is_finished:
                 continue
             if twl.has_condition(WorkloadConditionType.EVICTED):
-                continue  # preemption ongoing (preemption.go:209)
+                # Preemption ongoing (preemption.go:209): the target is
+                # already evicted; observe it.
+                self.preemption_expectations.observed_uid(twl.key, twl.uid)
+                continue
+            if not self.preemption_expectations.satisfied(twl.key):
+                # Already issued, waiting for observation
+                # (preemption.go:216). The synchronous engine drains the
+                # store inside evict() below, so this skip engages only
+                # when an eviction issued elsewhere is still in flight.
+                continue
+            self.preemption_expectations.expect_uids(twl.key, [twl.uid])
             twl.set_condition(WorkloadConditionType.PREEMPTED, True,
                               reason=target.reason, now=self.clock)
             self.evict(twl, "Preempted", bulk=bulk)

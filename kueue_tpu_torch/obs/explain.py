@@ -98,7 +98,8 @@ def _probe(engine, wl) -> dict:
         cq_name = engine.queues.cluster_queue_for_workload(wl)
         if cq_name is None:
             return {"error": "workload has no ClusterQueue mapping"}
-        info = WorkloadInfo.from_workload(wl, cq_name)
+        info = WorkloadInfo.from_workload(
+            wl, cq_name, options=engine.queues.info_options)
     snapshot = engine.cache.snapshot()
     prev, hooks.CURRENT = hooks.CURRENT, hooks.RationaleBuffer()
     try:

@@ -16,11 +16,6 @@ Nones (a serve loop idles thousands of times between submissions; the
 replayer still executes every one of them, because an idle cycle runs
 the second-pass queue and its count is part of the determinism
 contract).
-
-The port's engine has no LimitRanges, RuntimeClass overheads or
-jobframework holds (ROADMAP Queue 1 item 8): the recorder wraps the
-methods the engine has, and ``apply_input`` raises on a frame of one of
-the others rather than skip it.
 """
 
 from __future__ import annotations
@@ -57,10 +52,6 @@ RECORDED_METHODS = (
     "clear_hold",
     "tick",
 )
-
-# Recorded methods the port's engine does not have yet.
-NOT_PORTED_METHODS = ("create_limit_range", "create_runtime_class",
-                      "hold_workload", "clear_hold")
 
 # Methods whose first argument is a live engine-owned Workload: recorded
 # by key, resolved against engine.workloads on replay (serializing a
@@ -119,9 +110,7 @@ class FlightRecorder:
     def _wrap_all(self) -> None:
         eng = self.engine
         for name in RECORDED_METHODS + BY_KEY_METHODS:
-            orig = getattr(eng, name, None)
-            if orig is None:
-                continue  # NOT_PORTED_METHODS
+            orig = getattr(eng, name)
             self._wrapped[name] = eng.__dict__.get(name)
             setattr(eng, name,
                     self._make_wrapper(name, orig,
@@ -228,10 +217,6 @@ def apply_input(engine, frame: dict) -> None:
     """Apply one input frame to an engine, restoring the recorded clock
     first (the determinism contract: identical clocks at every call)."""
     method = frame["method"]
-    if method in NOT_PORTED_METHODS:
-        raise NotImplementedError(
-            f"replay: the trace calls {method}, which the port's engine "
-            "does not have yet (ROADMAP Queue 1 item 8)")
     engine.clock = frame["clock"]
     args, kwargs = decode_args(frame)
     if method in BY_KEY_METHODS:

@@ -20,6 +20,72 @@ from kueue_tpu_torch.api.types import (
 )
 
 
+@dataclass(frozen=True)
+class ResourceTransformation:
+    """One input-resource mapping applied to effective requests.
+
+    Reference: apis/config/v1beta1/configuration_types.go:560
+    (ResourceTransformation) — strategy Retain keeps the input resource
+    alongside the outputs, Replace drops it; ``outputs`` maps output
+    resource name -> factor multiplied into the input quantity;
+    ``multiply_by`` optionally scales the input by another resource's
+    quantity first (counter-based DRA resources)."""
+
+    input: str
+    outputs: dict[str, float] = field(default_factory=dict)
+    strategy: str = "Retain"
+    multiply_by: str = ""
+
+
+@dataclass(frozen=True)
+class InfoOptions:
+    """Reference: pkg/workload/workload.go:123 (InfoOptions) — the knobs
+    that shape effective requests at Info construction time."""
+
+    excluded_resource_prefixes: tuple[str, ...] = ()
+    transformations: dict[str, ResourceTransformation] = field(
+        default_factory=dict)
+
+    @classmethod
+    def from_transform_list(cls, transforms, excluded=()) -> "InfoOptions":
+        return cls(excluded_resource_prefixes=tuple(excluded),
+                   transformations={t.input: t for t in transforms})
+
+
+def apply_resource_transformations(
+        requests: dict[str, int],
+        transforms: dict[str, ResourceTransformation]) -> dict[str, int]:
+    """pkg/workload/workload.go:516 applyResourceTransformations."""
+    if not transforms or not any(r in transforms for r in requests):
+        return requests
+    out: dict[str, int] = {}
+    for res, qty in requests.items():
+        mapping = transforms.get(res)
+        if mapping is None:
+            out[res] = out.get(res, 0) + qty
+            continue
+        eff = qty
+        if mapping.multiply_by and mapping.multiply_by in requests:
+            # The multiplied quantity is what Retain keeps, matching the
+            # reference (workload.go:530-546 mutates inputQuantity before
+            # both the outputs loop and the Retain branch).
+            eff = qty * requests[mapping.multiply_by]
+        for out_name, factor in mapping.outputs.items():
+            out[out_name] = out.get(out_name, 0) + int(eff * factor)
+        if mapping.strategy == "Retain":
+            out[res] = out.get(res, 0) + eff
+    return out
+
+
+def drop_excluded_resources(requests: dict[str, int],
+                            prefixes: tuple[str, ...]) -> dict[str, int]:
+    """pkg/workload/workload.go (dropExcludedResources)."""
+    if not prefixes:
+        return requests
+    return {r: q for r, q in requests.items()
+            if not any(r.startswith(p) for p in prefixes)}
+
+
 @dataclass
 class PodSetResources:
     """Total (count-scaled) requests of one PodSet with flavor assignment.
@@ -96,21 +162,29 @@ class WorkloadInfo:
     local_queue_fs_usage: Optional[float] = None
 
     @classmethod
-    def from_workload(cls, wl: Workload,
-                      cluster_queue: str = "") -> "WorkloadInfo":
+    def from_workload(cls, wl: Workload, cluster_queue: str = "",
+                      options: Optional[InfoOptions] = None) -> "WorkloadInfo":
         info = cls(obj=wl, cluster_queue=cluster_queue)
         # Zero-quantity requests are KEPT: a zero request for a resource
         # the ClusterQueue covers still receives a flavor assignment
         # (flavorassigner_test.go "zero resource request defined in
         # clusterQueue should get flavor assigned"); zero requests for
         # uncovered resources are skipped at assignment time instead.
-        info.total_requests = [
-            PodSetResources(
+        # Effective requests: drop excluded prefixes, then resource
+        # transformations (workload.go:623-626 totalRequestsFromPodSets).
+        info.total_requests = []
+        for ps in wl.pod_sets:
+            per_pod = ps.requests
+            if options is not None:
+                per_pod = drop_excluded_resources(
+                    per_pod, options.excluded_resource_prefixes)
+                per_pod = apply_resource_transformations(
+                    per_pod, options.transformations)
+            info.total_requests.append(PodSetResources(
                 name=ps.name,
                 count=ps.count,
-                requests={r: q * ps.count for r, q in ps.requests.items()},
-            )
-            for ps in wl.pod_sets]
+                requests={r: q * ps.count for r, q in per_pod.items()},
+            ))
         if wl.status.admission is not None:
             info.apply_admission(wl.status.admission)
         # Reclaimable pods free their share of the quota while the rest of
@@ -195,6 +269,38 @@ class WorkloadInfo:
         return False
 
 
+def adjust_resources(wl: Workload, limit_ranges=None,
+                     runtime_class_overheads=None) -> None:
+    """The reference's pre-queue request adjustment
+    (pkg/workload/resources.go:141 AdjustResources): for every PodSet
+    carrying a pod template, resolve RuntimeClass overhead, merge
+    LimitRange container defaults, promote limits to missing requests,
+    and recompute the PodSet's per-pod ``requests`` with the pod-requests
+    aggregation. PodSets without a template are left verbatim."""
+    from kueue_tpu_torch.utils import limitrange as lr
+    from kueue_tpu_torch.utils import podtemplate as pt
+
+    summary = None
+    if limit_ranges:
+        in_ns = [r for r in limit_ranges if r.namespace == wl.namespace]
+        if in_ns:
+            summary = lr.summarize(in_ns)
+    for ps in wl.pod_sets:
+        template = ps.template
+        if template is None:
+            continue
+        # Pod overhead from RuntimeClass (resources.go:59
+        # handlePodOverhead): only when not already set on the template.
+        if (template.runtime_class_name and not template.overhead
+                and runtime_class_overheads):
+            template.overhead = dict(runtime_class_overheads.get(
+                template.runtime_class_name, {}))
+        if summary is not None:
+            lr.apply_defaults(template, summary)
+        pt.use_limits_as_missing_requests(template)
+        ps.requests = pt.pod_requests(template)
+
+
 def namespace_selector_mismatch(selector, labels) -> bool:
     """The CQ namespace-selector match predicate, shared by the
     nomination check (scheduler/cycle.py) and the device bridge's
@@ -203,6 +309,34 @@ def namespace_selector_mismatch(selector, labels) -> bool:
         return False
     labels = labels or {}
     return any(labels.get(k) != v for k, v in selector.items())
+
+
+def validate_admissibility(wl: Workload, limit_ranges=None,
+                           namespace_labels=None) -> Optional[str]:
+    """pkg/workload/resources.go:233 ValidateAdmissibility:
+    requests<=limits, LimitRange bounds. Returns the first failure
+    message, or None when admissible. The namespace-selector check runs
+    at nomination time (namespace_selector_mismatch)."""
+    from kueue_tpu_torch.utils import limitrange as lr
+    from kueue_tpu_torch.utils import podtemplate as pt
+
+    summary = None
+    if limit_ranges:
+        in_ns = [r for r in limit_ranges if r.namespace == wl.namespace]
+        if in_ns:
+            summary = lr.summarize(in_ns)
+    for ps in wl.pod_sets:
+        if ps.template is None:
+            continue
+        errs = pt.validate_requests_under_limits(ps.template)
+        if errs:
+            return "resources validation failed: " + "; ".join(errs)
+        if summary is not None:
+            errs = lr.validate_template(ps.template, summary)
+            if errs:
+                return ("resources didn't satisfy LimitRange constraints: "
+                        + "; ".join(errs))
+    return None
 
 
 def admission_from_assignment(cluster_queue: str, pod_sets) -> Admission:

@@ -233,8 +233,7 @@ class MirroredEngine(JEngine):
         assert [(e.time, e.kind, e.workload, e.cluster_queue, e.detail)
                 for e in self.port.events] == [
             (e.time, e.kind, e.workload, e.cluster_queue, e.detail)
-            for e in self.events
-            if e.kind not in ("Inadmissible", "OnHold", "HoldCleared")]
+            for e in self.events]
         jsp, psp = self.queues.second_pass, self.port.queues.second_pass
         assert (psp._prequeued, list(psp._queued),
                 list(psp._ready_at.items())) == \
@@ -618,12 +617,51 @@ def test_executor_error_propagates():
     assert eng.oracle.fallback_reasons == {}
 
 
+def _same_template_submits(port_eng, jax_eng):
+    """Submit templated workloads to both engines (the JAX engine a JAX
+    package object, the port its carried copy): one the pipeline adjusts
+    (a LimitRange-free default, limits promoted, an init container, a
+    RuntimeClass overhead) and one it refuses (requests above limits).
+    The same verdicts, per-pod requests, registration, activity and last
+    event."""
+    from kueue_tpu.api import types as jt
+    from kueue_tpu.utils.podtemplate import ContainerSpec, PodTemplate
+
+    for eng in (port_eng, jax_eng):
+        eng.create_runtime_class("kata", {"cpu": 5})
+    for name, tpl in (
+            ("adjusted", PodTemplate(
+                containers=[ContainerSpec("a", {"cpu": 2}),
+                            ContainerSpec("b", limits={"cpu": 3})],
+                init_containers=[ContainerSpec("i", {"cpu": 9})],
+                runtime_class_name="kata")),
+            ("refused", PodTemplate(containers=[ContainerSpec(
+                "a", {"cpu": 9}, limits={"cpu": 1})]))):
+        wl = jt.Workload(name=name, pod_sets=(
+            jt.PodSet("main", 1, template=tpl),))
+        pw = carry.api_object(wl)
+        assert port_eng.submit(pw) == jax_eng.submit(wl)
+        assert pw.pod_sets[0].requests == wl.pod_sets[0].requests
+        assert pw.pod_sets[0].template == carry.api_object(
+            wl.pod_sets[0].template)
+        assert (pw.key in port_eng.workloads, pw.active) == \
+            (wl.key in jax_eng.workloads, wl.active)
+        assert [(e.kind, e.workload, e.detail)
+                for e in port_eng.events[-1:]] == \
+            [(e.kind, e.workload, e.detail) for e in jax_eng.events[-1:]]
+    assert port_eng.workloads["default/adjusted"].pod_sets[0].requests \
+        == {"cpu": 14}
+    assert not port_eng.workloads["default/refused"].active
+
+
 def test_topologies_are_refused():
     """Topologies, TAS flavors, nodes and topology requests are taken, and
     since the TAS node lifecycle was ported so are non-TAS pod usage,
     node failures and elastic slices (tests/test_torch_tas_lifecycle.py
-    holds them against the JAX engine); what the engine still refuses is
-    a pod template."""
+    holds them against the JAX engine); since the effective-requests
+    pipeline was ported a pod template is taken too, adjusted and
+    validated as the JAX engine does (tests/test_torch_resources.py holds
+    the pipeline against it)."""
     from kueue_tpu_torch.api.types import (
         PodSet,
         PodSetTopologyRequest,
@@ -666,25 +704,26 @@ def test_topologies_are_refused():
         previous_assignment=TopologyAssignment((HOSTNAME_LABEL,), ()))
     results, reason = snap.find_topology_assignments_for_flavor([elastic])
     assert reason and not results  # an empty forest places nothing
-    with pytest.raises(NotImplementedError):
-        eng.submit(Workload(name="p", pod_sets=(PodSet(
-            "main", 1, {"cpu": 1}, template=object()),)))
+    _same_template_submits(eng, JEngine())
 
 
 def test_admission_fair_sharing_is_refused():
     """Admission fair sharing is taken now (tests/test_torch_afs.py holds
-    it against the JAX engine); what the engine still refuses is a pod
-    template, and nothing of it is registered."""
-    from kueue_tpu_torch.api.types import ClusterQueue, PodSet, Workload
+    it against the JAX engine), and so is a pod template, registered
+    (inactive when the pipeline refuses it) as the JAX engine registers
+    it."""
+    from kueue_tpu.api.types import ClusterQueue as JClusterQueue
+    from kueue_tpu_torch.api.types import ClusterQueue
 
     eng = PEngine(device="cpu")
     eng.create_cluster_queue(ClusterQueue(
         name="cq", admission_scope="UsageBasedAdmissionFairSharing"))
     assert "cq" in eng.queues.cluster_queues
-    with pytest.raises(NotImplementedError):
-        eng.submit(Workload(name="t", pod_sets=(PodSet(
-            "main", 1, {"cpu": 1}, template=object()),)))
-    assert "default/t" not in eng.workloads
+    jeng = JEngine()
+    jeng.create_cluster_queue(JClusterQueue(
+        name="cq", admission_scope="UsageBasedAdmissionFairSharing"))
+    _same_template_submits(eng, jeng)
+    assert "default/adjusted" in eng.workloads
 
 
 def test_mirrored_worlds_carry_uids():

@@ -103,6 +103,12 @@ def _failover(work):
         time.sleep(0.05)
     reader = sw.ReadPoller([rurl], 0.2)
     reader.start()
+    # The wave kills A within a fraction of a second: let R answer once
+    # before it, or the reads before the kill race A's death.
+    deadline = time.monotonic() + 60
+    while not reader.answers and not reader.errors:
+        assert time.monotonic() < deadline, "no read answer"
+        time.sleep(0.05)
     out["a_metrics"] = sw.get_text(aurl, "/metrics")[0]
     out["a_codes"] = [sw.post(aurl, "/workloads", body)[0]
                       for body in wave2]

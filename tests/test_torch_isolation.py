@@ -68,7 +68,17 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.readplane.queries",
           "kueue_tpu_torch.readplane.replica",
           "kueue_tpu_torch.readplane.frontend",
-          "kueue_tpu_torch.visibility.dashboard"):
+          "kueue_tpu_torch.visibility.dashboard",
+          "kueue_tpu_torch.utils.podtemplate",
+          "kueue_tpu_torch.utils.limitrange",
+          "kueue_tpu_torch.utils.expectations",
+          "kueue_tpu_torch.utils.routine",
+          "kueue_tpu_torch.webhooks",
+          "kueue_tpu_torch.webhooks.validators",
+          "kueue_tpu_torch.webhooks.jobwebhooks",
+          "kueue_tpu_torch.controllers.jobframework",
+          "kueue_tpu_torch.controllers.integrations",
+          "kueue_tpu_torch.bench.job_worlds"):
     assert m in sys.modules, m
 print("isolated")
 """

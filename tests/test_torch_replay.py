@@ -7,16 +7,19 @@ globals (its API types, ``Engine``, ``FlightRecorder``, ``replay_trace``,
 the engines and replays on ``device="cpu"``, so its own code records,
 tampers with, tears and replays port traces, host against device
 included. Across the packages, on that file's world and churn, on the
-preemption-churn world at QUARTER and on a small TAS world, each
-recorded from an empty engine on the host path with the workload uid
-counters aligned: the two recorders write equal frames once ``phases``
-(wall timings) and ``crc`` (which chains over them) are masked; each
-JAX trace replays byte-identical through the port's replayer in the
-host and the device mode, and each port trace through the JAX replayer
-in the host mode; the port's recording through its oracle writes the
-inputs and decisions of the JAX host recording, with no nested call
-recorded twice. A trace holding a frame of a method the port's engine
-does not have yet raises, naming ROADMAP item 8. Exact throughout."""
+preemption-churn world at QUARTER, on a small TAS world and on a small
+world of templated workloads under a LimitRange and a RuntimeClass with
+a hold and its clearing, each recorded from an empty engine on the host
+path with the workload uid counters aligned: the two recorders write
+equal frames once ``phases`` (wall timings) and ``crc`` (which chains
+over them) are masked; each JAX trace replays byte-identical through the
+port's replayer in the host and the device mode, and each port trace
+through the JAX replayer in the host mode; the port's recording through
+its oracle writes the inputs and decisions of the JAX host recording,
+with no nested call recorded twice. The recorders wrap every method of
+the JAX recorder's list, ``create_limit_range``,
+``create_runtime_class``, ``hold_workload`` and ``clear_hold`` included.
+Exact throughout."""
 
 import functools
 import json
@@ -25,11 +28,14 @@ import pytest
 
 import test_replay as ref
 from kueue_tpu import replay as jreplay
+from kueue_tpu.api import serde as jserde
 from kueue_tpu.api import types as jtypes
 from kueue_tpu.bench import scenario as jscenario
 from kueue_tpu.controllers.engine import Engine as JEngine
 from kueue_tpu.replay import recorder as jrecorder
 from kueue_tpu.tas import snapshot as jsnapshot
+from kueue_tpu.utils import limitrange as jlimitrange
+from kueue_tpu.utils import podtemplate as jpodtemplate
 from kueue_tpu_torch import replay as preplay
 from kueue_tpu_torch.api import types as ptypes
 from kueue_tpu_torch.bench import engine_worlds as ew
@@ -39,6 +45,8 @@ from kueue_tpu_torch.bench import tas_engine_worlds as tw
 from kueue_tpu_torch.controllers.engine import Engine as PEngine
 from kueue_tpu_torch.replay import recorder as precorder
 from kueue_tpu_torch.tas import snapshot as psnapshot
+from kueue_tpu_torch.utils import limitrange as plimitrange
+from kueue_tpu_torch.utils import podtemplate as ppodtemplate
 from test_torch_journal import aligned_uids
 
 
@@ -96,11 +104,13 @@ def test_reference_case_on_the_port(on_port, cls, name, tmp_path):
 
 class Pkg:
     """One package's types, scenarios, engine (on the host path),
-    recorder package and TAS snapshot module."""
+    recorder package, TAS snapshot module, and pod template and
+    LimitRange modules."""
 
-    def __init__(self, name, t, scenario, engine, replay, tas):
+    def __init__(self, name, t, scenario, engine, replay, tas, pt, lr):
         self.name, self.t, self.scenario = name, t, scenario
         self.engine, self.replay, self.tas = engine, replay, tas
+        self.pt, self.lr = pt, lr
 
     def kit(self, recorded_into=None) -> ew.Kit:
         """An engine_worlds Kit on the host path (``attach`` does
@@ -116,9 +126,10 @@ class Pkg:
                       tas=self.tas, replay=self.replay)
 
 
-JAX = Pkg("jax", jtypes, jscenario, JEngine, jreplay, jsnapshot)
+JAX = Pkg("jax", jtypes, jscenario, JEngine, jreplay, jsnapshot,
+          jpodtemplate, jlimitrange)
 PORT = Pkg("port", ptypes, pscenario, lambda: PEngine(device="cpu"),
-           preplay, psnapshot)
+           preplay, psnapshot, ppodtemplate, plimitrange)
 PKGS = (JAX, PORT)
 
 
@@ -162,8 +173,47 @@ def _tas_world(pkg, path):
     box[1].close()
 
 
+def _jobs_world(pkg, path):
+    """Templated workloads under a LimitRange and a RuntimeClass (one of
+    them above the LimitRange's maximum, so inadmissible), a workload
+    held and its hold cleared, and a finish, recorded from an empty
+    engine."""
+    t, pt, lr = pkg.t, pkg.pt, pkg.lr
+    eng = pkg.engine()
+    rec = pkg.replay.FlightRecorder(eng, path, label="jobs")
+    eng.create_resource_flavor(t.ResourceFlavor("default"))
+    eng.create_cluster_queue(t.ClusterQueue(
+        name="cq", resource_groups=(t.ResourceGroup(("cpu",), (
+            t.FlavorQuotas("default", {"cpu": t.ResourceQuota(4000)}),)),)))
+    eng.create_local_queue(t.LocalQueue("lq", "default", "cq"))
+    eng.create_limit_range(lr.LimitRange("d", limits=(lr.LimitRangeItem(
+        lr.LIMIT_TYPE_CONTAINER, max={"cpu": 3000},
+        default_request={"cpu": 100}),)))
+    eng.create_runtime_class("kata", {"cpu": 50})
+    for i, cpu in enumerate((400, 800, 1200, 3500, 1600, 2000)):
+        eng.clock += 1
+        eng.submit(t.Workload(name=f"w{i}", queue_name="lq", pod_sets=(
+            t.PodSet("main", 1, template=pt.PodTemplate(
+                containers=[pt.ContainerSpec("a", {"cpu": cpu}),
+                            pt.ContainerSpec("b")],
+                runtime_class_name="kata" if i % 2 else None)),)))
+    eng.schedule_once()
+    eng.clock += 1
+    eng.hold_workload("default/w0", "scaled to zero")
+    eng.schedule_once()
+    eng.clock += 1
+    eng.clear_hold("default/w0")
+    eng.finish("default/w1")
+    for _ in range(6):
+        eng.clock += 1
+        if eng.schedule_once() is None:
+            break
+    rec.close()
+
+
 WORLDS = {"test_replay": _test_replay_world,
-          "preempt_churn": _preempt_churn_world, "tas": _tas_world}
+          "preempt_churn": _preempt_churn_world, "tas": _tas_world,
+          "jobs": _jobs_world}
 
 
 @pytest.fixture(scope="module")
@@ -244,8 +294,21 @@ def test_jax_device_divergence_constants(traces):
         assert divergence(report) == want
 
 
+@pytest.fixture
+def jax_reads_limit_ranges(monkeypatch):
+    """The JAX package's codec does not register LimitRange (its journal
+    never writes one), so its replayer cannot decode a recorded
+    ``create_limit_range``: the two types are put in its registry for
+    the test."""
+    if not jserde._REGISTRY:
+        jserde._auto_register()
+    for cls in (jlimitrange.LimitRange, jlimitrange.LimitRangeItem):
+        monkeypatch.setitem(jserde._REGISTRY, cls.__name__, cls)
+
+
 @pytest.mark.parametrize("world", list(WORLDS))
-def test_port_traces_replay_through_jax(traces, world):
+def test_port_traces_replay_through_jax(traces, world,
+                                        jax_reads_limit_ranges):
     report = jreplay.replay_trace(traces[world, "port"], "host")
     assert report.ok, report.render()
     assert report.cycles > 0 and not report.truncated
@@ -278,20 +341,38 @@ def test_device_recording_replays_on_the_device(tmp_path):
     assert report.preempting > 0
 
 
-def test_item8_frame_raises(tmp_path):
-    """A trace with a LimitRange frame (the JAX recorder writes one for
-    ``create_limit_range``) raises in the port's replay, naming ROADMAP
-    item 8, and is never skipped."""
-    path = str(tmp_path / "t.jsonl")
-    w = preplay.TraceWriter(path)
-    w.input(0.0, "create_resource_flavor",
-            [{"__t__": "ResourceFlavor", "name": "default"}], {})
-    w.input(0.0, "create_limit_range", [{"namespace": "default"}], {})
-    w.close()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        preplay.replay_trace(path, device="cpu")
-    for name in precorder.NOT_PORTED_METHODS:
-        assert name in precorder.RECORDED_METHODS
-        assert not hasattr(PEngine, name)
+def test_item8_frame_raises(traces, jax_reads_limit_ranges):
+    """The four methods the port's engine took last (ROADMAP item 8:
+    ``create_limit_range``, ``create_runtime_class``, ``hold_workload``,
+    ``clear_hold``) are recorded by both packages' recorders and
+    replayed, not raised on: the jobs world's traces hold a frame of
+    each, and each package's trace replays through both replayers in
+    the host mode to one digest, with the hold's and the LimitRange's
+    effects (OnHold, HoldCleared, Inadmissible) in the replayed
+    engine."""
+    four = ("create_limit_range", "create_runtime_class", "hold_workload",
+            "clear_hold")
     assert json.dumps(precorder.RECORDED_METHODS) == \
         json.dumps(jrecorder.RECORDED_METHODS)
+    for name in four:
+        assert name in precorder.RECORDED_METHODS
+        assert callable(getattr(PEngine, name))
+    digests = set()
+    for pkg in PKGS:
+        path = traces["jobs", pkg.name]
+        methods = {f["method"] for f in rw.masked_frames(path)
+                   if f["f"] == "input"}
+        assert set(four) <= methods
+        engines = []
+
+        def engine():
+            engines.append(PEngine(device="cpu"))
+            return engines[-1]
+
+        port = preplay.replay_trace(path, "host", engine_factory=engine)
+        jax = jreplay.replay_trace(path, "host")
+        assert port.ok and jax.ok, port.render() + jax.render()
+        digests |= {port.replayed_digest, jax.replayed_digest}
+        kinds = {e.kind for e in engines[0].events}
+        assert {"OnHold", "HoldCleared", "Inadmissible"} <= kinds
+    assert len(digests) == 1
