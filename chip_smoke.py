@@ -287,6 +287,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      dispatched device call and held against its plain version on the
      run's first-cycle inputs. Prints p50 and p95 s/cycle, the mean
      phases and the seconds spent creating the 50,000 entries.
+ 32. (after 31, beside phase 19, in a process of its own) the rest of
+     controllers/ at full width (kueue_tpu_torch/bench/
+     controller_worlds.py FULL, on the default loop): cycle_latency's
+     world with a spot flavor on 200 ClusterQueues, an engine built from
+     a config with waitForPodsReady (timeout 150 s, backoff limit 1) and
+     objectRetentionPolicies, 1,000 LocalQueues made by the populator,
+     6,065 running pods adopted by the importer (100 skipped; cohort-0's
+     default flavor filled), 812 concurrent-admission variants, the
+     booster's pending-age boost and time sharing, and the status of 10
+     ClusterQueues and 10 LocalQueues polled every cycle; 9 cycles, then
+     one ``reconcile_all``. Gated on the JAX engine's numbers (cycles,
+     admissions, decision-stream crc32, device / hybrid / fallback
+     cycles, evictions by reason, pipeline_stats, retention deletes,
+     PriorityBoostSet events, boosted rows, variants created and
+     deactivated, migrations, imported, skipped and populated counts,
+     the crc32 of the polled statuses and of the final ``reconcile_all``),
+     the heads kernel launched once per dispatched device call and held
+     against its plain version on the run's first-cycle inputs. Prints
+     p50 and p95 s/cycle, the mean phases and the seconds of each
+     controller step (the retention sweep per tick, the status polls per
+     cycle, the final ``reconcile_all``).
 Before the kernel summary it prints each phase's wall seconds; the
 phases that run side by side share one span. Every child process runs in a session and process group of its own and is
 registered from its spawn (kueue_tpu_torch/bench/serve_world.py); when
@@ -301,11 +322,11 @@ tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
 tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
 tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py,
 tests/test_torch_tas_lifecycle_world.py,
-tests/test_torch_replay_world.py and tests/test_torch_job_world.py
-recompute them). Phases 19 to 21, 28 to 31 read the heads launches of
-the process that launches them (the sidecar, the restarted serve
-process, phase 29's or 31's process or the promoted leader), from the
-JSON line it prints. The last two lines are a JSON summary of the kernels and the
+tests/test_torch_replay_world.py, tests/test_torch_job_world.py and
+tests/test_torch_controller_world.py recompute them). Phases 19 to 21,
+28 to 32 read the heads launches of the process that launches them (the
+sidecar, the restarted serve process, phase 29's, 31's or 32's process
+or the promoted leader), from the JSON line it prints. The last two lines are a JSON summary of the kernels and the
 result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -531,6 +552,19 @@ JOBS_EXPECT = dict(
                                    skipped=4),
     inadmissible=100, job_rejected=150, on_hold=50, hold_cleared=50,
     started=5388, succeeded=1071)
+# Phase 32: the controllers world (kueue_tpu_torch/bench/
+# controller_worlds.py FULL) on the default loop, as the JAX engine runs
+# it (tests/test_torch_controller_world.py recomputes it).
+CONTROLLERS_EXPECT = dict(
+    cycles=9, admitted=8995, preempting=0, preemptions=0,
+    checksum=0xcf1144a9, on_device=9, hybrid=9, fallback=0, overridden=0,
+    evicted={"ConcurrentAdmissionLost": 5, "PodsReadyTimeout": 1346,
+             "RequeuingLimitExceeded": 513},
+    pipeline_stats=dict(speculated=5, used=0, discarded=5, skipped=4),
+    pods_ready_timeout=1346, requeuing_limit=513, deleted=1990,
+    boost_set=9227, boosted=151057, created_variant=812,
+    deactivated_variant=75, migrations=5, imported=6065, skipped=100,
+    populated=1000, status_crc=0x7c035cd4, reconcile_crc=0x2e95a85c)
 HEADS_DEVICE_KERNELS = ("heads_cluster_kernel", "heads_atomic_kernel")
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
@@ -1766,33 +1800,48 @@ def phases_serve(card, by_path, heads, pk, sms):
     bodies = sw.arrival_bodies(sw.FULL)
     print(f"  seeded journal: records={seeded['records']} "
           f"bytes={seeded['bytes']} in {time.perf_counter() - t0:.2f} s")
-    span("19+31")
+    span("19+31+32")
     print("[19] deployed control plane: serve + oracle sidecar on the card "
-          "(beside 31)")
-    # Phase 31 is a gate on a world of its own, in a process of its own:
-    # it runs beside phase 19 and prints its lines when 19 is done.
-    jobs_lines, jobs = [], {}
+          "(beside 31 and 32)")
+    # Phases 31 and 32 are gates on worlds of their own, each in a
+    # process of its own: one after the other, beside phase 19, printing
+    # their lines when 19 is done.
+    beside = ((31, phase_jobs_beside, "[31] jobs and pod templates: "
+               "jobs_world, 50,000 entries through the webhooks, the "
+               "jobframework and submit (beside 19, in a process of its "
+               "own)"),
+              (32, phase_controllers_beside, "[32] the rest of controllers/:"
+               " controllers_world, 50,000 entries with WaitForPodsReady, "
+               "status and retention, the booster, concurrent admission, "
+               "the importer and the populator (after 31, beside 19, in a "
+               "process of its own)"))
+    beside_lines = {n: [] for n, _fn, _t in beside}
+    beside_done: dict = {}
 
-    def run_jobs():
-        try:
-            jobs["by_path"] = phase_jobs_beside(card, say=jobs_lines.append)
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            jobs["error"] = e
+    def run_beside():
+        for n, fn, _title in beside:
+            try:
+                beside_done[n] = fn(card, say=beside_lines[n].append)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                beside_done[n] = e
+                return
 
-    jobs_thread = threading.Thread(target=run_jobs)
-    jobs_thread.start()
+    beside_thread = threading.Thread(target=run_beside)
+    beside_thread.start()
     try:
         by_path["serve_world"] = phase_serve(seed, work, bodies, card)
     finally:
-        jobs_thread.join()
-    print("[31] jobs and pod templates: jobs_world, 50,000 entries through "
-          "the webhooks, the jobframework and submit (beside 19, in a "
-          "process of its own)")
-    for line in jobs_lines:
-        print(line)
-    if "error" in jobs:
-        raise jobs["error"]
-    by_path.update(jobs["by_path"])
+        beside_thread.join()
+    for n, _fn, title in beside:
+        if n not in beside_done:
+            continue  # the phase before it failed
+        print(title)
+        for line in beside_lines[n]:
+            print(line)
+    for n, _fn, _title in beside:
+        if isinstance(beside_done.get(n), BaseException):
+            raise beside_done[n]
+        by_path.update(beside_done[n])
     # Phases 20, 21, 28, 29 and 30 are gates on other worlds' processes
     # (their own journals, sidecars, leases and ports), and phase 19's
     # heads check a gate on an engine of this process: they run side by
@@ -2181,6 +2230,50 @@ def phase_replay_beside(seed, work, bodies, card, say=print) -> dict:
     return json.loads(line)["replay_by_path"]
 
 
+def gated_world(label, run, pinned, expect, heads, pk, sms, hex_keys=()):
+    """Run one world's ``run()`` with the heads launches counted from 0,
+    print ``pinned(r)`` (the ``hex_keys`` in hex) and hold it to
+    ``expect``, the launches to the run's dispatched device calls, and
+    the kernel to its plain version on the run's first-cycle inputs.
+    Returns ``(r, launches, run seconds)``."""
+    box = {}
+    heads.launches = 0
+    t0 = time.perf_counter()
+    eff_t, cq_t, C = pk.first_heads_inputs(lambda: box.update(r=run()))
+    total_s = time.perf_counter() - t0
+    launches = heads.launches
+    r = box["r"]
+    got = pinned(r)
+    print("  " + " ".join(f"{k}=0x{v:08x}" if k in hex_keys else f"{k}={v}"
+                          for k, v in got.items()))
+    if got != expect:
+        raise AssertionError(f"{label}: got {got}, want {expect}")
+    if launches != dispatched(r):
+        raise AssertionError(
+            f"{label}: heads kernel launched {launches} times for "
+            f"{r['on_device']} device cycles and pipeline_stats "
+            f"{r['pipeline_stats']}")
+    check_heads(heads, f"{label} first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+    return r, launches, total_s
+
+
+def cycles_line(r, n_entries, total_s, launches, card) -> str:
+    """p50 and p95 of a world run's timed cycles, their mean phases, the
+    seconds to create its entries and to run it."""
+    times = sorted(r["cycle_seconds"])
+    p50 = times[len(times) // 2]
+    p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
+    mean = {ph: sum(p.get(ph, 0.0) for p in r["phases"]) / len(r["phases"])
+            for ph in ("encode", "sim", "device", "apply", "finalize",
+                       "spec_encode")}
+    return (f"  timed_cycles={len(times)} p50_s={p50:.4f} p95_s={p95:.4f} "
+            "mean_phases_s=" + ",".join(f"{k}:{v:.4f}"
+                                        for k, v in mean.items())
+            + f" build_s={r['build_s']:.2f} ({n_entries:,} entries created) "
+            f"run_s={total_s:.2f} heads_launches={launches} | {card}")
+
+
 def phase_jobs(heads, pk, card, sms) -> dict:
     """Phase 31: the job world at full width through the serving engine
     on the default loop, against the JAX engine's numbers, with the heads
@@ -2189,46 +2282,51 @@ def phase_jobs(heads, pk, card, sms) -> dict:
     launches by path."""
     from kueue_tpu_torch.bench import job_worlds as jw
 
-    box = {}
-    heads.launches = 0
-    t0 = time.perf_counter()
-    eff_t, cq_t, C = pk.first_heads_inputs(
-        lambda: box.update(r=jw.run(jw.FULL["jobs_world"])))
-    total_s = time.perf_counter() - t0
-    launches = heads.launches
-    r = box["r"]
-    got = jw.pinned(r)
-    print("  " + " ".join(
-        f"{k}=0x{v:08x}" if k == "checksum" else f"{k}={v}"
-        for k, v in got.items()))
-    if got != JOBS_EXPECT:
-        raise AssertionError(f"jobs_world: got {got}, want {JOBS_EXPECT}")
-    if launches != dispatched(r):
-        raise AssertionError(
-            f"jobs_world: heads kernel launched {launches} times for "
-            f"{r['on_device']} device cycles and pipeline_stats "
-            f"{r['pipeline_stats']}")
-    check_heads(heads, f"jobs_world first cycle w={eff_t.numel()} c={C}",
-                eff_t, cq_t, C, sms)
-    times = sorted(r["cycle_seconds"])
-    p50 = times[len(times) // 2]
-    p95 = times[min(len(times) - 1, int(len(times) * 0.95))]
-    mean = {ph: sum(p.get(ph, 0.0) for p in r["phases"]) / len(r["phases"])
-            for ph in ("encode", "sim", "device", "apply", "finalize",
-                       "spec_encode")}
-    print(f"  timed_cycles={len(times)} p50_s={p50:.4f} p95_s={p95:.4f} "
-          "mean_phases_s=" + ",".join(f"{k}:{v:.4f}" for k, v in mean.items())
-          + f" build_s={r['build_s']:.2f} "
-          f"({jw.FULL['jobs_world']['n_entries']:,} entries created) "
-          f"run_s={total_s:.2f} heads_launches={launches} | {card}")
+    cfg = jw.FULL["jobs_world"]
+    r, launches, total_s = gated_world(
+        "jobs_world", lambda: jw.run(cfg), jw.pinned, JOBS_EXPECT, heads,
+        pk, sms, hex_keys=("checksum",))
+    print(cycles_line(r, cfg["n_entries"], total_s, launches, card))
     return {"jobs_world": launches}
 
 
-def phase_jobs_beside(card, say=print) -> dict:
-    """Phase 31 in a child process of its own, so that it runs beside
-    phase 19 (its heads launches count in that process, trap (an)): the
-    child runs ``phase_jobs``, prints its lines and then one JSON line of
-    the launches by path, which this returns."""
+def phase_controllers(heads, pk, card, sms) -> dict:
+    """Phase 32: the controllers world at full width through the serving
+    engine on the default loop (WaitForPodsReady, the status controller
+    with retention, the booster, concurrent admission, the importer and
+    the populator), against the JAX engine's numbers, with the heads
+    kernel launched once per dispatched device call and held against its
+    plain version on the run's first-cycle inputs. Also prints the
+    seconds of each step between cycles. Returns its heads launches by
+    path."""
+    from kueue_tpu_torch.bench import controller_worlds as cw
+
+    cfg = cw.FULL["controllers_world"]
+    r, launches, total_s = gated_world(
+        "controllers_world", lambda: cw.run(cfg), cw.pinned,
+        CONTROLLERS_EXPECT, heads, pk, sms,
+        hex_keys=("checksum", "status_crc", "reconcile_crc"))
+    print(cycles_line(r, cfg["n_entries"], total_s, launches, card))
+    ctl, eng = r["controller_s"], r["engines"][0]
+    print("  controllers_s (summed over the 9 cycles): " + ",".join(
+        f"{k}:{v:.4f}" for k, v in ctl.items() if k != "reconcile_all")
+          + f" retention_sweep_per_tick_s="
+          f"{ctl['retention_sweep'] / cfg['cycles']:.4f} "
+          f"status_polls_per_cycle_s={ctl['status_polls'] / cfg['cycles']:.4f}"
+          f" reconcile_all_s={ctl['reconcile_all']:.4f} "
+          f"({len(eng.queues.local_queues):,} LocalQueues, "
+          f"{len(eng.workloads):,} workloads) "
+          f"host_root_reasons={eng.oracle.host_root_reasons} | {card}")
+    return {"controllers_world": launches}
+
+
+def phase_beside(fn: str, key: str, card, say=print) -> dict:
+    """``chip_smoke.<fn>`` (phase 31's ``phase_jobs`` or phase 32's
+    ``phase_controllers``) in a child process of its own, so that it
+    runs beside phase 19 (its heads launches count in that process, trap
+    (an)): the child prints its lines and then one JSON line of the
+    launches by path under ``key``, which this returns. The child is
+    killed in a ``finally``."""
     from kueue_tpu_torch.bench import serve_world as sw
 
     proc = sw.Proc(["-c", (
@@ -2238,10 +2336,10 @@ def phase_jobs_beside(card, say=print) -> dict:
         "from kueue_tpu_torch.bench import profile_kernels as pk\n"
         "from kueue_tpu_torch.ops import heads\n"
         "sms = torch.cuda.get_device_properties(0).multi_processor_count\n"
-        f"by_path = chip_smoke.phase_jobs(heads, pk, {card!r}, sms)\n"
-        "print(json.dumps({'jobs_by_path': by_path}))\n")])
+        f"by_path = chip_smoke.{fn}(heads, pk, {card!r}, sms)\n"
+        f"print(json.dumps({{{key!r}: by_path}}))\n")])
     try:
-        line = proc.wait_line('"jobs_by_path"', 900)
+        line = proc.wait_line(f'"{key}"', 900)
         rc = proc.p.wait(120)
     finally:
         proc.kill()
@@ -2249,9 +2347,19 @@ def phase_jobs_beside(card, say=print) -> dict:
         if out != line:
             say(out)
     if rc != 0:
-        raise AssertionError(f"phase 31's process exited {rc}: "
-                             f"{proc.tail()}")
-    return json.loads(line)["jobs_by_path"]
+        raise AssertionError(f"{fn}'s process exited {rc}: {proc.tail()}")
+    return json.loads(line)[key]
+
+
+def phase_jobs_beside(card, say=print) -> dict:
+    """Phase 31 in a child process of its own (``phase_beside``)."""
+    return phase_beside("phase_jobs", "jobs_by_path", card, say=say)
+
+
+def phase_controllers_beside(card, say=print) -> dict:
+    """Phase 32 in a child process of its own (``phase_beside``)."""
+    return phase_beside("phase_controllers", "controllers_by_path", card,
+                        say=say)
 
 
 def drain(scenario_kw, device=None):

@@ -29,9 +29,10 @@ from typing import Callable
 @dataclass
 class Kit:
     """What a world is built with: ``types`` (the API types module),
-    ``scenario`` (the scenario generators module), ``engine(fair)`` a
-    new engine, ``attach(engine)`` attaching its oracle, ``tas`` the
-    TAS snapshot module (its ``Node`` and ``HOSTNAME_LABEL``), ``afs``
+    ``scenario`` (the scenario generators module), ``engine(fair,
+    **kwargs)`` a new engine (keywords such as ``config=`` go to the
+    engine), ``attach(engine)`` attaching its oracle, ``tas`` the TAS
+    snapshot module (its ``Node`` and ``HOSTNAME_LABEL``), ``afs``
     the admission-fair-sharing module (``AfsManager``, ``_LqUsage``),
     ``admissionchecks`` the admission-checks module, ``non_tas_usage``
     the non-TAS pod usage module (its ``PodUsage``), ``replay`` the
@@ -39,7 +40,9 @@ class Kit:
     the job path's modules: ``jobframework`` (``BatchJob``,
     ``JobReconciler``), ``integrations`` (``StatefulSetJob``),
     ``webhooks`` (``JobWebhookRegistry``), ``podtemplate`` and
-    ``limitrange``."""
+    ``limitrange``, and the controllers world's: ``config_api`` (its
+    ``from_dict``), ``podsready``, ``status``, ``booster``,
+    ``concurrentadmission``, ``importer`` and ``populator``."""
 
     types: ModuleType
     scenario: ModuleType
@@ -55,6 +58,13 @@ class Kit:
     webhooks: ModuleType = None
     podtemplate: ModuleType = None
     limitrange: ModuleType = None
+    config_api: ModuleType = None
+    podsready: ModuleType = None
+    status: ModuleType = None
+    booster: ModuleType = None
+    concurrentadmission: ModuleType = None
+    importer: ModuleType = None
+    populator: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
@@ -63,11 +73,18 @@ def port_kit(device=None) -> Kit:
     from kueue_tpu_torch import replay
     from kueue_tpu_torch.api import types
     from kueue_tpu_torch.bench import scenario
+    from kueue_tpu_torch.config import api as config_api
     from kueue_tpu_torch.controllers import (
         admissionchecks,
         afs,
+        booster,
+        concurrentadmission,
+        importer,
         integrations,
         jobframework,
+        podsready,
+        populator,
+        status,
     )
     from kueue_tpu_torch.controllers.engine import Engine
     from kueue_tpu_torch.tas import non_tas_usage, snapshot
@@ -75,11 +92,13 @@ def port_kit(device=None) -> Kit:
     from kueue_tpu_torch.webhooks import jobwebhooks
 
     return Kit(types, scenario,
-               lambda fair=False: Engine(enable_fair_sharing=fair,
-                                         device=device),
+               lambda fair=False, **kw: Engine(enable_fair_sharing=fair,
+                                               device=device, **kw),
                lambda eng: eng.attach_oracle(device=device), snapshot,
                afs, admissionchecks, non_tas_usage, replay, jobframework,
-               integrations, jobwebhooks, podtemplate, limitrange)
+               integrations, jobwebhooks, podtemplate, limitrange,
+               config_api, podsready, status, booster, concurrentadmission,
+               importer, populator)
 
 
 # The serving loop's arms: (KUEUE_TPU_PIPELINE, KUEUE_TPU_COLUMNAR).

@@ -240,6 +240,7 @@ class Proc:
         self.out: list[str] = []
         self.err: list[str] = []
         self._cv = threading.Condition()
+        self._open_streams = 2  # pipes not yet read to their end
         for stream, sink in ((self.p.stdout, self.out),
                              (self.p.stderr, self.err)):
             threading.Thread(target=self._read, args=(stream, sink),
@@ -254,10 +255,27 @@ class Proc:
             with self._cv:
                 sink.append(line.rstrip("\n"))
                 self._cv.notify_all()
+        with self._cv:
+            self._open_streams -= 1
+            self._cv.notify_all()
+
+    def _drain(self, timeout: float) -> None:
+        """Wait, holding the condition, until the reader threads have
+        read both pipes to their end, or ``timeout`` seconds: a process
+        can exit before its last lines reach ``out`` and ``err`` (a
+        process it left holding a pipe keeps it open until the
+        timeout)."""
+        deadline = time.monotonic() + timeout
+        while self._open_streams:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return
+            self._cv.wait(left)
 
     def wait_line(self, needle: str, timeout: float) -> str:
         """The first stdout line holding ``needle``; raises if the
-        process exits or ``timeout`` seconds pass first."""
+        process exits without printing it (once its output is read) or
+        ``timeout`` seconds pass first."""
         deadline = time.monotonic() + timeout
         with self._cv:
             while True:
@@ -265,6 +283,10 @@ class Proc:
                     if needle in line:
                         return line
                 if self.p.poll() is not None:
+                    self._drain(10.0)
+                    for line in self.out:
+                        if needle in line:
+                            return line
                     raise RuntimeError(
                         f"{self.argv[1]} exited {self.p.returncode} before "
                         f"{needle!r}: {self.tail()}")
@@ -298,7 +320,8 @@ class Proc:
         self._signal_group(signal.SIGKILL)
         with _LIVE_LOCK:
             _LIVE.pop(self.p.pid, None)
-        time.sleep(0.1)  # let the reader threads drain the pipes
+        with self._cv:
+            self._drain(5.0)
         last = None
         for line in self.out:
             if line.startswith("{"):

@@ -29,7 +29,11 @@ from kueue_tpu_torch.api.types import (
     Workload,
 )
 from kueue_tpu_torch.scheduler.cycle import RequeueReason
-from kueue_tpu_torch.workload_info import WorkloadInfo, queue_order_timestamp
+from kueue_tpu_torch.workload_info import (
+    DEFAULT_ORDERING,
+    WorkloadInfo,
+    queue_order_timestamp,
+)
 
 _seq = itertools.count()
 
@@ -136,9 +140,12 @@ class PendingClusterQueue:
                 f"{wl.namespace}/{wl.queue_name}")
             info.local_queue_fs_usage = usage
         # FIFO position honors the eviction-aware queue-order timestamp
-        # (workload.go:1087), not raw creation time.
-        return (usage, -wl.effective_priority, queue_order_timestamp(wl),
-                next(_seq))
+        # (workload.go:1087), not raw creation time, under the manager's
+        # ordering (waitForPodsReady.requeuingTimestamp).
+        ordering = (self.manager.workload_ordering
+                    if self.manager is not None else None)
+        ts = queue_order_timestamp(wl, ordering or DEFAULT_ORDERING)
+        return (usage, -wl.effective_priority, ts, next(_seq))
 
     def _heap_push(self, info: WorkloadInfo,
                    sort_key: Optional[tuple] = None) -> None:
@@ -369,11 +376,16 @@ class SecondPassQueue:
 class QueueManager:
     """pkg/cache/queue/manager.go:147 (Manager)."""
 
-    def __init__(self) -> None:
+    def __init__(self, workload_ordering=None) -> None:
         from kueue_tpu_torch.tensor.rowcache import WorkloadRowCache
 
         self.cluster_queues: dict[str, PendingClusterQueue] = {}
         self.local_queues: dict[str, LocalQueue] = {}
+        # Which timestamp drives FIFO for PodsReady-evicted workloads
+        # (workload_info.Ordering); shared with the scheduler cycle so
+        # heap pops and entry ordering agree. The row cache's timestamp
+        # column keeps the default ordering, as the JAX package's does.
+        self.workload_ordering = workload_ordering
         # AFS hook: lq key -> decayed usage (manager.go:68), set by
         # controllers/afs.AfsManager.
         self.lq_usage_fn = None
@@ -453,8 +465,16 @@ class QueueManager:
                                 or pcq.in_flight == key):
             pcq.delete(key)  # pcq.delete already releases the row
         else:
+            # The JAX package calls delete on every ClusterQueue's queue
+            # here; on one that does not hold the key that only releases
+            # the row, which the call below does once. A workload that
+            # left the pending world (finished, deactivated) takes this
+            # path on deletion: at 1,000 ClusterQueues the sweep cost
+            # 4 ms a delete (ROADMAP trap (cl)).
             for pcq in self.cluster_queues.values():
-                pcq.delete(key)
+                if (key in pcq.items or key in pcq.inadmissible
+                        or pcq.in_flight == key or key in pcq._id_of):
+                    pcq.delete(key)
             self.rows.on_remove(key)
         self.second_pass.delete(key)
 

@@ -10,8 +10,7 @@ raises. ``tas_structure`` does the same for a topology forest's device
 encoding, ``api_object`` for an API object (flavors, queues,
 workloads with their pod templates, topologies, TAS nodes and topology
 assignments, LimitRanges) and for a job of the job integrations, and
-``configuration`` for the parts of a manager Configuration the port
-reads.
+``configuration`` for a manager Configuration.
 """
 
 from __future__ import annotations
@@ -94,33 +93,40 @@ def api_object(obj):
 
 
 def configuration(cfg):
-    """The port's ``config.api.Configuration`` carrying, of ``cfg``
-    (another package's Configuration), the job integrations it enables,
-    the resources section, the ``metrics_custom_labels`` as the port's
-    ``CustomLabelEntry``s, and the ``profile_dir``."""
-    from kueue_tpu_torch.config.api import (
-        Configuration,
-        ResourcesConfig,
-        ResourceTransformationSpec,
-    )
+    """The port's ``config.api.Configuration`` with the values of ``cfg``
+    (another package's Configuration): the job integrations, the
+    ``wait_for_pods_ready`` and ``fair_sharing`` sections, the resources
+    section, the retention durations, the ``metrics_custom_labels`` as
+    the port's ``CustomLabelEntry``s and the ``profile_dir``. Fields the
+    port does not have are left out."""
+    from kueue_tpu_torch.config import api
     from kueue_tpu_torch.metrics.registry import CustomLabelEntry
 
-    res = getattr(cfg, "resources", None)
-    return Configuration(
-        integrations=tuple(getattr(cfg, "integrations", ("batch/job",))),
-        resources=ResourcesConfig() if res is None else ResourcesConfig(
-            exclude_resource_prefixes=tuple(res.exclude_resource_prefixes),
-            transformations=tuple(
-                ResourceTransformationSpec(
-                    input=t.input, strategy=t.strategy,
-                    outputs=dict(t.outputs), multiply_by=t.multiply_by)
-                for t in res.transformations)),
-        metrics_custom_labels=[
-            CustomLabelEntry(name=e.name,
-                             source_label_key=e.source_label_key,
-                             source_annotation_key=e.source_annotation_key)
-            for e in cfg.metrics_custom_labels],
-        profile_dir=getattr(cfg, "profile_dir", None))
+    out = api.Configuration()
+    for f in dataclasses.fields(out):
+        if not hasattr(cfg, f.name):
+            continue
+        v = getattr(cfg, f.name)
+        if f.name == "metrics_custom_labels":
+            v = [CustomLabelEntry(
+                name=e.name, source_label_key=e.source_label_key,
+                source_annotation_key=e.source_annotation_key) for e in v]
+        elif f.name == "resources":
+            v = api.ResourcesConfig(
+                exclude_resource_prefixes=tuple(v.exclude_resource_prefixes),
+                transformations=tuple(
+                    api.ResourceTransformationSpec(
+                        input=t.input, strategy=t.strategy,
+                        outputs=dict(t.outputs), multiply_by=t.multiply_by)
+                    for t in v.transformations))
+        elif dataclasses.is_dataclass(v):
+            cls = getattr(api, type(v).__name__)
+            v = cls(**{g.name: getattr(v, g.name)
+                       for g in dataclasses.fields(cls)})
+        elif isinstance(v, (dict, list, tuple)):
+            v = type(v)(v)
+        setattr(out, f.name, v)
+    return out
 
 
 def world_tensors(mapping) -> WorldTensors:

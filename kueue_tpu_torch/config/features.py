@@ -63,6 +63,12 @@ _DEFAULTS: dict[str, bool] = {
     "LocalQueueDefaulting": True,
     "SparkApplicationIntegration": True,
     "ManagedJobsNamespaceSelectorAlwaysRespected": True,
+    # controllers/podsready.py: an emergency off-switch over
+    # waitForPodsReady's enable flag.
+    "DisableWaitForPodsReady": False,
+    # controllers/failurerecovery.py: node failures reach the recovery
+    # controller's Replace and Requeue actions.
+    "FailureRecoveryPolicy": True,
 }
 
 

@@ -189,10 +189,25 @@ class Engine:
     def __init__(self, enable_fair_sharing: bool = False, device=None,
                  config=None):
         """``config`` is an optional ``config.api.Configuration``; the
-        engine reads its ``metrics_custom_labels`` and the Info options of
-        its resources section (excluded prefixes, transformations)."""
+        engine reads fair sharing from it, the requeuing timestamp of its
+        ``wait_for_pods_ready`` (the ordering of the pending heaps and
+        the cycle), its retention durations (a StatusController with its
+        retention sweep), its ``metrics_custom_labels`` and the Info
+        options of its resources section (excluded prefixes,
+        transformations)."""
+        if config is not None and config.fair_sharing.enable:
+            enable_fair_sharing = True
         self.config = config
-        self.queues = QueueManager()
+        # One workload_info.Ordering shared by the pending heaps and the
+        # cycle iterator so heap pops and entry ordering agree.
+        workload_ordering = None
+        if config is not None:
+            ts = config.wait_for_pods_ready.requeuing_timestamp
+            if ts:
+                from kueue_tpu_torch.workload_info import Ordering
+                workload_ordering = Ordering(
+                    pods_ready_requeuing_timestamp=ts)
+        self.queues = QueueManager(workload_ordering=workload_ordering)
         self.cache = Cache()
         # Where the TAS forests' tensors and the oracle live: CUDA unless
         # the caller asks for the CPU (here or in attach_oracle).
@@ -202,7 +217,8 @@ class Engine:
         # by evictions are deferred to cycle end (one pass per distinct
         # cohort root instead of one per victim).
         self._deferred_cohort_requeue: Optional[set] = None
-        self.cycle = SchedulerCycle(enable_fair_sharing=enable_fair_sharing)
+        self.cycle = SchedulerCycle(enable_fair_sharing=enable_fair_sharing,
+                                    workload_ordering=workload_ordering)
         self.cycle.namespace_labels_of = \
             lambda ns: self.namespace_labels.get(ns)
         # Engine time: every decision reads this clock; callers advance
@@ -276,6 +292,12 @@ class Engine:
         self.admission_checks = None
         # AfsManager attaches itself here (admission fair sharing).
         self.afs = None
+        # PodsReadyManager attaches itself here (WaitForPodsReady,
+        # controllers/podsready.py).
+        self.pods_ready = None
+        # StatusController attaches itself here (CQ/LQ status and object
+        # retention, controllers/status.py).
+        self.status_controller = None
         # WorkloadPriorityClass registry (workloadpriorityclass_types.go).
         self.workload_priority_classes: dict[str, int] = {}
         # OracleBridge (batched device path), via attach_oracle().
@@ -304,6 +326,17 @@ class Engine:
         self.info_options = None
         if config is not None:
             self.set_info_options(config.info_options())
+            if (config.retention_after_finished_seconds is not None
+                    or config.retention_after_deactivated_seconds
+                    is not None):
+                from kueue_tpu_torch.controllers.status import (
+                    StatusController,
+                    WorkloadRetentionPolicy,
+                )
+                StatusController(self, retention=WorkloadRetentionPolicy(
+                    after_finished=config.retention_after_finished_seconds,
+                    after_deactivated_by_kueue=config
+                    .retention_after_deactivated_seconds))
 
     def set_info_options(self, options) -> None:
         """Propagate workload_info.InfoOptions to every Info construction
@@ -724,14 +757,19 @@ class Engine:
     # -- the scheduling loop --
 
     def tick(self, dt: float) -> None:
-        """Advance the clock and enforce maximum execution time
-        (workload_controller.go:838 reconcileMaxExecutionTime)."""
+        """Advance the clock, enforce maximum execution time
+        (workload_controller.go:838 reconcileMaxExecutionTime), then run
+        the status controller's retention sweep when one is attached."""
         self.clock += dt
-        if not _types.budgets_given():
-            # No workload in this process was ever given a budget: none
-            # can exceed one, and the scan below (a dict lookup per
-            # admitted workload, every serve loop iteration) finds none.
-            return
+        # Until a workload in this process is given a budget, none can
+        # exceed one, and the scan (a dict lookup per admitted workload,
+        # every serve loop iteration) would find none.
+        if _types.budgets_given():
+            self._enforce_execution_budgets()
+        if self.status_controller is not None:
+            self.status_controller.sweep_retention()
+
+    def _enforce_execution_budgets(self) -> None:
         # The budget test first, in one pass: most admitted workloads
         # carry none, and the condition scans below are the costly part
         # of a tick over tens of thousands of admitted workloads.
@@ -883,6 +921,12 @@ class Engine:
 
         heads = self.queues.heads(self.clock)
         if not heads:
+            return None
+        if self.pods_ready is not None and self.pods_ready.admission_blocked():
+            # BlockAdmission: hold everything until admitted workloads are
+            # ready (scheduler.go:535).
+            for info in heads:
+                self.queues.requeue_workload(info, RequeueReason.GENERIC)
             return None
         return self._sequential_cycle(heads)
 

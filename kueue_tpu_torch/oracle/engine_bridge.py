@@ -373,9 +373,14 @@ class OracleBridge:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     def world_is_fast_path_safe(self) -> bool:
-        """False when every ClusterQueue with pending work has a flavor
-        that demotes to the host (every root would demote)."""
+        """False while WaitForPodsReady's BlockAdmission holds admission
+        (the host path owns the hold-everything requeue), and when every
+        ClusterQueue with pending work has a flavor that demotes to the
+        host (every root would demote)."""
         eng = self.engine
+        if (eng.pods_ready is not None
+                and eng.pods_ready.admission_blocked()):
+            return False
         unsafe = _flavor_predicate()
         any_safe = False
         any_pending = False

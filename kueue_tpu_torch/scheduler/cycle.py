@@ -126,8 +126,12 @@ class CycleResult:
 class SchedulerCycle:
     """The decision core of scheduler.go:76 (Scheduler), cycle part."""
 
-    def __init__(self, enable_fair_sharing: bool = False):
+    def __init__(self, enable_fair_sharing: bool = False,
+                 workload_ordering=None):
         self.enable_fair_sharing = enable_fair_sharing
+        # workload_info.Ordering shared with the pending heaps, so heap
+        # pops and entry ordering agree (None: the default ordering).
+        self.workload_ordering = workload_ordering
         self.preemptor = Preemptor(enable_fair_sharing=enable_fair_sharing)
         # namespace -> labels provider for the nomination-time namespace
         # selector check (scheduler.go:636 ValidateAdmissibility); the
@@ -280,7 +284,8 @@ class SchedulerCycle:
                        snapshot: Snapshot) -> list[Entry]:
         if self.enable_fair_sharing:
             return list(_fair_sharing_order(entries))
-        return sorted(entries, key=_classical_key)
+        return sorted(entries, key=lambda e: _classical_key(
+            e, self.workload_ordering))
 
     # -- commit (scheduler.go:371 processEntry) --
 
@@ -393,12 +398,15 @@ class SchedulerCycle:
         return reserved
 
 
-def _classical_key(e: Entry):
+def _classical_key(e: Entry, ordering=None):
     """scheduler.go:971 (makeClassicalIterator sort): quota-reserved
     first, fewer borrows, priority (unless PrioritySortingWithinCohort is
     off), then FIFO by the queue-order timestamp (eviction-aware)."""
     from kueue_tpu_torch.config import features
-    from kueue_tpu_torch.workload_info import queue_order_timestamp
+    from kueue_tpu_torch.workload_info import (
+        DEFAULT_ORDERING,
+        queue_order_timestamp,
+    )
 
     prio = (-e.obj.effective_priority
             if features.enabled("PrioritySortingWithinCohort") else 0)
@@ -406,7 +414,7 @@ def _classical_key(e: Entry):
         0 if e.obj.has_quota_reservation else 1,
         e.assignment.borrows(),
         prio,
-        queue_order_timestamp(e.obj),
+        queue_order_timestamp(e.obj, ordering or DEFAULT_ORDERING),
     )
 
 

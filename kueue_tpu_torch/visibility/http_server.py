@@ -14,8 +14,11 @@ The port of ``kueue_tpu/visibility/http_server.py``:
   * GET ``/healthz``, ``/metrics`` (``sync_resource_metrics`` then the
     registry's Prometheus text), ``/debug/dump``, ``/capacity``,
     ``/cohorts``, ``/oracle``, ``/evictions``, ``/clusterqueues``,
-    ``/clusterqueues/<cq>/pendingworkloads``, ``/workloads``, ``/`` and
-    ``/dashboard``, ``/debug/trace``, ``/debug/perf`` and ``/debug/slo``
+    ``/clusterqueues/<cq>/pendingworkloads``, the status routes
+    ``/clusterqueues/<cq>/status`` and ``/localqueues/<ns>/<lq>/status``
+    (the attached ``status_controller``'s answer, or a read-only one's;
+    ``null`` for a queue that does not exist), ``/workloads``, ``/``
+    and ``/dashboard``, ``/debug/trace``, ``/debug/perf`` and ``/debug/slo``
     (``{"enabled": false}`` without the obs layer), ``/debug/ha`` (the
     replica's status), ``/debug/flowcontrol`` (the APF dispatcher's
     counts), and on a read replica ``/read/{position,quota,pending,
@@ -32,10 +35,8 @@ The port of ``kueue_tpu/visibility/http_server.py``:
   * the bearer token (``auth_token``; ``/healthz`` stays open).
 
 Federation (``/cells``, ``/debug/federation``, POST
-``/federation/revoke``) and the status routes
-(``/clusterqueues/<cq>/status``, ``/localqueues/<ns>/<lq>/status``)
-answer 404 with a body that names them as not ported; any other route
-answers 404 ``not found``. TLS is left out.
+``/federation/revoke``) answers 404 with a body that names it as not
+ported; any other route answers 404 ``not found``. TLS is left out.
 
 The endpoint's ``lock`` (a ``CycleLock``): every request that reads or
 changes an engine holds it, and the serving loop holds it around each
@@ -86,9 +87,8 @@ from kueue_tpu_torch.visibility.server import (
 )
 
 # The JAX package's routes that the port does not serve: federation
-# (ROADMAP Queue 1 item 7) and the status routes (item 8).
+# (ROADMAP Queue 1 item 7).
 NOT_PORTED_GET = ("/cells", "/debug/federation")
-NOT_PORTED_PREFIXES = ("/localqueues/",)
 NOT_PORTED_POST = ("/federation/revoke",)
 
 # Route classes whose GETs are read queries (engine-state reads a client
@@ -106,11 +106,15 @@ READ_KINDS = ("position", "quota", "pending", "explain")
 def _not_ported(path: str, method: str) -> bool:
     if method == "POST":
         return path in NOT_PORTED_POST
-    if path in NOT_PORTED_GET or path.startswith(NOT_PORTED_PREFIXES):
-        return True
-    parts = [p for p in path.split("/") if p]
-    return (len(parts) == 3 and parts[0] == "clusterqueues"
-            and parts[2] == "status")
+    return path in NOT_PORTED_GET
+
+
+def _status_view(eng):
+    """The engine's StatusController, or a read-only one that does not
+    attach itself."""
+    from kueue_tpu_torch.controllers.status import StatusController
+
+    return eng.status_controller or StatusController(eng, attach=False)
 
 
 def read_route(path: str):
@@ -467,6 +471,14 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
             if parts == ["clusterqueues"]:
                 from kueue_tpu_torch.cli.kueuectl import Kueuectl
                 return Kueuectl(eng).list_cluster_queues()
+            if (len(parts) == 3 and parts[0] == "clusterqueues"
+                    and parts[2] == "status"):
+                st = _status_view(eng).cq_status(parts[1])
+                return (vars(st) if st is not None else None), 200
+            if (len(parts) == 4 and parts[0] == "localqueues"
+                    and parts[3] == "status"):
+                st = _status_view(eng).lq_status(f"{parts[1]}/{parts[2]}")
+                return (vars(st) if st is not None else None), 200
             if (len(parts) == 3 and parts[0] == "clusterqueues"
                     and parts[2] == "pendingworkloads"):
                 from kueue_tpu_torch.config import features

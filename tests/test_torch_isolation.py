@@ -78,7 +78,16 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.webhooks.jobwebhooks",
           "kueue_tpu_torch.controllers.jobframework",
           "kueue_tpu_torch.controllers.integrations",
-          "kueue_tpu_torch.bench.job_worlds"):
+          "kueue_tpu_torch.bench.job_worlds",
+          "kueue_tpu_torch.config.api",
+          "kueue_tpu_torch.controllers.podsready",
+          "kueue_tpu_torch.controllers.status",
+          "kueue_tpu_torch.controllers.booster",
+          "kueue_tpu_torch.controllers.concurrentadmission",
+          "kueue_tpu_torch.controllers.importer",
+          "kueue_tpu_torch.controllers.populator",
+          "kueue_tpu_torch.controllers.failurerecovery",
+          "kueue_tpu_torch.bench.controller_worlds"):
     assert m in sys.modules, m
 print("isolated")
 """
@@ -88,6 +97,33 @@ def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "isolated"
+
+
+_RUN_PROBE = """
+import sys
+from kueue_tpu_torch.bench import controller_worlds as cw
+from kueue_tpu_torch.bench import engine_worlds as ew
+config = dict(n_cohorts=2, cqs_per_cohort=5, n_entries=200,
+              imported_per_cq=1, unlabelled=2, cycles=2, arm="full")
+r = cw.run(config, kit=ew.port_kit("cpu"))
+assert r["cycles"] == 2 and r["imported"] > 0, r
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "kueue_tpu") or m.startswith(("jax.", "kueue_tpu.")))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_port_world_runs_without_the_jax_package():
+    """Driving a world (phase 32's, at a tiny size on the CPU) loads
+    neither JAX nor the JAX package: a module found by name at run time
+    would escape the import probe above."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _RUN_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "isolated"
 

@@ -5,13 +5,14 @@ time (so pending positions stay to compare), it answers /healthz, takes
 the arrivals over POST /workloads (201, then 200 deduplicated for a
 known key, 400 for a bad body) and drains them, and every view it
 serves (/debug/dump but its wall-clock phases, /capacity, /cohorts,
-/clusterqueues, the pending positions, /workloads and /evictions)
-equals the JAX package's view of a mirrored engine: the JAX engine
+/clusterqueues, the pending positions, /workloads, /evictions and the
+ClusterQueue and LocalQueue status routes) equals the JAX package's view of a mirrored engine: the JAX engine
 rebuilt from the same journal, given the same arrivals and drained
 in-process, both on the default serving loop. /metrics answers 200 with
 the JAX engine's admission, eviction and resource series. An unported
-route answers 404 naming itself, an unported flag exits 2, the bearer
-token guards every route but /healthz, and SIGTERM exits 0. Tracing and
+route (federation's) answers 404 naming itself, an unported flag exits
+2, the bearer token guards every route but /healthz, and SIGTERM exits
+0. Tracing and
 overload: with ``--trace 8 --watchdog-deadline 30 --watchdog-hang 120``
 the process ends in the JAX serve process's final state with the same
 flags, its traced cycles equal its journal's ``cycle_trace`` records, and
@@ -40,6 +41,7 @@ import pytest
 import chip_smoke
 from kueue_tpu.api import serde as jserde
 from kueue_tpu.cli import kueuectl as jkueuectl
+from kueue_tpu.controllers import status as jstatus
 from kueue_tpu.store import journal as jjournal
 from kueue_tpu.visibility import server as jvis
 from kueue_tpu_torch import serve
@@ -73,7 +75,9 @@ VIEWS = ["/debug/dump", "/capacity", "/cohorts", "/clusterqueues",
          "/clusterqueues/cq-0/pendingworkloads",
          "/clusterqueues/cq-1/pendingworkloads",
          "/clusterqueues/arrivals/pendingworkloads", "/workloads",
-         "/evictions"]
+         "/evictions", "/clusterqueues/cq-0/status",
+         "/localqueues/default/lq-0/status",
+         "/localqueues/default/lq-0-b/status"]
 # The /metrics families whose series do not depend on how many loop
 # iterations (idle ones included) ran before the scrape: admission,
 # eviction and finish counts, and the gauges sync_resource_metrics
@@ -108,6 +112,11 @@ def _jax_views(eng) -> dict:
            "/workloads": jkueuectl.Kueuectl(eng).list_workloads()}
     for cq in ("cq-0", "cq-1", "arrivals"):
         out[f"/clusterqueues/{cq}/pendingworkloads"] = pending(cq)
+    sc = jstatus.StatusController(eng, attach=False)
+    out["/clusterqueues/cq-0/status"] = vars(sc.cq_status("cq-0"))
+    for lq in ("lq-0", "lq-0-b"):
+        out[f"/localqueues/default/{lq}/status"] = vars(
+            sc.lq_status(f"default/{lq}"))
     return json.loads(json.dumps(out))
 
 
@@ -214,8 +223,7 @@ def test_drain_admits_every_arrival(drained):
     assert idle["phase_samples"]
 
 
-@pytest.mark.parametrize("path", ["/clusterqueues/cq-0/status",
-                                  "/localqueues/default/lq-0/status"])
+@pytest.mark.parametrize("path", ["/cells", "/debug/federation"])
 def test_unported_route_404(served, path):
     url = served[1]
     with pytest.raises(RuntimeError, match="404"):
@@ -250,6 +258,28 @@ def test_ported_route_answers_as_jax(served, path):
         assert set(body) == {"rejected_total", "queued_total", "levels"}
     else:
         assert (r.status, body) == PORTED_ROUTES[path]
+
+
+def test_wait_line_reads_the_last_line_before_exit(monkeypatch):
+    """A child that prints its awaited line as its last act and exits,
+    seen exited before the reader threads have read its pipes (they
+    start late here, as on a loaded host): ``wait_line`` reads the pipes
+    to their end before it decides, and ``stop`` returns that line as
+    the last JSON one."""
+    read = sw.Proc._read
+
+    def late_read(self, stream, sink):
+        time.sleep(0.5)
+        read(self, stream, sink)
+
+    monkeypatch.setattr(sw.Proc, "_read", late_read)
+    proc = sw.Proc(["-c", "print('{\"done\": 1}')"])
+    try:
+        proc.p.wait(30)
+        assert proc.wait_line('"done"', 30) == '{"done": 1}'
+    finally:
+        rc, last = proc.stop()
+    assert rc == 0 and last == {"done": 1}
 
 
 def test_start_helper_timeout_leaves_no_child(tmp_path):
