@@ -308,6 +308,55 @@ Phases, in order; any failure raises and the script exits non-zero:
      p50 and p95 s/cycle, the mean phases and the seconds of each
      controller step (the retention sweep per tick, the status polls per
      cycle, the final ``reconcile_all``).
+ 33. (beside phases 19 to 30, in a process of its own) MultiKueue at full
+     width (kueue_tpu_torch/bench/multikueue_worlds.py FULL, on the
+     default loop): a manager engine with cycle_latency's world (1,000
+     ClusterQueues, 50,000 entries, 2,000 of them BatchJobs) whose
+     ClusterQueues carry a MultiKueue admission check, and three worker
+     engines with the same ClusterQueues (worker1 at 1/40 of the quota,
+     its own jobs filling the incremental share), all four on the card,
+     each with its own TorchExecutor; 9 cycles of manager cycle,
+     reconcile, every worker's cycle, reconcile. Two controllers: AllAtOnce
+     (first admit wins, the losers' copies deleted, worker1 full so wins
+     fall through, BatchJobs mirrored to the winner's JobReconciler,
+     worker3 behind a kubeconfig) and Incremental (rounds on the engine
+     clock, orchestrated preemption with one gate opened at a time, quota
+     automation; both gates on for the run). Remote finishes sync back;
+     worker3's connection is lost after cycle 3 (the manager's evictions,
+     finishes during the outage, reconnects under the retry_after backoff)
+     and restored by rewriting its kubeconfig (its copies adopted, the
+     finished ones propagated); after cycle 5 deleted manager workloads
+     leave orphans for the GC. Gated on the JAX engines' numbers (per
+     engine: cycles, admissions, decision-stream crc32, device / hybrid /
+     fallback cycles, evictions by reason, pipeline_stats; dispatches by
+     mode and cluster, remote deletes, GC collections, gates opened,
+     finishes synced back and the other counts of
+     ``multikueue_worlds.COUNTS``), every one of those paths above 0, and
+     in every engine the heads kernel launched once per dispatched device
+     call and held against its plain version on that engine's
+     first-cycle inputs. Prints p50 and p95 s/cycle of the manager and of
+     worker1 and the seconds of the reconciles per cycle.
+ 34. (after 33, in a process of its own) the federation under the chaos
+     chain (kueue_tpu_torch/bench/federation_world.py FULL): three cells
+     ``python -m kueue_tpu_torch.serve --ha --oracle local`` on the card,
+     each on its own journal and lease holding serve_world's world
+     definition (1,000 ClusterQueues plus ``arrivals``, no backlog);
+     3,000 arrivals at 200 a second, the first 1,000 through a ``serve
+     --federate`` process (no device, no fault; SIGTERM, rc 0), the rest
+     through an in-process dispatcher rebuilt from the same route journal
+     under ``FederationChaosSchedule`` (the first seed whose chain holds
+     cell-sigkill, dispatcher-crash, partition and zombie-rejoin). Gated
+     on every route admitted, the union of the cells' admitted sets equal
+     to the 3,000 submitted and pairwise disjoint, the zombie's
+     revocations above 0, the ``federation_*`` series equal to the
+     routes, each cell's live digest equal to a cold rebuild of its
+     journal, survivor events relayed by the aggregated ``/events`` hub
+     after the kill, ``/cells`` and ``/debug/federation`` answering on the
+     ``--federate`` process, and in each cell process that SIGTERM ended
+     its heads launches equal to its dispatched device calls. Prints the
+     redispatch seconds (kill to re-ack on a survivor), the handoff
+     seconds, the zombie's boot and reconcile seconds and POST p50 and
+     p95 through ``--federate``.
 Before the kernel summary it prints each phase's wall seconds; the
 phases that run side by side share one span. Every child process runs in a session and process group of its own and is
 registered from its spawn (kueue_tpu_torch/bench/serve_world.py); when
@@ -322,11 +371,13 @@ tests/test_torch_fair.py, tests/test_torch_preempt_world.py,
 tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
 tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py,
 tests/test_torch_tas_lifecycle_world.py,
-tests/test_torch_replay_world.py, tests/test_torch_job_world.py and
-tests/test_torch_controller_world.py recompute them). Phases 19 to 21,
-28 to 32 read the heads launches of the process that launches them (the
-sidecar, the restarted serve process, phase 29's, 31's or 32's process
-or the promoted leader), from the JSON line it prints. The last two lines are a JSON summary of the kernels and the
+tests/test_torch_replay_world.py, tests/test_torch_job_world.py,
+tests/test_torch_controller_world.py and
+tests/test_torch_multikueue_world.py recompute them). Phases 19 to 21
+and 28 to 34 read the heads launches of the process that launches them
+(the sidecar, the restarted serve process, phase 29's, 31's, 32's or
+33's process, the promoted leader or each federation cell), from the
+JSON line it prints. The last two lines are a JSON summary of the kernels and the
 result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
 split of each kernel's time in more detail.
@@ -565,6 +616,38 @@ CONTROLLERS_EXPECT = dict(
     boost_set=9227, boosted=151057, created_variant=812,
     deactivated_variant=75, migrations=5, imported=6065, skipped=100,
     populated=1000, status_crc=0x7c035cd4, reconcile_crc=0x2e95a85c)
+# Phase 33: the MultiKueue world (kueue_tpu_torch/bench/
+# multikueue_worlds.py FULL) on the default loop, as the JAX engines run
+# it (tests/test_torch_multikueue_world.py recomputes it): per engine its
+# cycles, admissions, decision-stream crc32, device / hybrid / fallback
+# cycles, evictions by reason and pipeline_stats; the dispatches by
+# (mode, cluster) and the controllers' counts.
+_PS5 = dict(speculated=5, used=0, discarded=5, skipped=4)
+_PS0 = dict(speculated=0, used=0, discarded=0, skipped=0)
+MULTIKUEUE_EXPECT = {
+    "manager": dict(cycles=9, admitted=9000, preempting=0, preemptions=0,
+                    checksum=0xab637826, on_device=9, hybrid=0, fallback=0,
+                    overridden=0, evicted={"MultiKueueClusterLost": 428},
+                    pipeline_stats=_PS5),
+    "worker1": dict(cycles=9, admitted=3492, preempting=91, preemptions=91,
+                    checksum=0x8fc1a203, on_device=9, hybrid=9, fallback=0,
+                    overridden=0, evicted={"Preempted": 91},
+                    pipeline_stats=_PS5),
+    "worker2": dict(cycles=9, admitted=8274, preempting=0, preemptions=0,
+                    checksum=0xfbe34b38, on_device=9, hybrid=7, fallback=0,
+                    overridden=0, evicted={}, pipeline_stats=_PS0),
+    "worker3": dict(cycles=9, admitted=7672, preempting=0, preemptions=0,
+                    checksum=0x5a8f49e7, on_device=9, hybrid=0, fallback=0,
+                    overridden=0, evicted={}, pipeline_stats=_PS0),
+    "dispatched_by": {"AllAtOnce/worker1": 8100, "AllAtOnce/worker2": 7860,
+                      "AllAtOnce/worker3": 7672, "Incremental/worker1": 900,
+                      "Incremental/worker2": 603},
+    "evicted": 519, "dispatched": 25135, "remote_deletes": 18287,
+    "gc_collected": 1724, "gates_opened": 104, "remote_finishes": 1663,
+    "finishes_synced": 1657, "outage_finishes": 214,
+    "outage_propagated": 179, "adopted": 156, "connect_failures": 3,
+    "deleted": 67, "quota_automated": 100, "jobs_mirrored": 240,
+    "jobs_started": 240, "fell_through": 4546, "rounds_grown": 603}
 HEADS_DEVICE_KERNELS = ("heads_cluster_kernel", "heads_atomic_kernel")
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
@@ -1786,8 +1869,8 @@ def check_serve_heads(seed, heads, pk, sms, say=print):
 
 
 def phases_serve(card, by_path, heads, pk, sms):
-    """Phases 19 to 21, 28 and 30 on one seeded journal, and phase 29
-    beside them."""
+    """Phases 19 to 21, 28 and 30 on one seeded journal, phase 29 beside
+    them, and phases 33 and 34 beside all of them."""
     from kueue_tpu_torch.bench import serve_world as sw
 
     work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
@@ -1826,8 +1909,37 @@ def phases_serve(card, by_path, heads, pk, sms):
                 beside_done[n] = e
                 return
 
+    # Phases 33 and 34, one after the other in processes of their own,
+    # beside phases 19 to 32: they print their lines once phase 30's
+    # group is done.
+    late = ((33, phase_multikueue_beside, "[33] MultiKueue: "
+             "multikueue_world, a manager and three worker engines over "
+             "50,000 entries (beside 19 to 30, in a process of its own)"),
+            (34, phase_federation_beside, "[34] the federation: three HA "
+             "cells behind serve --federate, then a dispatcher under the "
+             "chaos chain, 3,000 arrivals (after 33, in a process of its "
+             "own)"))
+    late_lines = {n: [] for n, _fn, _t in late}
+    late_done: dict = {}
+
+    def run_late():
+        for n, fn, _title in late:
+            t0 = time.perf_counter()
+            try:
+                late_done[n] = fn(card, say=late_lines[n].append)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                late_done[n] = e
+                return
+            finally:
+                late_lines[n].append(f"  phase {n} wall_s="
+                                     f"{time.perf_counter() - t0:.1f}")
+
     beside_thread = threading.Thread(target=run_beside)
+    # A daemon: when an earlier phase fails, the final sweep kills its
+    # child and the script ends without waiting for it.
+    late_thread = threading.Thread(target=run_late, daemon=True)
     beside_thread.start()
+    late_thread.start()
     try:
         by_path["serve_world"] = phase_serve(seed, work, bodies, card)
     finally:
@@ -1887,6 +1999,8 @@ def phases_serve(card, by_path, heads, pk, sms):
         t.start()
     for t in threads:
         t.join()
+    span("33+34 after 30")
+    late_thread.join()
     shutil.rmtree(work, ignore_errors=True)
     for chain in runs.values():
         for fn, title in chain:
@@ -1894,6 +2008,11 @@ def phases_serve(card, by_path, heads, pk, sms):
                 print(title)
                 for line in lines[fn]:
                     print(line)
+    for n, _fn, title in late:
+        if n in late_done:
+            print(title)
+            for line in late_lines[n]:
+                print(line)
     for chain in runs.values():
         for fn, _title in chain:
             if fn not in done:
@@ -1904,6 +2023,10 @@ def phases_serve(card, by_path, heads, pk, sms):
                 by_path.update(done[fn])
             elif fn in paths:
                 by_path[paths[fn]] = done[fn]
+    for n, _fn, _title in late:
+        if isinstance(late_done.get(n), BaseException):
+            raise late_done[n]
+        by_path.update(late_done[n])
 
 
 def heads_trace_events(trace_dir) -> tuple:
@@ -2321,8 +2444,9 @@ def phase_controllers(heads, pk, card, sms) -> dict:
 
 
 def phase_beside(fn: str, key: str, card, say=print) -> dict:
-    """``chip_smoke.<fn>`` (phase 31's ``phase_jobs`` or phase 32's
-    ``phase_controllers``) in a child process of its own, so that it
+    """``chip_smoke.<fn>`` (phase 31's ``phase_jobs``, 32's
+    ``phase_controllers``, 33's ``phase_multikueue`` or 34's
+    ``phase_federation``) in a child process of its own, so that it
     runs beside phase 19 (its heads launches count in that process, trap
     (an)): the child prints its lines and then one JSON line of the
     launches by path under ``key``, which this returns. The child is
@@ -2359,6 +2483,153 @@ def phase_jobs_beside(card, say=print) -> dict:
 def phase_controllers_beside(card, say=print) -> dict:
     """Phase 32 in a child process of its own (``phase_beside``)."""
     return phase_beside("phase_controllers", "controllers_by_path", card,
+                        say=say)
+
+
+# The paths phase 33 must drive, each a count that must be above 0.
+MULTIKUEUE_PATHS = ("dispatched", "remote_deletes", "fell_through",
+                    "rounds_grown", "remote_finishes", "finishes_synced",
+                    "evicted", "connect_failures", "adopted",
+                    "outage_finishes", "outage_propagated", "gc_collected",
+                    "deleted", "gates_opened", "quota_automated",
+                    "jobs_mirrored", "jobs_started")
+
+
+def phase_multikueue(heads, pk, card, sms) -> dict:
+    """Phase 33: the MultiKueue world at full width, a manager and three
+    worker engines on the card (each with its own TorchExecutor), against
+    the JAX engines' numbers, every listed path driven; in every engine
+    the heads kernel launched once per dispatched device call and held
+    against its plain version on that engine's first-cycle inputs.
+    Prints p50 and p95 s/cycle of the manager and of worker1 and the
+    seconds of both controllers' reconciles per cycle. Returns the heads
+    launches by engine."""
+    from kueue_tpu_torch.bench import multikueue_worlds as mw
+    from kueue_tpu_torch.oracle import batched
+
+    cfg = mw.FULL["multikueue_world"]
+    launches = dict.fromkeys(mw.ENGINES, 0)
+    first: dict = {}
+    current = [None]
+    original = batched.hops.select_heads
+
+    def capture(eff_rank, wl_cq, num_cqs, big_rank):
+        name = current[0]
+        if name is not None and name not in first:
+            first[name] = (eff_rank.clone(), wl_cq.clone(), num_cqs)
+        return original(eff_rank, wl_cq, num_cqs, big_rank)
+
+    def around(name, fn):
+        current[0] = name
+        before = heads.launches
+        try:
+            return fn()
+        finally:
+            launches[name] += heads.launches - before
+            current[0] = None
+
+    batched.hops.select_heads = capture
+    t0 = time.perf_counter()
+    try:
+        r = mw.run(cfg, around=around)
+    finally:
+        batched.hops.select_heads = original
+    total_s = time.perf_counter() - t0
+    got = mw.pinned(r)
+    for name in mw.ENGINES:
+        print(f"  {name}: " + " ".join(
+            f"{k}=0x{v:08x}" if k == "checksum" else f"{k}={v}"
+            for k, v in got[name].items()))
+    print("  " + " ".join(f"{k}={got[k]}" for k in
+                          ("dispatched_by",) + mw.COUNTS))
+    if got != MULTIKUEUE_EXPECT:
+        raise AssertionError(f"multikueue_world: got {got}, want "
+                             f"{MULTIKUEUE_EXPECT}")
+    idle = [k for k in MULTIKUEUE_PATHS if not got[k] > 0]
+    if idle:
+        raise AssertionError(f"multikueue_world: paths not driven: {idle}")
+    for name in mw.ENGINES:
+        want = dispatched(r[name])
+        if launches[name] != want:
+            raise AssertionError(
+                f"multikueue_world {name}: heads kernel launched "
+                f"{launches[name]} times for {want} dispatched device "
+                f"calls ({r[name]['on_device']} device cycles, "
+                f"pipeline_stats {r[name]['pipeline_stats']})")
+        eff_t, cq_t, c = first[name]
+        check_heads(heads, f"multikueue {name} first cycle "
+                    f"w={eff_t.numel()} c={c}", eff_t, cq_t, c, sms)
+    for name in ("manager", "worker1"):
+        times = sorted(r[name]["cycle_seconds"])
+        print(f"  {name}: timed_cycles={len(times)} p50_s="
+              f"{pct(times, 0.5):.4f} p95_s={pct(times, 0.95):.4f} "
+              f"heads_launches={launches[name]} | {card}")
+    rec = r["reconcile_s"]
+    print(f"  reconcile_s per cycle (both controllers, two passes over "
+          f"{len(r['engines'][0].workloads):,} manager workloads): "
+          + ",".join(f"{x:.4f}" for x in rec)
+          + f" mean={sum(rec) / len(rec):.4f} build_s={r['build_s']:.2f} "
+          f"run_s={total_s:.2f} | {card}")
+    return {f"multikueue_{name}": launches[name] for name in mw.ENGINES}
+
+
+def phase_multikueue_beside(card, say=print) -> dict:
+    """Phase 33 in a child process of its own (``phase_beside``)."""
+    return phase_beside("phase_multikueue", "multikueue_by_path", card,
+                        say=say)
+
+
+def phase_federation(heads, pk, card, sms) -> dict:
+    """Phase 34: three HA cells on the card behind the federation
+    dispatcher (``serve --federate`` for the first 1,000 arrivals, then
+    an in-process dispatcher under the chaos chain for 2,000), held to
+    the invariants of ``federation_world.check``. Prints the redispatch,
+    handoff, zombie reconcile and POST times. Returns the heads launches
+    of the cell processes that SIGTERM ended."""
+    from kueue_tpu_torch.bench import federation_world as fw
+
+    cfg = fw.FULL
+    work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
+        "_build" / "federation_world"
+    t0 = time.perf_counter()
+    r = fw.run(cfg, device="cuda", work=work)
+    total_s = time.perf_counter() - t0
+    for line in fw.check(cfg, r, "cuda"):
+        print(line)
+    red, sub = r["redispatch_s"], r["submit_s"]
+    lat = r["post_latencies"]
+    print(f"  redispatch_s (kill to re-ack on a survivor, {len(red)} "
+          f"routes): p50={fw.pct(red, 0.5):.4f} p95={fw.pct(red, 0.95):.4f}"
+          f" handoff_s (intent synced + POST to the cell, "
+          f"{len(sub)} submits): p50={fw.pct(sub, 0.5):.4f} "
+          f"p95={fw.pct(sub, 0.95):.4f} zombie: boot_s="
+          f"{r['zombie_boot_s']:.2f} reconcile_s="
+          f"{r['zombie_reconcile_s']:.4f} revocations={r['revocations']} "
+          f"| {card}")
+    print(f"  POST through serve --federate ({len(lat)} arrivals at "
+          f"{cfg['rate']:.0f}/s): p50_s={fw.pct(lat, 0.5):.4f} "
+          f"p95_s={fw.pct(lat, 0.95):.4f} codes={r['post_codes']} "
+          f"cell boot_s={ {k: round(v, 2) for k, v in r['boot_s'].items()} }"
+          f" run_s={total_s:.2f} | {card}")
+    ticks = r["tick_s"]
+    print(f"  time split s: --federate posting {r['post_seconds']:.2f} "
+          f"({len(lat) / r['post_seconds']:.1f}/s) and converging "
+          f"{r['federate_converge_s']:.2f}; chaos waiting for the cells "
+          f"{r['chaos_wait_s']:.2f}, posting {r['chaos_post_s']:.2f} "
+          f"({len(sub) / r['chaos_post_s']:.1f}/s), converging "
+          f"{r['chaos_converge_s']:.2f}; {len(ticks)} dispatcher ticks "
+          f"p50={fw.pct(ticks, 0.5):.4f} p95={fw.pct(ticks, 0.95):.4f} "
+          f"max={max(ticks):.4f}; cold rebuilds "
+          f"{sum(c['rebuild_s'] for c in r['cells'].values()):.2f} "
+          f"| {card}")
+    return {"federation_cells": sum(
+        last["heads_launches"] for runs in r["ended"].values()
+        for _rc, last in runs)}
+
+
+def phase_federation_beside(card, say=print) -> dict:
+    """Phase 34 in a child process of its own (``phase_beside``)."""
+    return phase_beside("phase_federation", "federation_by_path", card,
                         say=say)
 
 

@@ -40,9 +40,12 @@ class Kit:
     the job path's modules: ``jobframework`` (``BatchJob``,
     ``JobReconciler``), ``integrations`` (``StatefulSetJob``),
     ``webhooks`` (``JobWebhookRegistry``), ``podtemplate`` and
-    ``limitrange``, and the controllers world's: ``config_api`` (its
+    ``limitrange``, the controllers world's: ``config_api`` (its
     ``from_dict``), ``podsready``, ``status``, ``booster``,
-    ``concurrentadmission``, ``importer`` and ``populator``."""
+    ``concurrentadmission``, ``importer`` and ``populator``, and the
+    MultiKueue world's: ``multikueue`` (``MultiKueueController``,
+    ``MultiKueueConfig``, ``Dispatcher``) and ``features`` (the feature
+    gates it sets)."""
 
     types: ModuleType
     scenario: ModuleType
@@ -65,6 +68,8 @@ class Kit:
     concurrentadmission: ModuleType = None
     importer: ModuleType = None
     populator: ModuleType = None
+    multikueue: ModuleType = None
+    features: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
@@ -74,6 +79,7 @@ def port_kit(device=None) -> Kit:
     from kueue_tpu_torch.api import types
     from kueue_tpu_torch.bench import scenario
     from kueue_tpu_torch.config import api as config_api
+    from kueue_tpu_torch.config import features
     from kueue_tpu_torch.controllers import (
         admissionchecks,
         afs,
@@ -82,6 +88,7 @@ def port_kit(device=None) -> Kit:
         importer,
         integrations,
         jobframework,
+        multikueue,
         podsready,
         populator,
         status,
@@ -98,7 +105,7 @@ def port_kit(device=None) -> Kit:
                afs, admissionchecks, non_tas_usage, replay, jobframework,
                integrations, jobwebhooks, podtemplate, limitrange,
                config_api, podsready, status, booster, concurrentadmission,
-               importer, populator)
+               importer, populator, multikueue, features)
 
 
 # The serving loop's arms: (KUEUE_TPU_PIPELINE, KUEUE_TPU_COLUMNAR).

@@ -69,6 +69,15 @@ _DEFAULTS: dict[str, bool] = {
     # controllers/failurerecovery.py: node failures reach the recovery
     # controller's Replace and Requeue actions.
     "FailureRecoveryPolicy": True,
+    # controllers/multikueue*.py: the subsystem, remote copies behind a
+    # closed preemption gate opened one cluster at a time, the manager
+    # ClusterQueues' quota summed from the workers', Incremental
+    # dispatch rounds (off: AllAtOnce), and ClusterProfile sources.
+    "MultiKueue": True,
+    "MultiKueueOrchestratedPreemption": False,
+    "MultiKueueManagerQuotaAutomation": False,
+    "MultiKueueIncrementalDispatcherConfig": True,
+    "MultiKueueClusterProfile": False,
 }
 
 

@@ -50,8 +50,10 @@ Evictions in flight are tracked by ``preemption_expectations``
 (``utils/expectations``), and every admission's status finalization runs
 through ``admission_routine`` (``utils/routine.SyncWrapper``).
 Decisions are the JAX package's engine's, cycle by cycle, and nothing
-the obs layer records feeds back into one. Left out: pods-ready and
-MultiKueue.
+the obs layer records feeds back into one. Pods-ready
+(``controllers/podsready.py``) and MultiKueue
+(``controllers/multikueue.py``) drive the engine from outside it, as in
+the JAX package.
 
 Lifecycle semantics mirrored from the reference:
   * admit: set QuotaReserved + Admitted, write Admission, assume in cache

@@ -8,7 +8,7 @@ workload unhealthyNodes status (workload_types.go:766), fail-fast
 eviction (scheduler.go:403,804-817), and the FailureRecoveryPolicy
 controller (pkg/controller/failurerecovery): on node failure,
 reschedule affected workloads to a replacement domain or a different
-flavor (a different cluster under MultiKueue, which is not ported).
+flavor (a different cluster under MultiKueue, controllers/multikueue.py).
 
 Workloads with placements on a failed node are replaced in place
 (Replace) or evicted and requeued (Requeue), where the scheduler finds a

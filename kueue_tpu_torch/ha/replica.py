@@ -2,8 +2,10 @@
 
 The port of ``kueue_tpu/ha/replica.py``. The lease, its renewal and its
 expiry read the wall clock (``step(now)``, the renewal thread); no
-scheduling decision does. ``revoke`` is reached only by the federation
-dispatcher, which is not ported: it is here, unreached.
+scheduling decision does. ``revoke`` is reached by the federation
+dispatcher (``federation/dispatcher.py``) through POST
+``/federation/revoke``, and ``submit``'s ``route_epoch`` by its
+``X-Route-Epoch`` header.
 
 One replica = one role at a time (roles.RoleMachine). The drive loop
 calls ``step(now)`` every tick:

@@ -1,9 +1,9 @@
 """Fault injection for the admission pipeline, under replay or live
 smoke (serve.py --fault / KUEUE_TPU_FAULT).
 
-The port of ``kueue_tpu/replay/faults.py`` without its federation
-faults (``FederationEvent``, ``PartitionedTransport``,
-``FederationChaosSchedule``: ROADMAP Queue 1 item 7). The injector sets
+The port of ``kueue_tpu/replay/faults.py``, its federation faults
+(``FederationEvent``, ``PartitionedTransport``,
+``FederationChaosSchedule``) included. The injector sets
 the port's own process-wide seams (``store/checkpoint.WRITE_FAULT``,
 ``store/diskguard.FREE_BYTES_PROBE``,
 ``store/journal.MAINTENANCE_CRASH_HOOK``), never the JAX package's.
@@ -90,6 +90,16 @@ uninterrupted run's — zero lost, zero duplicate admissions.
 multi-stage fault plan over those kinds. ``lease-stall`` needs an HA
 replica (``engine.ha``, set by ``ha/replica.HAReplica``'s promotion):
 on an engine without one it raises, as in the JAX package.
+
+``FederationChaosSchedule`` is the multi-cell analog
+(bench/federation_world.py): one seed expands into a deterministic
+chain of federation faults (FEDERATION_KINDS) — a whole cell
+SIGKILLed mid-admission, the dispatcher crashed between route-intent
+fsync and handoff, a network partition, and the zombie cell's rejoin —
+and the contract becomes GLOBAL: the union of per-cell admitted sets
+equals the submitted set, pairwise disjoint (zero lost, zero
+duplicate admissions across the federation). Its draws are the JAX
+package's, so one seed gives the same chain in both.
 """
 
 from __future__ import annotations
@@ -552,4 +562,113 @@ class ChaosSchedule:
                     f.at in ("admission", "compaction")
                     for f in plan.faults),
                 needs_oracle=plan.needs_oracle))
+        return out
+
+
+# -- multi-cell federation faults (kueue_tpu_torch/federation) --
+
+FEDERATION_KINDS = ("cell-sigkill", "dispatcher-crash", "partition",
+                    "zombie-rejoin")
+
+
+@dataclass
+class FederationEvent:
+    """One fault in a federation chaos chain.
+
+    kind      one of FEDERATION_KINDS
+    cell      victim cell name ("" = the dispatcher itself)
+    at        trigger ordinal — submissions completed for cell-sigkill
+              and partition, dispatcher HANDOFFS attempted for
+              dispatcher-crash (the HANDOFF_CRASH_HOOK coordinate:
+              after the route intent is durable, before the send)
+    arg       partition: width of the outage window in dispatcher
+              ticks; zombie-rejoin carries 0
+    """
+    kind: str
+    cell: str
+    at: int
+    arg: int = 0
+
+
+class PartitionedTransport:
+    """Network-partition proxy around a federation cell transport:
+    while ``partitioned`` is set every call raises CellTransportError
+    — the cell process is healthy, the dispatcher just cannot reach
+    it. Distinct from cell-sigkill: here the cell's own journal keeps
+    advancing, so reconnection must NOT be treated as a rejoin that
+    lost state."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.partitioned = False
+        self.dropped = 0
+
+    def _gate(self) -> None:
+        if self.partitioned:
+            from kueue_tpu_torch.federation.cells import CellTransportError
+            self.dropped += 1
+            raise CellTransportError("injected network partition")
+
+    @property
+    def events_url(self) -> str:
+        return self.inner.events_url
+
+    def submit(self, wl_jsonable, route_epoch=None):
+        self._gate()
+        return self.inner.submit(wl_jsonable, route_epoch=route_epoch)
+
+    def health(self):
+        self._gate()
+        return self.inner.health()
+
+    def workloads(self):
+        self._gate()
+        return self.inner.workloads()
+
+    def revoke(self, keys, epoch):
+        self._gate()
+        return self.inner.revoke(keys, epoch)
+
+
+class FederationChaosSchedule:
+    """Expand one integer seed into a deterministic federation fault
+    chain over ``cells`` (bench/federation_world.py's input).
+
+    Every chain is multi-fault by construction: one cell is SIGKILLed
+    mid-admission stream (the whole-cell failure the drain path
+    exists for) and ALWAYS rejoins later as a zombie (the fencing
+    path); the dispatcher crashes once between route-intent fsync and
+    handoff (the exactly-once recovery path); and about half the
+    seeds additionally partition a DIFFERENT cell for a bounded
+    window. Same seed → identical event list, independent of
+    PYTHONHASHSEED (cells are sorted before any draw).
+    """
+
+    def __init__(self, seed: int, cells, workloads: int = 24):
+        self.seed = int(seed)
+        self.cells = sorted(cells)
+        self.workloads = max(8, int(workloads))
+        if len(self.cells) < 2:
+            raise ValueError("federation chaos needs >= 2 cells")
+
+    def events(self) -> list:
+        rng = random.Random(self.seed)
+        n = self.workloads
+        victim = rng.choice(self.cells)
+        out = [
+            # Mid-stream: enough admissions before it to seed state on
+            # the victim, enough after to force re-routing under load.
+            FederationEvent("cell-sigkill", victim,
+                            rng.randrange(n // 4, n // 2)),
+            FederationEvent("dispatcher-crash", "",
+                            rng.randrange(2, n // 2)),
+        ]
+        if rng.random() < 0.5:
+            survivors = [c for c in self.cells if c != victim]
+            out.append(FederationEvent(
+                "partition", rng.choice(survivors),
+                rng.randrange(n // 2, 3 * n // 4),
+                arg=rng.randrange(4, 10)))
+        out.append(FederationEvent(
+            "zombie-rejoin", victim, rng.randrange(3 * n // 4, n)))
         return out

@@ -3,7 +3,8 @@ HTTP serving endpoint and the scheduling loop, with the oracle
 in-process or in a sidecar.
 
 The port of ``kueue_tpu/serve.py`` (cmd/kueue/main.go:126, the manager
-main), its ``_main_ha`` and ``_main_read_replica`` included:
+main), its ``_main_ha``, ``_main_read_replica`` and
+``_main_federation`` included:
 
     python -m kueue_tpu_torch.serve --journal PATH [--oracle local|off|HOST:PORT]
         [--http HOST:PORT] [--tick SECONDS] [--device cuda|cpu]
@@ -13,6 +14,9 @@ main), its ``_main_ha`` and ``_main_read_replica`` included:
         [--shed-rate R] [--record TRACE] [--fault SPEC]
         [--ha [--replica-id ID] [--lease PATH] [--lease-duration S]
          [--fanout-shards N] | --read-replica [--replica-id ID]]
+    python -m kueue_tpu_torch.serve --federate "name[@zone]=URL,..."
+        --journal ROUTES [--http HOST:PORT] [--tick SECONDS]
+        [--fanout-shards N]
 
 It rebuilds the engine from ``--journal`` (store/journal.rebuild_engine:
 the newest valid checkpoint plus the journal suffix past it, or a replay
@@ -82,7 +86,7 @@ KUEUE_TPU_MIN_FREE_BYTES, KUEUE_TPU_TRACE, KUEUE_TPU_WATCHDOG_DEADLINE,
 KUEUE_TPU_WATCHDOG_HANG, KUEUE_TPU_SHED_RATE, KUEUE_TPU_RECORD,
 KUEUE_TPU_FAULT, KUEUE_TPU_HA, KUEUE_TPU_READ_REPLICA,
 KUEUE_TPU_REPLICA_ID, KUEUE_TPU_LEASE, KUEUE_TPU_LEASE_DURATION,
-KUEUE_TPU_FANOUT_SHARDS, and the bridge's
+KUEUE_TPU_FANOUT_SHARDS, KUEUE_TPU_FEDERATE, and the bridge's
 KUEUE_TPU_ORACLE_RETRIES, KUEUE_TPU_ORACLE_BREAKER_N and
 KUEUE_TPU_ORACLE_BREAKER_COOLDOWN.
 
@@ -115,8 +119,21 @@ serving on HOST:PORT ...`` and ``readplane: replica=ID journal=PATH``;
 SIGTERM prints one JSON line with its queries, rebuilds, tail position,
 admitted-state digest and the sha256 of its ``canonical_answer``.
 
-Not ported: federation (``--federate``, and ``KUEUE_TPU_FEDERATE``),
-which exits 2 with a message naming it; it is not ignored.
+Federation mode (``--federate "name[@zone]=URL,..."``, or
+``KUEUE_TPU_FEDERATE``): a dispatcher over the cells at those URLs (each
+a ``serve --ha`` deployment), owning no engine. It resolves no device
+and creates no CUDA context. ``--journal`` is its route journal: every
+route intent is journaled and synced before the handoff leaves the
+process. It probes the cells through per-cell breakers, drains a dead
+cell's unconfirmed routes to survivors and fences a zombie's rejoin
+(``federation/dispatcher.py``); ``/events`` relays every cell's events
+tagged with the cell (``federation/aggregator.EventAggregator`` into a
+``FanoutHub``), and ``/metrics`` renders the dispatcher's own registry.
+It prints ``kueue-tpu federation dispatcher serving on HOST:PORT
+(journal=..., cells=N)``, then a ``federation: cell=NAME zone=ZONE
+url=URL`` line per cell; SIGTERM ends its loop (the tick held under the
+endpoint's lock) and it prints one JSON line of ``status()``'s counts
+and exits 0.
 """
 
 from __future__ import annotations
@@ -124,15 +141,7 @@ from __future__ import annotations
 import json
 import os
 import signal
-import sys
 import time
-
-# Flags of the JAX package's serve.py this port does not implement, with
-# the environment variables that set them: federation (ROADMAP Queue 1
-# item 7).
-NOT_PORTED = {
-    "--federate": "KUEUE_TPU_FEDERATE",
-}
 
 # Bounded-time recovery and the disk budget, as the JAX package's
 # serve.py takes them: (flag, environment variable, default, help).
@@ -228,19 +237,11 @@ def _parse(argv):
                             "KUEUE_TPU_FANOUT_SHARDS", "4")),
                         help="dispatcher threads of the /events hub of "
                              "an HA or read replica")
-    for flag in NOT_PORTED:
-        parser.add_argument(flag, nargs="?", const="", default=None,
-                            help="not ported (exits 2)")
-    args = parser.parse_args(argv)
-    given = [flag for flag in NOT_PORTED
-             if getattr(args, flag[2:].replace("-", "_")) is not None]
-    given += [env for env in NOT_PORTED.values()
-              if os.environ.get(env, "") not in ("", "0")]
-    if given:
-        print("kueue_tpu_torch.serve: not ported: " + ", ".join(given),
-              file=sys.stderr, flush=True)
-        raise SystemExit(2)
-    return args
+    parser.add_argument("--federate",
+                        default=os.environ.get("KUEUE_TPU_FEDERATE"),
+                        help="run as a federation dispatcher over cells"
+                             ' "name[@zone]=URL,..." (no local engine)')
+    return parser.parse_args(argv)
 
 
 def boot(args):
@@ -288,6 +289,9 @@ def _attach_overload(eng, args) -> None:
 
 def main(argv=None) -> None:
     args = _parse(argv)
+    if args.federate:
+        _main_federation(args)
+        return
     if args.read_replica:
         _main_read_replica(args)
         return
@@ -681,6 +685,87 @@ def _main_read_replica(args) -> None:
         "state_digest": admitted_state_digest(eng) if eng else None,
         "canonical_sha256": hashlib.sha256(canonical).hexdigest(),
         "canonical_bytes": len(canonical)}), flush=True)
+
+
+def federation_cells(spec: str, registry, token=None) -> list:
+    """The ``CellHandle``s of a ``--federate`` value ``"name[@zone]=URL,
+    ..."``, each over an ``HTTPCellTransport``; raises SystemExit on a
+    bad spec or none."""
+    from kueue_tpu_torch.federation import CellHandle, HTTPCellTransport
+
+    cells = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        ident, sep, url = part.partition("=")
+        if not sep or not url:
+            raise SystemExit(f"bad --federate cell spec {part!r}"
+                             ' (want "name[@zone]=URL")')
+        name, _, zone = ident.partition("@")
+        cells.append(CellHandle(
+            name.strip(), HTTPCellTransport(url.strip(), auth_token=token),
+            zone=zone.strip(), metrics=registry))
+    if not cells:
+        raise SystemExit('--federate requires "name[@zone]=URL,..."')
+    return cells
+
+
+def _main_federation(args) -> None:
+    """Federation dispatcher mode: no engine, no device. POST
+    /workloads is routed to a member cell through ``FederationDispatcher``
+    (route intent journaled and synced to ``--journal`` before the
+    handoff), the loop ticks the dispatcher (probes, drains, resends,
+    confirmations) under the endpoint's lock, and ``/events`` relays the
+    cells' events. SIGTERM ends it with one JSON line of the
+    dispatcher's counts."""
+    from kueue_tpu_torch.federation import FederationDispatcher
+    from kueue_tpu_torch.federation.aggregator import EventAggregator
+    from kueue_tpu_torch.metrics.registry import MetricsRegistry
+    from kueue_tpu_torch.visibility.fanout import FanoutHub
+    from kueue_tpu_torch.visibility.http_server import ServingEndpoint
+
+    token = os.environ.get("KUEUE_TPU_AUTH_TOKEN")
+    registry = MetricsRegistry()
+    cells = federation_cells(args.federate, registry, token)
+    hub = FanoutHub(shards=args.fanout_shards)
+    hub.metrics = registry
+    dispatcher = FederationDispatcher(args.journal, cells,
+                                      metrics=registry, hub=hub)
+    aggregator = EventAggregator(cells, hub)
+    aggregator.start()
+
+    host, _, port = args.http.rpartition(":")
+    endpoint = ServingEndpoint(
+        None, host=host or "0.0.0.0", port=int(port), auth_token=token,
+        hub=hub, federation=dispatcher)
+    endpoint.start()
+    print(f"kueue-tpu federation dispatcher serving on "
+          f"{host or '0.0.0.0'}:{endpoint.port} "
+          f"(journal={args.journal}, cells={len(cells)})", flush=True)
+    for c in cells:
+        print(f"federation: cell={c.name} zone={c.zone or '-'} "
+              f"url={c.transport.base_url}", flush=True)
+
+    stop = _stop_flag()
+    while not stop["flag"]:
+        with endpoint.lock.cycle():
+            dispatcher.tick(time.time())
+        time.sleep(args.tick)
+    # The tailers are daemon threads: stopping only sets their flag (a
+    # blocked SSE read lasts up to 30 s), and the process ends without
+    # joining them.
+    aggregator.stop()
+    endpoint.stop()
+    hub.close()
+    status = dispatcher.status()
+    dispatcher.close()
+    print(json.dumps({
+        "role": "federation", "tick": status["tick"],
+        "handoffs": status["handoffs"],
+        "redispatches": status["redispatches"],
+        "revocations": status["revocations"], "routes": status["routes"],
+        "relayed": aggregator.stats()}), flush=True)
 
 
 if __name__ == "__main__":

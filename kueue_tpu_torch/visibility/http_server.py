@@ -9,8 +9,17 @@ The port of ``kueue_tpu/visibility/http_server.py``:
     with a ``Retry-After`` when the engine's ``shedder`` sheds, 201 when
     accepted. With an HA replica (``replica=``) the replica's ``submit``
     decides: 503 with the leader's name and a clamped ``Retry-After``
-    off the leader, 200 for a retry it has seen, 201. A read replica
+    off the leader, 409 for a key the federation revoked when the
+    ``X-Route-Epoch`` header carries an epoch at or below the
+    revocation's (a malformed header counts as absent), 200 for a retry
+    it has seen, 201. With a federation dispatcher (``federation=``) its
+    ``submit`` decides: 503 with a ``Retry-After`` when no cell is up,
+    200 for a key it has routed, 201 or 202. A read replica
     (``readplane=``) refuses every write with 403;
+  * POST ``/federation/revoke`` (``{"keys": [...], "epoch": N}``): the
+    HA replica's ``revoke`` (tombstones the keys at the epoch and
+    deletes those registered); 404 ``not federated`` without a
+    replica, 400 on a bad body;
   * GET ``/healthz``, ``/metrics`` (``sync_resource_metrics`` then the
     registry's Prometheus text), ``/debug/dump``, ``/capacity``,
     ``/cohorts``, ``/oracle``, ``/evictions``, ``/clusterqueues``,
@@ -23,6 +32,9 @@ The port of ``kueue_tpu/visibility/http_server.py``:
     replica's status), ``/debug/flowcontrol`` (the APF dispatcher's
     counts), and on a read replica ``/read/{position,quota,pending,
     explain}`` (staleness-stamped answers) and ``/debug/readplane``;
+    with a federation dispatcher ``/cells`` and ``/debug/federation``
+    (its ``status()``), and, since it owns no engine, ``/healthz`` and
+    ``/metrics`` from its own registry (every other engine view 404);
   * GET ``/events``: the server-sent-events stream of the engine's
     events, from the engine's ``event_listeners`` or, with ``hub=``, from
     one ``visibility/fanout.FanoutHub`` client queue, with a keep-alive
@@ -34,9 +46,7 @@ The port of ``kueue_tpu/visibility/http_server.py``:
     the serving registry: a leader behind read replicas keeps it at 0;
   * the bearer token (``auth_token``; ``/healthz`` stays open).
 
-Federation (``/cells``, ``/debug/federation``, POST
-``/federation/revoke``) answers 404 with a body that names it as not
-ported; any other route answers 404 ``not found``. TLS is left out.
+Any other route answers 404 ``not found``. TLS is left out.
 
 The endpoint's ``lock`` (a ``CycleLock``): every request that reads or
 changes an engine holds it, and the serving loop holds it around each
@@ -46,7 +56,10 @@ JAX package takes no lock there, and its serving loop can die of it:
 (``RuntimeError: Set changed size during iteration``,
 ``kueue_tpu/tensor/rowcache.py:437``, reproduced with 200 POSTs a second
 against its serve process). A submit lands between two cycles either
-way, so the lock changes no decision. ``/metrics`` refreshes the
+way, so the lock changes no decision. A federation dispatcher's loop
+holds the lock around each ``tick`` the same way, and its POSTs and
+status views take it, since ``tick`` and ``submit`` both change the
+route table. ``/metrics`` refreshes the
 resource gauges under the lock too. A request resolves the engine once
 it holds the lock: HA promotion swaps the engine, and the loop leaves
 the lock free while it follows, so a request never keeps an engine
@@ -86,11 +99,6 @@ from kueue_tpu_torch.visibility.server import (
     trace_summary,
 )
 
-# The JAX package's routes that the port does not serve: federation
-# (ROADMAP Queue 1 item 7).
-NOT_PORTED_GET = ("/cells", "/debug/federation")
-NOT_PORTED_POST = ("/federation/revoke",)
-
 # Route classes whose GETs are read queries (engine-state reads a client
 # asked for), counted in ``visibility_queries_total``. ``/metrics``,
 # ``/healthz``, ``/debug/ha``, ``/debug/readplane`` and
@@ -101,12 +109,6 @@ READ_PREFIXES = ("/read/", "/clusterqueues", "/localqueues", "/workloads",
                  "/debug/slo")
 
 READ_KINDS = ("position", "quota", "pending", "explain")
-
-
-def _not_ported(path: str, method: str) -> bool:
-    if method == "POST":
-        return path in NOT_PORTED_POST
-    return path in NOT_PORTED_GET
 
 
 def _status_view(eng):
@@ -168,7 +170,7 @@ class CycleLock:
 
 def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
                  heartbeat_seconds: float = 15.0, hub=None, replica=None,
-                 readplane=None):
+                 readplane=None, federation=None):
     # ``engine`` is the engine or a zero-argument callable returning it:
     # HA promotion swaps the engine (a follower's read model becomes a
     # leader's live engine), so a request resolves it once it holds the
@@ -235,13 +237,6 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
             self.end_headers()
             self.wfile.write(data)
 
-        def _missing(self, path: str, method: str) -> None:
-            if _not_ported(path, method):
-                self._send(json.dumps({"error": "not ported",
-                                       "route": path or "/"}), code=404)
-            else:
-                self._send('{"error":"not found"}', code=404)
-
         def do_POST(self):  # noqa: N802
             """POST /workloads submits a workload: through the HA
             replica's front door when there is one (503 with the leader's
@@ -257,11 +252,14 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
                            'accepted here"}', code=403)
                 return
             path = urlparse(self.path).path.rstrip("/")
-            if path != "/workloads":
-                self._missing(path, "POST")
-                return
             import time as _time
 
+            if path == "/federation/revoke":
+                self._revoke()
+                return
+            if path != "/workloads":
+                self._send('{"error":"not found"}', code=404)
+                return
             from kueue_tpu_torch.api.serde import from_jsonable
             from kueue_tpu_torch.api.types import Workload
             try:
@@ -273,17 +271,33 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
                 self._send(json.dumps(
                     {"error": f"bad workload body: {e}"}), code=400)
                 return
+            if federation is not None:
+                with lock.request():
+                    verdict = federation.submit(wl, _time.time())
+                code = verdict.pop("code", 500)
+                self._send_retry(verdict, code,
+                                 verdict.get("retryAfter")
+                                 if code in (429, 503) else None)
+                return
             if replica is not None:
-                # (The federation's X-Route-Epoch is not read: item 7.)
+                route_epoch = None
+                hdr = self.headers.get("X-Route-Epoch")
+                if hdr is not None:
+                    try:
+                        route_epoch = int(hdr)
+                    except ValueError:
+                        pass  # malformed: as if no federation sent it
                 from kueue_tpu_torch.store.journal import JournalFenced
                 with lock.request():
                     try:
-                        verdict = replica.submit(wl, _time.time())
+                        verdict = replica.submit(wl, _time.time(),
+                                                 route_epoch=route_epoch)
                     except JournalFenced as e:
                         # A standby took the lease: this replica fences
                         # and answers as a follower does.
                         replica._fence(f"journal fence tripped: {e}")
-                        verdict = replica.submit(wl, _time.time())
+                        verdict = replica.submit(wl, _time.time(),
+                                                 route_epoch=route_epoch)
                 code = verdict.pop("code", 500)
                 self._send_retry(verdict, code,
                                  verdict.get("retryAfter")
@@ -323,6 +337,32 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
             self._send(json.dumps({"accepted": True, "workload": wl.name}),
                        code=201)
 
+        def _revoke(self) -> None:
+            """POST /federation/revoke: the cell side of the federation's
+            zombie-rejoin reconcile, through the HA replica."""
+            import time as _time
+
+            if replica is None:
+                self._send('{"error":"not federated"}', code=404)
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length))
+                keys = list(body["keys"])
+                epoch = int(body["epoch"])
+            except Exception as e:  # noqa: BLE001 — client error
+                self._send(json.dumps(
+                    {"error": f"bad revoke body: {e}"}), code=400)
+                return
+            from kueue_tpu_torch.store.journal import JournalFenced
+            with lock.request():
+                try:
+                    verdict = replica.revoke(keys, epoch, _time.time())
+                except JournalFenced as e:
+                    replica._fence(f"journal fence tripped: {e}")
+                    verdict = replica.revoke(keys, epoch, _time.time())
+            self._send(json.dumps(verdict), code=verdict.pop("code", 500))
+
         def do_GET(self):  # noqa: N802
             # Authentication before flow classification (the apiserver
             # runs authn ahead of APF): a bad token never mints a flow.
@@ -354,6 +394,8 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
                 apf.release(ticket)
 
         def _serve_get(self, path: str) -> None:
+            if federation is not None and self._serve_federation(path):
+                return
             if path == "/debug/readplane":
                 self._send(json.dumps(readplane.status())
                            if readplane is not None
@@ -403,7 +445,7 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
             # containers and immutable values, and the loop need not
             # wait for the JSON of a large dump.
             if view is None:
-                self._missing(path, "GET")
+                self._send('{"error":"not found"}', code=404)
             elif path == "/metrics":
                 self._send(view, content_type="text/plain")
             elif path == "/debug/dump":
@@ -412,6 +454,27 @@ def make_handler(engine, lock: CycleLock, auth_token=None, apf=None,
                 self._send(json.dumps(view[0]), code=view[1])
             else:
                 self._send(json.dumps(view))
+
+        def _serve_federation(self, path: str) -> bool:
+            """The dispatcher's own views; True when ``path`` was
+            answered here. Without an engine (the dispatcher process)
+            every engine view is 404."""
+            if path in ("/cells", "/debug/federation"):
+                with lock.request():
+                    view = federation.status()
+                self._send(json.dumps(view))
+                return True
+            if resolve() is not None:
+                return False
+            if path == "/healthz":
+                self._send('{"status":"ok"}')
+            elif path == "/metrics" and federation.metrics is not None:
+                with lock.request():
+                    text = federation.metrics.render()
+                self._send(text, content_type="text/plain")
+            else:
+                self._send('{"error":"not found"}', code=404)
+            return True
 
         def _serve_read(self, path: str) -> None:
             """``/read/<kind>[/<arg>]`` on a read replica."""
@@ -616,18 +679,22 @@ class ServingEndpoint:
     (a ``visibility/fanout.FanoutHub``) serves /events from its client
     queues. ``replica`` (an ``ha.HAReplica``) takes POST /workloads and
     answers /debug/ha; ``readplane`` (a ``readplane.ReadReplica``)
-    answers /read/* and /debug/readplane and refuses every write."""
+    answers /read/* and /debug/readplane and refuses every write;
+    ``federation`` (a ``federation.FederationDispatcher``) takes POST
+    /workloads and answers /cells and /debug/federation (the serving
+    loop then holds ``lock`` around each dispatcher tick)."""
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
                  auth_token: str = None, heartbeat_seconds: float = 15.0,
                  hub=None, flow_control=True, replica=None,
-                 readplane=None):
+                 readplane=None, federation=None):
         from kueue_tpu_torch.visibility.flowcontrol import APFDispatcher
 
         self.lock = CycleLock()
         self.hub = hub
         self.replica = replica
         self.readplane = readplane
+        self.federation = federation
         self.apf = None
         if flow_control:
             self.apf = (flow_control
@@ -636,7 +703,7 @@ class ServingEndpoint:
         self.httpd = _Server((host, port), make_handler(
             engine, self.lock, auth_token=auth_token, apf=self.apf,
             heartbeat_seconds=heartbeat_seconds, hub=hub, replica=replica,
-            readplane=readplane))
+            readplane=readplane, federation=federation))
         self.thread = threading.Thread(target=self.httpd.serve_forever,
                                        daemon=True)
 

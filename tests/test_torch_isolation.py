@@ -87,7 +87,16 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.controllers.importer",
           "kueue_tpu_torch.controllers.populator",
           "kueue_tpu_torch.controllers.failurerecovery",
-          "kueue_tpu_torch.bench.controller_worlds"):
+          "kueue_tpu_torch.bench.controller_worlds",
+          "kueue_tpu_torch.controllers.multikueue",
+          "kueue_tpu_torch.controllers.multikueue_cluster",
+          "kueue_tpu_torch.controllers.multikueue_adapters",
+          "kueue_tpu_torch.federation",
+          "kueue_tpu_torch.federation.cells",
+          "kueue_tpu_torch.federation.dispatcher",
+          "kueue_tpu_torch.federation.aggregator",
+          "kueue_tpu_torch.bench.multikueue_worlds",
+          "kueue_tpu_torch.bench.federation_world"):
     assert m in sys.modules, m
 print("isolated")
 """
@@ -109,6 +118,10 @@ config = dict(n_cohorts=2, cqs_per_cohort=5, n_entries=200,
               imported_per_cq=1, unlabelled=2, cycles=2, arm="full")
 r = cw.run(config, kit=ew.port_kit("cpu"))
 assert r["cycles"] == 2 and r["imported"] > 0, r
+from kueue_tpu_torch.bench import multikueue_worlds as mw
+r = mw.run(dict(mw.SMALL["multikueue_world"], n_cohorts=2, n_entries=200,
+                cycles=2, lost_at=1, delete_at=2), kit=ew.port_kit("cpu"))
+assert r["manager"]["cycles"] == 2 and r["dispatched"] > 0, r["manager"]
 bad = sorted(m for m in sys.modules
              if m in ("jax", "kueue_tpu") or m.startswith(("jax.", "kueue_tpu.")))
 assert not bad, bad
@@ -117,9 +130,9 @@ print("isolated")
 
 
 def test_port_world_runs_without_the_jax_package():
-    """Driving a world (phase 32's, at a tiny size on the CPU) loads
-    neither JAX nor the JAX package: a module found by name at run time
-    would escape the import probe above."""
+    """Driving a world (phase 32's and phase 33's, at a tiny size on the
+    CPU) loads neither JAX nor the JAX package: a module found by name at
+    run time would escape the import probe above."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _RUN_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True,

@@ -357,11 +357,35 @@ def test_hub_backed_stream():
 
 
 def test_routes_leave_the_not_ported_list():
-    for path in ("", "/dashboard", "/events", "/debug/trace",
-                 "/debug/perf", "/debug/slo", "/debug/ha",
-                 "/debug/flowcontrol", "/debug/readplane", "/read/quota"):
-        assert not phttp._not_ported(path, "GET"), path
-    assert phttp._not_ported("/debug/federation", "GET")
+    """No route answers "not ported" any more (the federation's were the
+    last): on a plain endpoint each of these routes answers as the JAX
+    endpoint's does, /debug/federation and /cells with 404 ``not found``
+    (they belong to a dispatcher's endpoint)."""
+    import urllib.error
+    import urllib.request
+
+    from kueue_tpu_torch.controllers.engine import Engine as PE
+
+    assert not hasattr(phttp, "_not_ported")
+    ep = phttp.ServingEndpoint(PE(device="cpu"))
+    ep.start()
+    try:
+        for path in ("", "/dashboard", "/debug/trace", "/debug/perf",
+                     "/debug/slo", "/debug/ha", "/debug/flowcontrol",
+                     "/debug/readplane", "/read/quota", "/debug/federation",
+                     "/cells"):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{ep.port}{path}", timeout=30) as r:
+                    code, body = r.status, r.read()
+            except urllib.error.HTTPError as e:
+                code, body = e.code, e.read()
+            assert b"not ported" not in body, path
+            if path in ("/debug/federation", "/cells"):
+                assert (code, json.loads(body)) == \
+                    (404, {"error": "not found"}), path
+    finally:
+        ep.stop()
 
 
 def test_structured_log_records_match():

@@ -9,10 +9,13 @@ serves (/debug/dump but its wall-clock phases, /capacity, /cohorts,
 ClusterQueue and LocalQueue status routes) equals the JAX package's view of a mirrored engine: the JAX engine
 rebuilt from the same journal, given the same arrivals and drained
 in-process, both on the default serving loop. /metrics answers 200 with
-the JAX engine's admission, eviction and resource series. An unported
-route (federation's) answers 404 naming itself, an unported flag exits
-2, the bearer token guards every route but /healthz, and SIGTERM exits
-0. Tracing and
+the JAX engine's admission, eviction and resource series. The
+federation's routes answer 404 on a plain serve as the JAX endpoint's
+do (POST /federation/revoke ``not federated``) and are served by a
+dispatcher's endpoint; ``--federate`` and ``KUEUE_TPU_FEDERATE`` parse
+as the JAX serve's, and a ``--federate`` process starts and serves
+without CUDA. The bearer token guards every route but /healthz, and
+SIGTERM exits 0. Tracing and
 overload: with ``--trace 8 --watchdog-deadline 30 --watchdog-hang 120``
 the process ends in the JAX serve process's final state with the same
 flags, its traced cycles equal its journal's ``cycle_trace`` records, and
@@ -223,16 +226,63 @@ def test_drain_admits_every_arrival(drained):
     assert idle["phase_samples"]
 
 
+def _fake_dispatcher(tmp_path):
+    """A FederationDispatcher over two in-process cells (the fake
+    transport of tests/test_federation.py, on the port's error), one
+    workload routed."""
+    import test_federation
+
+    from kueue_tpu_torch.federation import (
+        CellHandle,
+        CellTransportError,
+        FederationDispatcher,
+    )
+    from kueue_tpu_torch.metrics.registry import MetricsRegistry
+
+    class Fake(test_federation.FakeCellTransport):
+        def _gate(self):
+            if not self.reachable:
+                raise CellTransportError(f"{self.name} unreachable")
+
+    reg = MetricsRegistry()
+    disp = FederationDispatcher(
+        str(tmp_path / "routes.jsonl"),
+        [CellHandle(n, Fake(n), probe_interval_ticks=1) for n in "ab"],
+        metrics=reg)
+    disp.tick(0.0)
+    disp.submit(ptypes.Workload(name="w0", queue_name="lq", pod_sets=(
+        ptypes.PodSet("main", 1, {"cpu": 1}),)), now=0.0)
+    disp.tick(0.0)
+    return disp
+
+
 @pytest.mark.parametrize("path", ["/cells", "/debug/federation"])
-def test_unported_route_404(served, path):
-    url = served[1]
-    with pytest.raises(RuntimeError, match="404"):
-        sw.get_json(url, path)
-    c = sw._conn(url, 30)
+def test_unported_route_404(served, path, tmp_path):
+    """A plain serve has no dispatcher: 404 ``not found``, as the JAX
+    endpoint answers; a dispatcher's endpoint (no engine) serves its
+    ``status()`` there, ``/healthz`` and its own ``/metrics``, and 404
+    on an engine view."""
+    c = sw._conn(served[1], 30)
     c.request("GET", path)
     r = c.getresponse()
-    body = json.loads(r.read())
-    assert r.status == 404 and body["error"] == "not ported"
+    assert (r.status, json.loads(r.read())) == (404, {"error": "not found"})
+    disp = _fake_dispatcher(tmp_path)
+    ep = http_server.ServingEndpoint(None, federation=disp)
+    ep.start()
+    try:
+        url = f"http://127.0.0.1:{ep.port}"
+        got = sw.get_json(url, path)
+        assert got == json.loads(json.dumps(disp.status()))
+        assert got["routes"] == {"admitted": 1}
+        assert sw.get_json(url, "/healthz") == {"status": "ok"}
+        text, _s, _b = sw.get_text(url, "/metrics")
+        assert sw.metric_values(text, "federation_routes")[("admitted",)] \
+            == 1.0
+        with pytest.raises(RuntimeError, match="404"):
+            sw.get_json(url, "/clusterqueues")
+    finally:
+        ep.stop()
+        disp.close()
 
 
 # The HA, flow-control and read-plane routes of a plain serve process,
@@ -296,7 +346,7 @@ def test_start_helper_timeout_leaves_no_child(tmp_path):
 
 def test_unknown_route_404(served):
     code, body = sw.post(served[1], "/federation/revoke", b"{}")
-    assert code == 404 and body["error"] == "not ported"
+    assert (code, body) == (404, {"error": "not federated"})
     c = sw._conn(served[1], 30)
     c.request("GET", "/no/such/route")
     r = c.getresponse()
@@ -312,11 +362,26 @@ def test_sigterm_exits_0(served, drained):
 
 
 @pytest.mark.parametrize("argv", [["--federate", "a=http://x"]])
-def test_unported_flag_exits_2(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--journal", "unused.jsonl", *argv])
-    assert e.value.code == 2
-    assert argv[0] in capsys.readouterr().err
+def test_unported_flag_exits_2(argv, monkeypatch):
+    """``--federate`` and ``KUEUE_TPU_FEDERATE`` parse as the JAX serve's
+    (the flag over the variable), and the cell specs split into the JAX
+    ``_main_federation``'s names, zones and URLs; a spec without a URL,
+    or none, ends the process with a message."""
+    from kueue_tpu_torch.metrics.registry import MetricsRegistry
+
+    assert serve._parse(["--journal", "j", *argv]).federate == argv[1]
+    monkeypatch.setenv("KUEUE_TPU_FEDERATE", "b@z2=http://y")
+    assert serve._parse(["--journal", "j"]).federate == "b@z2=http://y"
+    assert serve._parse(["--journal", "j", *argv]).federate == argv[1]
+    monkeypatch.delenv("KUEUE_TPU_FEDERATE")
+    assert serve._parse(["--journal", "j"]).federate is None
+    cells = serve.federation_cells(
+        " a@z1 = http://x/ , b=http://y:8080,", MetricsRegistry())
+    assert [(c.name, c.zone, c.transport.base_url) for c in cells] == \
+        [("a", "z1", "http://x"), ("b", "", "http://y:8080")]
+    for bad in ("a", "a=", ","):
+        with pytest.raises(SystemExit, match="--federate"):
+            serve.federation_cells(bad, MetricsRegistry())
 
 
 # The HA and read-replica flags, as the JAX serve parses them: (argv,
@@ -352,13 +417,34 @@ def test_ha_without_cuda_raises(tmp_path):
 
 
 def test_unported_flag_exits_2_as_a_process(tmp_path):
-    env = sw.child_env(KUEUE_TPU_FEDERATE="a=http://x")
-    out = subprocess.run([sys.executable, "-m", "kueue_tpu_torch.serve",
-                          "--journal", str(tmp_path / "j.jsonl")],
-                         cwd=sw.REPO, env=env, capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 2
-    assert "KUEUE_TPU_FEDERATE" in out.stderr and "not ported" in out.stderr
+    """``KUEUE_TPU_FEDERATE`` starts a dispatcher process on a machine
+    without CUDA (it resolves no device): it prints its serving and cell
+    lines, serves /healthz and /cells with the cell down (no route, 503
+    to a POST), and SIGTERM ends it with rc 0 and its JSON line."""
+    from kueue_tpu_torch.api import serde as pserde
+
+    env = sw.child_env(KUEUE_TPU_FEDERATE="a@z1=http://127.0.0.1:9")
+    proc = sw.Proc(["-m", "kueue_tpu_torch.serve", "--journal",
+                    str(tmp_path / "routes.jsonl"), "--http",
+                    "127.0.0.1:0", "--tick", "0.05"], env)
+    try:
+        line = proc.wait_line("federation dispatcher serving on ", 120)
+        assert "cells=1" in line
+        assert proc.wait_line("federation: cell=", 30) == \
+            "federation: cell=a zone=z1 url=http://127.0.0.1:9"
+        url = sw._base_url(line)
+        assert sw.get_json(url, "/healthz") == {"status": "ok"}
+        cells = sw.get_json(url, "/cells")
+        assert [c["name"] for c in cells["cells"]] == ["a"]
+        assert cells["cells"][0]["up"] is False
+        code, body = sw.post(url, "/workloads", json.dumps(
+            pserde.to_jsonable(ptypes.Workload(name="w", queue_name="lq"))
+        ).encode())
+        assert code == 503 and body["reason"] == "no healthy cell"
+    finally:
+        rc, last = proc.stop(signal.SIGTERM)
+    assert rc == 0 and last["role"] == "federation"
+    assert last["routes"] == {} and last["handoffs"] == 0
 
 
 def test_bearer_token(tmp_path):
