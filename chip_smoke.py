@@ -357,6 +357,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      redispatch seconds (kill to re-ack on a survivor), the handoff
      seconds, the zombie's boot and reconcile seconds and POST p50 and
      p95 through ``--federate``.
+ 35. (after 32, beside phase 19, in a process of its own) the client
+     plane and kueuectl at full width (kueue_tpu_torch/bench/
+     client_worlds.py FULL, on the default loop): cycle_latency's world
+     (1,000 ClusterQueues, 50,000 entries) built through the clientset,
+     a journal and the SLO engine attached, 1 + 8 cycles; between them
+     server-side apply (1,000 priority re-keys, 1,000 queue moves, 10
+     ownership conflicts forced through, 10 cohort moves, LocalQueue
+     Hold and HoldAndDrain and their release), ``kueuectl create`` of a
+     new ClusterQueue and LocalQueue with 200 workloads moved in,
+     ``kueuectl stop --drain`` / ``resume`` of 5 ClusterQueues and
+     ``delete`` of 100 workloads, and after cycles 1 and 9 the remote
+     client against an in-process endpoint (``pending_workloads_many``
+     over 1,001 ClusterQueues on 8 workers, every listing); after the
+     run ``kueuectl`` list, describe, pods, get, explain (probe on),
+     slo, status (offline) and trace export, two informers (one started
+     before the entries, one replaying history), and ``kueuectl main
+     replay --mode device`` of the flight trace recorded over the last
+     three cycles. Gated on the JAX package's numbers for the same world
+     and schedule (cycles, admissions, decision-stream crc32, device /
+     hybrid / fallback cycles, evictions by reason, pipeline_stats, the
+     apply counts and conflicts, the crc32 of both informers' stores, of
+     the fan-out's answers and listings and of every rendering, the
+     SLO's objectives and cycles, the exported events and the replay's
+     digest), the heads kernel launched once per dispatched device call
+     in the world's engine and in the replay's, and held against its
+     plain version on the world's first-cycle inputs. Prints p50 and p95
+     s/cycle, the seconds of each client step, each fan-out's seconds
+     and queries a second, the replay's rebuild seconds and the phase's
+     wall.
 Before the kernel summary it prints each phase's wall seconds; the
 phases that run side by side share one span. Every child process runs in a session and process group of its own and is
 registered from its spawn (kueue_tpu_torch/bench/serve_world.py); when
@@ -372,11 +401,12 @@ tests/test_torch_engine_worlds.py, tests/test_torch_tas_engine_worlds.py,
 tests/test_torch_mixed_worlds.py, tests/test_torch_serve.py,
 tests/test_torch_tas_lifecycle_world.py,
 tests/test_torch_replay_world.py, tests/test_torch_job_world.py,
-tests/test_torch_controller_world.py and
-tests/test_torch_multikueue_world.py recompute them). Phases 19 to 21
-and 28 to 34 read the heads launches of the process that launches them
-(the sidecar, the restarted serve process, phase 29's, 31's, 32's or
-33's process, the promoted leader or each federation cell), from the
+tests/test_torch_controller_world.py,
+tests/test_torch_multikueue_world.py and
+tests/test_torch_client_world.py recompute them). Phases 19 to 21
+and 28 to 35 read the heads launches of the process that launches them
+(the sidecar, the restarted serve process, phase 29's, 31's, 32's, 33's
+or 35's process, the promoted leader or each federation cell), from the
 JSON line it prints. The last two lines are a JSON summary of the kernels and the
 result line. Timing helpers and the shared inputs come from
 kueue_tpu_torch/bench/profile_kernels.py, which reports the same
@@ -648,6 +678,29 @@ MULTIKUEUE_EXPECT = {
     "outage_propagated": 179, "adopted": 156, "connect_failures": 3,
     "deleted": 67, "quota_automated": 100, "jobs_mirrored": 240,
     "jobs_started": 240, "fell_through": 4546, "rounds_grown": 603}
+# Phase 35: the client world (kueue_tpu_torch/bench/client_worlds.py
+# FULL) on the default loop, as the JAX engine runs it through the JAX
+# client layer, endpoint and kueuectl (tests/test_torch_client_world.py
+# recomputes it).
+CLIENT_EXPECT = dict(
+    cycles=9, admitted=8933, preempting=0, preemptions=0,
+    checksum=0xba518a8f, on_device=9, hybrid=0, fallback=0, overridden=0,
+    evicted={"ClusterQueueStopped": 10, "LocalQueueStopped": 15},
+    pipeline_stats=dict(speculated=6, used=1, discarded=4, skipped=3),
+    rekeys=1000, moves=1000, conflicts=10, held_events=0, cohort_moves=10,
+    moved_new=200, deleted=100, cqs_fanned=2002, journal_records=61336,
+    slo=dict(objectives=["admission_rate_floor", "cycle_latency_p95",
+                         "fallback_cycle_ratio"], cyclesObserved=9),
+    trace_events=3025, trace_trees=3,
+    replay=dict(rc=0, recorded="04b90d8a", replayed="04b90d8a", cycles=3,
+                on_device=3, hybrid=0, fallback=0,
+                pipeline_stats=dict(speculated=3, used=2, discarded=0,
+                                    skipped=0)),
+    informer_crc=0x6ca6566b, fanout_crc=0x722c45c7,
+    remote_workloads_crc=0xc9d2c4ed, remote_cqs_crc=0x488653c9,
+    list_workloads_crc=0xa7cb1cf8, list_localqueues_crc=0xf4d2d9d4,
+    describe_crc=0x04ab8ca6, pods_crc=0x6c6e9168, get_crc=0x267f1bf8,
+    explain_crc=0x90ad4580, status_crc=0xb344fea5)
 HEADS_DEVICE_KERNELS = ("heads_cluster_kernel", "heads_atomic_kernel")
 TAS_EXPECT = dict(requests=440, placed=189, signatures=21,
                   per_pod_vectors=2, placements=0xe61bb495,
@@ -1870,7 +1923,8 @@ def check_serve_heads(seed, heads, pk, sms, say=print):
 
 def phases_serve(card, by_path, heads, pk, sms):
     """Phases 19 to 21, 28 and 30 on one seeded journal, phase 29 beside
-    them, and phases 33 and 34 beside all of them."""
+    them, phases 31, 32 and 35 beside 19, and phases 33 and 34 beside
+    all of them."""
     from kueue_tpu_torch.bench import serve_world as sw
 
     work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
@@ -1883,10 +1937,10 @@ def phases_serve(card, by_path, heads, pk, sms):
     bodies = sw.arrival_bodies(sw.FULL)
     print(f"  seeded journal: records={seeded['records']} "
           f"bytes={seeded['bytes']} in {time.perf_counter() - t0:.2f} s")
-    span("19+31+32")
+    span("19+31+32+35")
     print("[19] deployed control plane: serve + oracle sidecar on the card "
-          "(beside 31 and 32)")
-    # Phases 31 and 32 are gates on worlds of their own, each in a
+          "(beside 31, 32 and 35)")
+    # Phases 31, 32 and 35 are gates on worlds of their own, each in a
     # process of its own: one after the other, beside phase 19, printing
     # their lines when 19 is done.
     beside = ((31, phase_jobs_beside, "[31] jobs and pod templates: "
@@ -1897,17 +1951,26 @@ def phases_serve(card, by_path, heads, pk, sms):
                " controllers_world, 50,000 entries with WaitForPodsReady, "
                "status and retention, the booster, concurrent admission, "
                "the importer and the populator (after 31, beside 19, in a "
-               "process of its own)"))
+               "process of its own)"),
+              (35, phase_clients_beside, "[35] the client plane and "
+               "kueuectl: client_world, 50,000 entries with server-side "
+               "apply, kueuectl, informers, the remote client's fan-out and "
+               "a device replay (after 32, beside 19, in a process of its "
+               "own)"))
     beside_lines = {n: [] for n, _fn, _t in beside}
     beside_done: dict = {}
 
     def run_beside():
         for n, fn, _title in beside:
+            t0 = time.perf_counter()
             try:
                 beside_done[n] = fn(card, say=beside_lines[n].append)
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 beside_done[n] = e
                 return
+            finally:
+                beside_lines[n].append(f"  phase {n} wall_s="
+                                       f"{time.perf_counter() - t0:.1f}")
 
     # Phases 33 and 34, one after the other in processes of their own,
     # beside phases 19 to 32: they print their lines once phase 30's
@@ -2443,10 +2506,83 @@ def phase_controllers(heads, pk, card, sms) -> dict:
     return {"controllers_world": launches}
 
 
+def phase_clients(heads, pk, card, sms) -> dict:
+    """Phase 35: the client world at full width through the serving
+    engine on the default loop (server-side apply, kueuectl's writes and
+    renderings, informers, the remote client's fan-out over the
+    endpoint), against the JAX engine's numbers, with the heads kernel
+    launched once per dispatched device call in the world's engine and
+    in the engine of kueuectl's device replay, and held against its plain
+    version on the world's first-cycle inputs. Returns its heads
+    launches by path."""
+    from kueue_tpu_torch.bench import client_worlds as cw
+
+    work = Path(__file__).resolve().parent / "kueue_tpu_torch" / \
+        "_build" / "client_world"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = cw.FULL["client_world"]
+    box: dict = {}
+
+    def before_replay():
+        box["world_launches"] = heads.launches
+        heads.launches = 0
+
+    heads.launches = 0
+    t0 = time.perf_counter()
+    eff_t, cq_t, C = pk.first_heads_inputs(lambda: box.update(r=cw.run(
+        cfg, work=str(work), before_replay=before_replay)))
+    total_s = time.perf_counter() - t0
+    r = box["r"]
+    launches = box["world_launches"]
+    replay_launches = heads.launches
+    got = cw.pinned(r)
+    hexed = ("checksum",) + cw.CRCS
+    print("  " + " ".join(f"{k}=0x{v:08x}" if k in hexed else f"{k}={v}"
+                          for k, v in got.items()))
+    if got != CLIENT_EXPECT:
+        raise AssertionError(f"client_world: got {got}, want "
+                             f"{CLIENT_EXPECT}")
+    if r["informer_late_crc"] != r["informer_crc"]:
+        raise AssertionError("client_world: the late informer's store "
+                             "differs from the early one's")
+    if launches != dispatched(r):
+        raise AssertionError(
+            f"client_world: heads kernel launched {launches} times for "
+            f"{r['on_device']} device cycles and pipeline_stats "
+            f"{r['pipeline_stats']}")
+    rep = r["replay"]
+    want = (rep["on_device"] - rep["pipeline_stats"]["used"]
+            + rep["pipeline_stats"]["speculated"])
+    if replay_launches != r["replay_dispatched"] or replay_launches != want:
+        raise AssertionError(
+            f"client replay: heads kernel launched {replay_launches} "
+            f"times, executor calls {r['replay_dispatched']}, dispatched "
+            f"{want}")
+    check_heads(heads, f"client_world first cycle w={eff_t.numel()} c={C}",
+                eff_t, cq_t, C, sms)
+    print(cycles_line(r, cfg["n_workloads"], total_s, launches, card))
+    cs = r["client_s"]
+    print("  client_s: " + ",".join(f"{k}:{v:.4f}" for k, v in cs.items())
+          + " | " + card)
+    for f, rows in zip(r["fanout"], r["remote_rows"]):
+        print(f"  fan-out after cycle {f['after']}: pending_workloads_many "
+              f"over {f['cqs']} ClusterQueues, {cw.FANOUT_WORKERS} workers:"
+              f" {f['seconds']:.4f} s ({f['qps']:.1f} queries/s); "
+              f"list_workloads {cs['list_workloads_' + f['after']]:.4f} s "
+              f"({rows} rows) | {card}")
+    print(f"  replay --mode device: rebuild_s={r['replay_rebuild_s']:.3f} "
+          f"replay_s={r['replay_s']:.3f} cycles={rep['cycles']} digest="
+          f"{rep['replayed']} heads_launches={replay_launches} | {card}")
+    print(f"  phase 35 run_s={total_s:.2f} | {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"client_world": launches, "client_replay": replay_launches}
+
+
 def phase_beside(fn: str, key: str, card, say=print) -> dict:
     """``chip_smoke.<fn>`` (phase 31's ``phase_jobs``, 32's
-    ``phase_controllers``, 33's ``phase_multikueue`` or 34's
-    ``phase_federation``) in a child process of its own, so that it
+    ``phase_controllers``, 33's ``phase_multikueue``, 34's
+    ``phase_federation`` or 35's ``phase_clients``) in a child process
+    of its own, so that it
     runs beside phase 19 (its heads launches count in that process, trap
     (an)): the child prints its lines and then one JSON line of the
     launches by path under ``key``, which this returns. The child is
@@ -2484,6 +2620,11 @@ def phase_controllers_beside(card, say=print) -> dict:
     """Phase 32 in a child process of its own (``phase_beside``)."""
     return phase_beside("phase_controllers", "controllers_by_path", card,
                         say=say)
+
+
+def phase_clients_beside(card, say=print) -> dict:
+    """Phase 35 in a child process of its own (``phase_beside``)."""
+    return phase_beside("phase_clients", "clients_by_path", card, say=say)
 
 
 # The paths phase 33 must drive, each a count that must be above 0.

@@ -45,7 +45,11 @@ class Kit:
     ``concurrentadmission``, ``importer`` and ``populator``, and the
     MultiKueue world's: ``multikueue`` (``MultiKueueController``,
     ``MultiKueueConfig``, ``Dispatcher``) and ``features`` (the feature
-    gates it sets)."""
+    gates it sets), and the client world's: ``client`` (the client
+    package: ``KueueClient``, ``Informer``, ``ApplyEngine`` and its
+    builders, ``RemoteClient``), ``kueuectl`` (the CLI module: ``run``,
+    ``main``), ``http_server`` (its ``ServingEndpoint``) and ``journal``
+    (the journal module: ``attach_new_journal``)."""
 
     types: ModuleType
     scenario: ModuleType
@@ -70,12 +74,16 @@ class Kit:
     populator: ModuleType = None
     multikueue: ModuleType = None
     features: ModuleType = None
+    client: ModuleType = None
+    kueuectl: ModuleType = None
+    http_server: ModuleType = None
+    journal: ModuleType = None
 
 
 def port_kit(device=None) -> Kit:
     """The port's types, scenarios and Engine, its TAS forests and its
     oracle on ``device`` (CUDA unless the caller asks for the CPU)."""
-    from kueue_tpu_torch import replay
+    from kueue_tpu_torch import client, replay
     from kueue_tpu_torch.api import types
     from kueue_tpu_torch.bench import scenario
     from kueue_tpu_torch.config import api as config_api
@@ -93,9 +101,12 @@ def port_kit(device=None) -> Kit:
         populator,
         status,
     )
+    from kueue_tpu_torch.cli import kueuectl
     from kueue_tpu_torch.controllers.engine import Engine
+    from kueue_tpu_torch.store import journal
     from kueue_tpu_torch.tas import non_tas_usage, snapshot
     from kueue_tpu_torch.utils import limitrange, podtemplate
+    from kueue_tpu_torch.visibility import http_server
     from kueue_tpu_torch.webhooks import jobwebhooks
 
     return Kit(types, scenario,
@@ -105,7 +116,8 @@ def port_kit(device=None) -> Kit:
                afs, admissionchecks, non_tas_usage, replay, jobframework,
                integrations, jobwebhooks, podtemplate, limitrange,
                config_api, podsready, status, booster, concurrentadmission,
-               importer, populator, multikueue, features)
+               importer, populator, multikueue, features, client,
+               kueuectl, http_server, journal)
 
 
 # The serving loop's arms: (KUEUE_TPU_PIPELINE, KUEUE_TPU_COLUMNAR).

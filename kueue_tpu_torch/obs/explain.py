@@ -1,7 +1,7 @@
 """``explain``: why is my workload pending?
 
-The port of ``kueue_tpu/obs/explain.py`` (the ``kueuectl explain``
-command itself is not ported yet).
+The port of ``kueue_tpu/obs/explain.py``, which ``kueuectl explain``
+renders (``cli/kueuectl.py``).
 
 Two evidence sources, merged into one report:
 

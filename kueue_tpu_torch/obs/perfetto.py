@@ -76,7 +76,12 @@ def spans_from_flight_trace(path: str) -> list[Span]:
             continue
         seq = frame["seq"]
         decisions = frame.get("decisions", [])
-        phases = frame.get("phases", {})
+        phases = dict(frame.get("phases", {}))
+        sim = phases.pop("sim", None)
+        if sim is not None and "encode" in phases:
+            # The port's frames time the sim nomination apart; the JAX
+            # encode holds it, and so does the span tree (obs/tracer.py).
+            phases["encode"] += sim
         total = sum(phases.values()) * 1e6
         ts = frame.get("clock", 0.0) * 1e6
         cid = frame.get("cid") or correlation_id(seq, decisions)

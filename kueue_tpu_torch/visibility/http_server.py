@@ -44,9 +44,12 @@ The port of ``kueue_tpu/visibility/http_server.py``:
     ``Retry-After`` when a flow finds no seat and no queue room;
   * ``visibility_queries_total`` per read route (``READ_PREFIXES``) on
     the serving registry: a leader behind read replicas keeps it at 0;
-  * the bearer token (``auth_token``; ``/healthz`` stays open).
+  * the bearer token (``auth_token``; ``/healthz`` stays open);
+  * TLS with ``cert_dir``: the listening socket is wrapped with the
+    ``tls.crt`` / ``tls.key`` pair there, generated self-signed for the
+    endpoint's host when the directory has none (``utils/cert.py``).
 
-Any other route answers 404 ``not found``. TLS is left out.
+Any other route answers 404 ``not found``.
 
 The endpoint's ``lock`` (a ``CycleLock``): every request that reads or
 changes an engine holds it, and the serving loop holds it around each
@@ -670,7 +673,9 @@ class ServingEndpoint:
     ``engine`` is the engine or a zero-argument callable returning it
     (the HA replica's ``engine_ref``, the read replica's read model).
     ``auth_token`` requires ``Authorization: Bearer <token>`` on every
-    route but /healthz; the serving loop holds ``lock`` around each
+    route but /healthz; ``cert_dir`` serves TLS with the certificate
+    pair there (made self-signed for ``host`` when absent), and ``tls``
+    says whether it does; the serving loop holds ``lock`` around each
     scheduling cycle. ``flow_control`` puts API priority and fairness in
     front of every GET but /events, on by default as in the JAX package:
     True for the shipped schema and level (``flowcontrol.
@@ -687,7 +692,7 @@ class ServingEndpoint:
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
                  auth_token: str = None, heartbeat_seconds: float = 15.0,
                  hub=None, flow_control=True, replica=None,
-                 readplane=None, federation=None):
+                 readplane=None, federation=None, cert_dir: str = None):
         from kueue_tpu_torch.visibility.flowcontrol import APFDispatcher
 
         self.lock = CycleLock()
@@ -704,6 +709,16 @@ class ServingEndpoint:
             engine, self.lock, auth_token=auth_token, apf=self.apf,
             heartbeat_seconds=heartbeat_seconds, hub=hub, replica=replica,
             readplane=readplane, federation=federation))
+        self.tls = cert_dir is not None
+        if cert_dir is not None:
+            import ssl
+
+            from kueue_tpu_torch.utils.cert import ensure_cert_dir
+            crt, key = ensure_cert_dir(cert_dir, host)
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(crt, key)
+            self.httpd.socket = ctx.wrap_socket(self.httpd.socket,
+                                                server_side=True)
         self.thread = threading.Thread(target=self.httpd.serve_forever,
                                        daemon=True)
 

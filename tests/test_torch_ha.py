@@ -6,8 +6,10 @@ journal tailer and HAReplica) against the JAX package's.
 module globals (its API types, ``Engine``, the ha classes and helpers,
 the journal functions) are pointed at the port's, with every engine on
 ``device="cpu"``, so its own code drives the port's lease, promotion,
-fencing, front door, shedder and tailer. Left out: the ``kueuectl
-status`` rendering and the bench sentinel (ROADMAP Queue 1 item 9).
+fencing, front door, shedder and tailer, and its ``kueuectl status``
+case the port's ``kueuectl run``. Left out: the bench sentinel, which
+reads the benchmark's ``BENCH_r*.json`` captures and waits for the
+port's benchmark.
 
 Beside them, the JAX package on the same inputs: mirrored leaders (the
 uid counters aligned) write byte-identical journals, ``ha_digest``
@@ -55,8 +57,8 @@ def _port_replica(*args, **kwargs):
 def port_globals(mp) -> None:
     """Point ``test_ha_replica``'s module globals at the port (``mp`` a
     MonkeyPatch): the API types, the Engine on the CPU, the ha classes
-    and helpers, the journal functions, and the Kueuectl one case
-    imports inside its body."""
+    and helpers, the journal functions, and the Kueuectl and
+    ``kueuectl.run`` two cases import inside their bodies."""
     for name, obj in list(vars(ref).items()):
         if getattr(obj, "__module__", None) == "kueue_tpu.api.types":
             mp.setattr(ref, name, getattr(ptypes, name))
@@ -81,6 +83,7 @@ def port_globals(mp) -> None:
                functools.partial(pjournal.rebuild_engine, device="cpu"))
     import kueue_tpu.cli.kueuectl as jkueuectl
     mp.setattr(jkueuectl, "Kueuectl", pkueuectl.Kueuectl)
+    mp.setattr(jkueuectl, "run", pkueuectl.run)
 
 
 @pytest.fixture
@@ -111,6 +114,7 @@ REFERENCE_CASES = [
     "test_follower_503_carries_clamped_retry_after",
     "test_submit_dedup_map_stays_bounded",
     "test_submit_dedup_capacity_evicts_oldest",
+    "test_kueuectl_status_offline_renders_checkpoint",
 ]
 
 

@@ -96,7 +96,17 @@ for m in ("kueue_tpu_torch.oracle.batched",
           "kueue_tpu_torch.federation.dispatcher",
           "kueue_tpu_torch.federation.aggregator",
           "kueue_tpu_torch.bench.multikueue_worlds",
-          "kueue_tpu_torch.bench.federation_world"):
+          "kueue_tpu_torch.bench.federation_world",
+          "kueue_tpu_torch.utils.parallelize",
+          "kueue_tpu_torch.utils.cert",
+          "kueue_tpu_torch.client",
+          "kueue_tpu_torch.client.listers",
+          "kueue_tpu_torch.client.informers",
+          "kueue_tpu_torch.client.clientset",
+          "kueue_tpu_torch.client.applyconfigurations",
+          "kueue_tpu_torch.client.http_client",
+          "kueue_tpu_torch.cli.kueuectl",
+          "kueue_tpu_torch.bench.client_worlds"):
     assert m in sys.modules, m
 print("isolated")
 """
@@ -122,6 +132,12 @@ from kueue_tpu_torch.bench import multikueue_worlds as mw
 r = mw.run(dict(mw.SMALL["multikueue_world"], n_cohorts=2, n_entries=200,
                 cycles=2, lost_at=1, delete_at=2), kit=ew.port_kit("cpu"))
 assert r["manager"]["cycles"] == 2 and r["dispatched"] > 0, r["manager"]
+import tempfile
+from kueue_tpu_torch.bench import client_worlds as clw
+with tempfile.TemporaryDirectory() as work:
+    r = clw.run(dict(clw.SMALL["client_world"], n_workloads=600, cycles=6),
+                kit=ew.port_kit("cpu"), work=work, device="cpu")
+assert r["replay"]["rc"] == 0 and r["cqs_fanned"] > 0, r["replay"]
 bad = sorted(m for m in sys.modules
              if m in ("jax", "kueue_tpu") or m.startswith(("jax.", "kueue_tpu.")))
 assert not bad, bad
@@ -130,9 +146,9 @@ print("isolated")
 
 
 def test_port_world_runs_without_the_jax_package():
-    """Driving a world (phase 32's and phase 33's, at a tiny size on the
-    CPU) loads neither JAX nor the JAX package: a module found by name at
-    run time would escape the import probe above."""
+    """Driving a world (phase 32's, 33's and 35's, at a tiny size on
+    the CPU) loads neither JAX nor the JAX package: a module found by
+    name at run time would escape the import probe above."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _RUN_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True,

@@ -4,13 +4,16 @@
 ``tests/test_obs_perf.py``'s own cases run on ``ObsMirroredEngine``
 (``test_torch_obs_trace``): the histogram cases against the port's
 ``PhaseHistogram``, the attribution, digest-neutrality, device-path,
-Perfetto, SLO and debug-body cases on mirrored engines whose tracers,
-perf recorders and SLO engines must then agree (the same sub-phase names
-per mode and sample counts, the same device counters; an SLO engine fed
-the same synthetic observations evaluates to the same burn rates, and
-one fed real cycles to the same statuses and fallback burn). The
-``tools/bench_sentinel`` and ``kueuectl slo`` cases are left out: the
-sentinel is not part of the program, and ``kueuectl slo`` is not ported.
+Perfetto, SLO, debug-body and ``kueuectl slo`` cases on mirrored
+engines whose tracers, perf recorders and SLO engines must then agree
+(the same sub-phase names per mode and sample counts, the same device
+counters; an SLO engine fed the same synthetic observations evaluates to
+the same burn rates, and one fed real cycles to the same statuses and
+fallback burn). ``kueuectl slo`` renders the JAX engine with the JAX
+CLI and its twin with the port's: the same objectives, kinds, targets,
+windows and cycles observed (burn rates read each engine's wall
+durations). The ``tools/bench_sentinel`` cases are left out: the
+sentinel is not part of the program.
 
 Beyond that file: on a quarter-size ``cycle_latency`` world, on the
 serial and the default loop, the port's committed launches, host-to-
@@ -20,14 +23,17 @@ equal the JAX package's cycle by cycle (signatures themselves differ:
 counts every dispatched call, speculations that were thrown away
 included (ROADMAP trap (ar))."""
 
+import json
 import sys
 
 import pytest
 
 import test_obs_perf as ref
+from kueue_tpu.cli.kueuectl import run as jrun
 from kueue_tpu.obs import hooks as jhooks
 from kueue_tpu.obs import perf as jperf
 from kueue_tpu.visibility import server as jserver
+from kueue_tpu_torch.cli.kueuectl import run as prun
 from kueue_tpu_torch.metrics.registry import PERF_BUCKETS as P_BUCKETS
 from kueue_tpu_torch.obs import hooks as phooks
 from kueue_tpu_torch.obs import perf as pperf
@@ -110,10 +116,42 @@ def mirrored_view(name):
     return view
 
 
+def _slo_declared(text: str, as_json: bool):
+    """What two ``kueuectl slo`` renderings of mirrored engines share:
+    the objectives with their kinds and targets, the windows and the
+    cycles observed (not the wall-clock burn rates)."""
+    if as_json:
+        doc = json.loads(text)
+        return (doc["cyclesObserved"], doc["windows"],
+                {k: (v["kind"], v["target"])
+                 for k, v in doc["objectives"].items()})
+    lines = text.splitlines()
+    return lines[:3], [ln.split()[:3] for ln in lines[3:]]
+
+
+def mirrored_kueuectl_run(engine, argv):
+    """The JAX ``kueuectl run`` on ``engine``, held against the port's
+    on its twin (``slo`` renderings compare by ``_slo_declared``)."""
+    want = jrun(engine, argv)
+    port = getattr(engine, "port", None)
+    if port is not None:
+        got = prun(port, argv)
+        if argv[0] == "slo":
+            as_json = "--json" in argv
+            assert _slo_declared(got, as_json) == \
+                _slo_declared(want, as_json)
+        else:
+            assert got == want
+    return want
+
+
 @pytest.fixture
 def perf_mirrored(monkeypatch):
+    import kueue_tpu.cli.kueuectl as jkueuectl
+
     monkeypatch.setenv("KUEUE_TPU_PIPELINE", "0")
     monkeypatch.setattr(ref, "Engine", PerfMirroredEngine)
+    monkeypatch.setattr(jkueuectl, "run", mirrored_kueuectl_run)
     for name in ("trace_summary", "perf_summary", "slo_summary"):
         monkeypatch.setattr(jserver, name, mirrored_view(name))
     _ENGINES.clear()
@@ -175,6 +213,8 @@ REFERENCE_CASES = [
     ("TestQuerySurfaces", "test_perf_and_slo_debug_bodies"),
     ("TestQuerySurfaces", "test_sse_cycle_trace_carries_slo_posture"),
     ("TestQuerySurfaces", "test_fallback_reason_counters_surface"),
+    ("TestQuerySurfaces", "test_kueuectl_slo_command"),
+    ("TestQuerySurfaces", "test_kueuectl_slo_attaches_on_demand"),
 ]
 
 

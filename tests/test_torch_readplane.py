@@ -6,8 +6,9 @@ the JAX package's.
 globals (its API types, ``Engine``, the tailer, the read SLO engine, the
 read-plane classes and functions, the journal functions) are pointed at
 the port's, engines on ``device="cpu"``, and the endpoint and registry
-its HTTP cases import inside their bodies too. Left out: ``kueuectl
-explain``'s rendering (ROADMAP Queue 1 item 9). Beside them: on one
+its HTTP cases import inside their bodies too, and the ``kueuectl
+run`` its explain-provenance case imports (the port's, rendering the
+port's rebuilt engine). Beside them: on one
 journal (a backlog past quota), the port's
 ``canonical_answer`` of its rebuilt engine and of a read replica's tail
 is byte-equal to the JAX package's, and so is every ``answer_query``
@@ -61,6 +62,10 @@ def port_globals(mp) -> None:
     import kueue_tpu.visibility.http_server as jhttp
     mp.setattr(jhttp, "ServingEndpoint", phttp.ServingEndpoint)
     mp.setattr(jregistry, "MetricsRegistry", pregistry.MetricsRegistry)
+    import kueue_tpu.cli.kueuectl as jkueuectl
+
+    from kueue_tpu_torch.cli import kueuectl as pkueuectl
+    mp.setattr(jkueuectl, "run", pkueuectl.run)
 
 
 @pytest.fixture
@@ -85,6 +90,7 @@ REFERENCE_CASES = [
     "test_read_slo_none_staleness_is_a_violation",
     "test_http_read_surface_and_write_rejection",
     "test_leader_counts_read_queries_for_zero_read_proof",
+    "test_explain_on_rebuilt_engine_stamps_journal_position",
 ]
 
 
